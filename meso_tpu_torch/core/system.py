@@ -1,0 +1,308 @@
+"""System definition and the timestep (port of ``meso_tpu/core/system.py``).
+
+A step is one function of (params, state), in the hook order of the JAX
+package: initial_integrate -> post_integrate fixes -> forces -> post_force
+fixes -> final_integrate -> end_of_step fixes. Where JAX runs steps under
+``jit`` and ``lax.scan``, the port runs them in a Python loop; every tensor
+stays on the device and nothing synchronises inside the loop.
+
+Ported: model "dpd" with force_path "pallas" (the Hopper kernel) and
+"dense" (the O(N^2) oracle). Every other model, force path and bond style
+raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Tuple
+
+import torch
+
+from meso_tpu_torch.core.integrate import final_integrate, initial_integrate
+from meso_tpu_torch.core.state import State
+from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
+from meso_tpu_torch.ops.dpd import DPDParams, dense_forces
+
+_BUCKET_PATHS = ("bucket", "pallas", "pallas_banded")
+_TODO = {
+    "edpd": "eDPD is not ported yet (ROADMAP Queue 1 item 8, kernel K2)",
+    "tdpd": "tDPD is not ported yet (ROADMAP Queue 1 item 8, kernel K3)",
+    "nlist": "force_path 'nlist' is not ported yet (ROADMAP Queue 1 item 13)",
+    "bucket": "force_path 'bucket' is not ported yet (ROADMAP Queue 1 "
+              "item 13)",
+    "pallas_banded": "force_path 'pallas_banded' is not ported yet (ROADMAP "
+                     "Queue 2, kernel K6)",
+    "v2": "pair_kernel 'v2' is not ported yet (ROADMAP Queue 2, kernel K5)",
+    "bond": "bonded terms are not ported yet (ROADMAP Queue 1 item 10)",
+}
+
+
+@dataclass(frozen=True)
+class SystemParams:
+    """Pair coefficient tables + per-type masses."""
+
+    pair: DPDParams
+    mass: torch.Tensor       # (T,) per-type mass
+    inv_mass: torch.Tensor   # (T,) 1/mass
+    bonded: Any = None
+
+    @staticmethod
+    def build(pair: DPDParams, mass=1.0) -> "SystemParams":
+        n_types = pair.a.shape[0]
+        m = torch.as_tensor(mass, dtype=torch.float32, device=pair.a.device)
+        if m.ndim == 0:
+            m = torch.full((n_types,), float(m), dtype=torch.float32,
+                           device=pair.a.device)
+        return SystemParams(pair=pair, mass=m, inv_mass=1.0 / m)
+
+    def replace(self, **kw) -> "SystemParams":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class System:
+    """Static simulation configuration, with the JAX package's fields.
+
+    ``z_chunks`` and the "v3"/"v3_dynroll" choice of ``pair_kernel`` are
+    TPU lowering knobs: both "v3" variants select the Hopper kernel and
+    ``z_chunks`` is ignored. ``dd_overlap`` belongs to the domain-decomposed
+    path (ROADMAP Queue 1 item 14) and is ignored too."""
+
+    dt: float = 0.01
+    lam: float = 0.5
+    rng_mode: str = "tea"
+    rng_rounds: int = 8
+    model: str = "dpd"
+    force_path: str = "dense"
+    s_exp: float = 1.0
+    z_chunks: int = 0
+    pair_kernel: str = "v3"
+    wrap_mode: str = "step"
+    dd_overlap: bool = True
+    bond_style: str | None = None
+    n_tags: int = 0
+    n_mols: int = 0
+    frozen_types: Tuple[int, ...] = ()
+    fixes: Tuple[Any, ...] = ()
+    cells: CellConfig | None = None
+    nlist_m: int = 0
+    rc_max: float = 1.0
+
+    def replace(self, **kw) -> "System":
+        return dataclasses.replace(self, **kw)
+
+    @staticmethod
+    def for_fluid(box_lengths, rc: float, density: float, dt: float = 0.01,
+                  skin: float = 0.3, rebuild_every: int = 10,
+                  spill: bool = False, rebuild: str = "gather",
+                  capacity: int | None = None, **kw) -> "System":
+        """Convenience constructor sizing cells and list capacity from
+        density."""
+        from meso_tpu_torch.neighbor.nlist import neighbor_capacity
+        cfg = CellConfig.for_box(
+            box_lengths, rc, density, skin=skin,
+            rebuild_every=rebuild_every, spill=spill, rebuild=rebuild,
+            capacity=capacity,
+            wrap_at_rebuild=kw.get("wrap_mode", "step") == "rebuild")
+        m = neighbor_capacity(density, rc, skin)
+        return System(dt=dt, force_path="nlist", cells=cfg, nlist_m=m,
+                      rc_max=rc, **kw)
+
+
+def _move_mask(system: System, typ, mask):
+    mm = mask
+    for t in system.frozen_types:
+        mm = mm & (typ != t)
+    return mm
+
+
+def _per_type(table: torch.Tensor, typ: torch.Tensor) -> torch.Tensor:
+    """Per-particle value from a (T,) per-type table; a single-type table
+    stays (1,) and broadcasts."""
+    if table.shape[0] == 1:
+        return table[:1]
+    return table[typ.long()]
+
+
+def compute_forces(system: System, params: SystemParams, state: State,
+                   x, v, step: int, nlist_idx=None, t=None, c=None,
+                   need_virial: bool = True):
+    """Dispatch to the configured model and force path. Returns (f, aux);
+    aux carries 'virial'."""
+    if system.model != "dpd":
+        raise NotImplementedError(
+            _TODO.get(system.model, f"model {system.model!r}"))
+    if system.force_path == "dense":
+        f, virial, _ = dense_forces(
+            x, v, state.typ, state.tag, state.mask, state.box, step,
+            params.pair, system.dt, rng_mode=system.rng_mode,
+            rng_rounds=system.rng_rounds)
+        return f, {"virial": virial}
+    if system.force_path == "pallas":
+        if not system.pair_kernel.startswith("v3"):
+            raise NotImplementedError(
+                _TODO.get(system.pair_kernel,
+                          f"pair_kernel {system.pair_kernel!r}"))
+        from meso_tpu_torch.kernels.pair_dpd_v3 import bucket_forces_pallas_v3
+        f, virial = bucket_forces_pallas_v3(
+            x, v, state.typ, state.tag, state.mask, state.box, step,
+            params.pair, system.dt, system.cells,
+            rng_mode=system.rng_mode, rng_rounds=system.rng_rounds,
+            s_exp=system.s_exp, z_chunks=system.z_chunks,
+            need_virial=need_virial)
+        return f, {"virial": virial}
+    raise NotImplementedError(
+        _TODO.get(system.force_path, f"force_path {system.force_path!r}"))
+
+
+def _post_forces(system: System, params: SystemParams, state: State,
+                 x, v_tilde, f):
+    """post_force fix hooks. Bonded terms are not ported yet."""
+    if system.bond_style is not None:
+        raise NotImplementedError(_TODO["bond"])
+    for fx in system.fixes:
+        if hasattr(fx, "post_force"):
+            f = fx.post_force(system, params, state, x, v_tilde, f)
+    return f
+
+
+def make_step(system: System, with_aux: bool = False):
+    """Build the one-step function for this system.
+
+    with_aux=True: step_fn returns (state, aux) with the pair 'virial'."""
+    wrap_each_step = system.wrap_mode != "rebuild"
+    if not wrap_each_step:
+        if system.force_path not in _BUCKET_PATHS:
+            raise ValueError("wrap_mode='rebuild' requires a "
+                             "bucket-resident force path")
+        if any(hasattr(fx, "post_integrate") for fx in system.fixes):
+            raise ValueError("wrap_mode='rebuild' is incompatible with "
+                             "post_integrate fixes (walls need in-box "
+                             "positions every step)")
+    if system.model != "dpd":
+        raise NotImplementedError(
+            _TODO.get(system.model, f"model {system.model!r}"))
+
+    def step_fn(params: SystemParams, state: State, nlist_idx=None):
+        inv_m = _per_type(params.inv_mass, state.typ)
+        move = _move_mask(system, state.typ, state.mask)
+        new_step = state.step + 1
+
+        x1, image1, v_tilde = initial_integrate(
+            state.x, state.v, state.f, state.image, state.box,
+            system.dt, system.lam, inv_m, move, wrap=wrap_each_step)
+
+        for fx in system.fixes:
+            if hasattr(fx, "post_integrate"):
+                x1, image1, v_tilde = fx.post_integrate(
+                    system, params, state, x1, image1, v_tilde)
+
+        # forces at (x', v~); the RNG counter is the new step. The virial
+        # is computed only when the caller reads it (the JAX package also
+        # keeps it on under wrap_mode="rebuild", for a TPU lowering reason
+        # that does not apply here; forces are the same either way).
+        f_new, aux = compute_forces(system, params, state, x1, v_tilde,
+                                    new_step, nlist_idx, t=state.T,
+                                    c=state.C, need_virial=with_aux)
+        f_new = _post_forces(system, params, state, x1, v_tilde, f_new)
+
+        v1 = final_integrate(state.v, state.f, f_new, system.dt, inv_m, move)
+        new_state = state.replace(x=x1, v=v1, f=f_new, image=image1,
+                                  step=new_step)
+        for fx in system.fixes:
+            if hasattr(fx, "end_of_step"):
+                new_state = fx.end_of_step(system, params, new_state)
+        if with_aux:
+            return new_state, {"virial": aux["virial"]}
+        return new_state
+
+    return step_fn
+
+
+def setup(system: System, params: SystemParams, state: State) -> State:
+    """Initial force evaluation (the Verlet::setup analog)."""
+    if system.force_path in _BUCKET_PATHS:
+        from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
+        state = to_bucket_state(state, system.cells)
+    elif system.force_path != "dense":
+        raise NotImplementedError(
+            _TODO.get(system.force_path, f"force_path {system.force_path!r}"))
+    f0, _ = compute_forces(system, params, state, state.x, state.v,
+                           state.step, t=state.T, c=state.C)
+    f0 = _post_forces(system, params, state, state.x, state.v, f0)
+    return state.replace(f=f0)
+
+
+def _bucket_chunk(system: System, params: SystemParams, state: State,
+                  steps_per_chunk: int, thermo_trace: bool = True):
+    """One (rebuild + steps) chunk. Returns (state, overflow, max
+    displacement, (kT trace, virial trace)); thermo_trace=False skips the
+    per-step reductions and returns empty traces."""
+    from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
+    from meso_tpu_torch.obs.thermo import kinetic_temperature
+
+    step_fn = make_step(system, with_aux=thermo_trace)
+    state, of = rebuild_buckets(state, system.cells)
+    x_ref = state.x
+    kts, virs = [], []
+    if thermo_trace:
+        mass = _per_type(params.mass, state.typ)
+        for _ in range(steps_per_chunk):
+            state, aux = step_fn(params, state)
+            kts.append(kinetic_temperature(state.v, mass, state.mask))
+            virs.append(aux["virial"])
+        trace = (torch.stack(kts), torch.stack(virs))
+    else:
+        for _ in range(steps_per_chunk):
+            state = step_fn(params, state)
+        z = torch.zeros((0,), dtype=torch.float32, device=state.device)
+        trace = (z, z)
+    disp = torch.sqrt(max_displacement_sq(state.x, x_ref, state.mask,
+                                          state.box))
+    return state, of, disp, trace
+
+
+def run_bucket_chunked(system: System, params: SystemParams, state: State,
+                       nchunks: int, steps_per_chunk: int,
+                       max_trace_steps: int = 100_000,
+                       thermo_trace: bool = True):
+    """Host loop over (rebuild + steps) chunks — the production loop.
+
+    Per-step kT/virial traces are bounded: only the last
+    ``max_trace_steps`` steps are kept, and the overflow and displacement
+    scalars of dropped chunks fold into high-water marks."""
+    half_skin = float(system.cells.skin * 0.5)
+    max_trace_chunks = max(1, max_trace_steps // max(steps_per_chunk, 1))
+    ofs, disps, kts, virs = [], [], [], []
+    of_hwm = disp_hwm = None
+    for _ in range(nchunks):
+        state, of, disp, (kt, vir) = _bucket_chunk(
+            system, params, state, steps_per_chunk,
+            thermo_trace=thermo_trace)
+        ofs.append(of)      # device scalars; no host sync inside the loop
+        disps.append(disp)
+        kts.append(kt)
+        virs.append(vir)
+        if len(kts) > max_trace_chunks:
+            kts.pop(0)
+            virs.pop(0)
+            of_old, disp_old = ofs.pop(0), disps.pop(0)
+            of_hwm = of_old if of_hwm is None else torch.maximum(of_hwm,
+                                                                 of_old)
+            disp_hwm = (disp_old if disp_hwm is None
+                        else torch.maximum(disp_hwm, disp_old))
+    if of_hwm is not None:
+        ofs.append(of_hwm)
+        disps.append(disp_hwm)
+    kt_trace = torch.cat(kts)
+    vir_trace = torch.cat(virs)
+    # P = (sum m v^2 + virial) / (3V) with sum m v^2 = dof*kT ~ 3(N-1) kT
+    n = torch.sum(state.mask.to(torch.float32))
+    vol = torch.prod(state.box.lengths)
+    p_trace = (3.0 * (n - 1.0) * kt_trace + vir_trace) / (3.0 * vol)
+    return state, {"bucket_overflow": torch.max(torch.stack(ofs)),
+                   "worst_skin_ratio": torch.max(torch.stack(disps))
+                   / half_skin,
+                   "kt_trace": kt_trace, "virial_trace": vir_trace,
+                   "pressure_trace": p_trace}

@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` file under ``meso_tpu_torch/csrc/`` is compiled with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, which is
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
+library goes into ``build/meso_tpu_torch/`` at the repository root, named by
+a hash of the sources and flags, at first use; a later call with the same
+sources loads it without compiling. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "meso_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+SIGNATURES = {
+    # tag, h, n, step, seed, rounds, stream
+    "meso_particle_hash": (_P, _P, _I, _U, _U, _I, _P),
+    # x, v, tag, valid, h, a, gamma, sigma, rc, box_lo, box_hi, f, vir,
+    # nx, ny, nz, k, xr, min_image, tea, need_virial, dt_inv_sqrt,
+    # step, seed, rounds, stream
+    "meso_pair_dpd_v3": (_P,) * 13 + (_I,) * 8 + (_F, _U, _U, _I, _P),
+}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc from CUDA_HOME, PyTorch's CUDA_HOME, or PATH."""
+    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    from torch.utils import cpp_extension
+    homes.append(cpp_extension.CUDA_HOME)
+    for home in homes:
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (looked in CUDA_HOME, torch's CUDA_HOME and PATH): "
+        "the CUDA kernels of meso_tpu_torch cannot be built")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path(nvcc: str) -> Path:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc.encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmeso_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if no library for them exists; return its path.
+    The compiler's register and spill report is kept beside it (``.log``)."""
+    nvcc = find_nvcc()
+    out = library_path(nvcc)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every C
+    function's argument and return types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")

@@ -1,0 +1,125 @@
+"""Classic Groot-Warren DPD pair forces (port of ``meso_tpu/ops/dpd.py``).
+
+    F_ij = [a w - gamma w^2 (e.v_ij) + sigma w theta_ij / sqrt(dt)] e,
+    w(r) = 1 - r/rc,  sigma^2 = 2 gamma kT.
+
+``dense_forces`` is the port's own O(N^2) oracle for the bucket kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+import torch
+
+from meso_tpu_torch.core import rng as rngmod
+from meso_tpu_torch.core.box import Box
+
+
+@dataclass(frozen=True)
+class DPDParams:
+    """Per-type-pair coefficient tables.
+
+    The (T, T) tables are float32 tensors on the simulation device. ``seed``
+    is the uint32 value of the global RNG seed, held as a Python int; ``kt``
+    and ``s_exp`` are Python floats. ``excl``/``excl_w`` (special-bonds
+    exclusions) exist for the bonded models and are not ported yet."""
+
+    a: torch.Tensor
+    gamma: torch.Tensor
+    sigma: torch.Tensor
+    rc: torch.Tensor
+    kt: float
+    seed: int
+    s_exp: float = 1.0
+    excl: torch.Tensor | None = None
+    excl_w: torch.Tensor | None = None
+
+    @staticmethod
+    def build(a, gamma, rc, kt: float, seed: int, n_types: int = 1,
+              s_exp: float = 1.0, device=None) -> "DPDParams":
+        def table(val):
+            arr = torch.as_tensor(val, dtype=torch.float32, device=device)
+            if arr.ndim == 0:
+                arr = torch.full((n_types, n_types), float(arr),
+                                 dtype=torch.float32, device=device)
+            return arr
+        a_t, g_t, rc_t = table(a), table(gamma), table(rc)
+        kt32 = torch.tensor(kt, dtype=torch.float32, device=device)
+        return DPDParams(a=a_t, gamma=g_t, sigma=torch.sqrt(2.0 * kt32 * g_t),
+                         rc=rc_t, kt=float(kt), seed=int(seed) & 0xFFFFFFFF,
+                         s_exp=float(s_exp))
+
+    @property
+    def n_types(self) -> int:
+        return self.a.shape[0]
+
+    def to(self, device) -> "DPDParams":
+        return dataclasses.replace(
+            self, a=self.a.to(device), gamma=self.gamma.to(device),
+            sigma=self.sigma.to(device), rc=self.rc.to(device))
+
+    def replace(self, **kw) -> "DPDParams":
+        return dataclasses.replace(self, **kw)
+
+
+def pair_force(dr, vij, theta, a, gamma, sigma, rc, dt_inv_sqrt: float,
+               s_exp: float):
+    """Groot-Warren force for a batch of pairs.
+
+    dr, vij: (..., 3); theta, a, gamma, sigma, rc: (...). Returns the force
+    on particle i (zero where r >= rc or r == 0) and 0.5 * dr.f per pair."""
+    r2 = torch.sum(dr * dr, dim=-1)
+    inside = (r2 < rc * rc) & (r2 > 0.0)
+    r2s = torch.where(inside, r2, torch.ones_like(r2))
+    rinv = torch.rsqrt(r2s)
+    r = r2s * rinv
+    w = 1.0 - r / rc
+    wr = w if s_exp == 1.0 else torch.pow(w, s_exp)
+    wd = wr * wr
+    ev = torch.sum(dr * vij, dim=-1) * rinv
+    fmag = a * w - gamma * wd * ev + sigma * wr * theta * dt_inv_sqrt
+    fmag = torch.where(inside, fmag, torch.zeros_like(fmag))
+    f = (fmag * rinv)[..., None] * dr
+    return f, 0.5 * fmag * r
+
+
+def _theta_dense(tag, step: int, params: DPDParams, rng_mode: str,
+                 rng_rounds: int):
+    """(N, N) symmetric noise matrix for the dense path."""
+    if rng_mode == "tea":
+        return rngmod.pair_uniform_tea(tag[:, None], tag[None, :], step,
+                                       params.seed, rounds=rng_rounds)
+    if rng_mode == "fast":
+        h = rngmod.particle_hash(tag, step, params.seed, rounds=rng_rounds)
+        return rngmod.pair_uniform_fast(h[:, None], h[None, :])
+    raise ValueError(f"unknown rng_mode {rng_mode!r}")
+
+
+def dense_forces(x, v, typ, tag, mask, box: Box, step: int,
+                 params: DPDParams, dt: float, rng_mode: str = "tea",
+                 rng_rounds: int = 8):
+    """O(N^2) reference force evaluation. Returns (f, virial, n_neighbors)."""
+    if params.excl is not None:
+        raise NotImplementedError(
+            "special-bonds exclusions: ROADMAP Queue 1 item 10 (bonded)")
+    n = x.shape[0]
+    dr = box.min_image(x[:, None, :] - x[None, :, :])
+    vij = v[:, None, :] - v[None, :, :]
+    theta = _theta_dense(tag, step, params, rng_mode, rng_rounds)
+    ti, tj = typ[:, None].long(), typ[None, :].long()
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    valid = (mask[:, None] & mask[None, :]) & ~eye
+    rc = torch.where(valid, params.rc[ti, tj],
+                     torch.zeros((), device=x.device))
+    dt_inv_sqrt = 1.0 / math.sqrt(dt)
+    f_pair, vir_half = pair_force(dr, vij, theta, params.a[ti, tj],
+                                  params.gamma[ti, tj], params.sigma[ti, tj],
+                                  rc, dt_inv_sqrt, params.s_exp)
+    f = torch.sum(f_pair, dim=1)
+    virial = torch.sum(vir_half)
+    r2 = torch.sum(dr * dr, dim=-1)
+    n_neigh = torch.sum(valid & (r2 < rc * rc) & (r2 > 0.0), dim=1)
+    return f, virial, n_neigh
