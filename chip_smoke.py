@@ -1,28 +1,57 @@
 #!/usr/bin/env python3
 """Smoke run of meso_tpu_torch on one NVIDIA card (built for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only | --decay-from FILE]
 
 Phases, one line of output each (any failure raises and exits non-zero):
 
 1. environment: torch, CUDA, nvcc, CUDA_HOME, triton, the card and its
    power limit; a card is required;
-2. build: compile meso_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+2. build: compile meso_tpu_torch/csrc/*.cu with nvcc for sm_90a, one nvcc
+   per source, all at once;
 3. kernels against their plain torch versions on the card: the hash kernel
-   bitwise; the pair kernel at l=8 in every covered case (fast/tea RNG x
-   spill/strict x min-image/no-min-image x virial on/off) and at the
-   1M-particle main-path shape (L=70, 2,000,000 bucket rows), with both
-   times;
-4. main path: classic_fluid(l=70) through run_bucket_chunked, 399
+   bitwise; the classic pair kernel K1 at l=8 in every covered case
+   (fast/tea RNG x spill/strict x min-image/no-min-image x virial on/off)
+   and at the 1M-particle main-path shape (L=70, 2,000,000 bucket rows),
+   with both times;
+4. kernels-transport-l8: the uniform_stream device helper bitwise; the eDPD
+   and tDPD kernels K2 and K3 against their plain versions and the port's
+   dense oracles in every covered case (fast/tea x spill/strict x
+   min-image/no-min-image), K3 both with two species (rcc 0.8, s1 2) and
+   with one species, rcc = rc = 1, s1 = 1, as the tDPD path runs it;
+5. kernels-transport-l70: K2 and both K3 cases at the 1M shape against
+   their plain versions, with their times, the plain times and K1's time
+   on the same rows; then K2 and K3 on each 1M path's own inputs (its
+   builder's state at set-up, its capacity and its coefficients), whose
+   numbers the kernels' record reports;
+6. main path: classic_fluid(l=70) through run_bucket_chunked, 399
    equilibration steps, 201 timed steps, then a traced window, in rounds
    of 300 steps, until the kT average has at least 10 effective samples;
    checks launch counts, overflow (every window), skin ratio (the timed
    window, as bench.py checks it; the others are reported), finiteness
-   and kT within 1% of 1 at 3 sigma.
+   and kT within 1% of 1 at 3 sigma;
+7. transport-physics: the JAX package's eDPD/tDPD physics gates
+   (tests/physics/test_transport.py) at its sizes, through the kernels:
+   energy conservation of a free eDPD fluid, the Fourier slab profile, the
+   decay of a tDPD cosine mode from six starts (its rate held against the
+   JAX dense path's) and sum C under the random flux;
+8. transport-full: edpd_slab(l=70) and tdpd_diffusion(l=70) from their
+   default starts, 1,029,000 particles each, 100 equilibration and 200
+   timed steps each, a sort rebuild every 2 steps, with launch counts,
+   overflow, skin ratio, finiteness, T within (0.3, 3) and the drift of
+   sum C checked;
+9. profile: torch.profiler over 10 chunks of each 1M path, device time per
+   kernel and the card's busy share.
 
-The last three lines are the kernels' JSON record, the card's name and
-power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
-number is also written to build/chip_smoke.json.
+``--kernels-only`` stops after phase 5. ``--decay-from FILE`` runs only
+the tDPD decay from the JAX package's starts in FILE, against the JAX
+rates stored beside them (see phase_decay_from).
+
+Launch counts are set to 0 just before each path (6, and each model of 8)
+is driven and read just after. The last three lines are the kernels' JSON
+record, the card's name and power limit from nvidia-smi, and
+{"ok": true, "device": {...}}. Every number is also written to
+build/chip_smoke.json.
 """
 
 import json
@@ -38,6 +67,42 @@ SKIN, EVERY, LAM = 0.4, 3, 0.65
 EQUIL_CHUNKS, TIMED_CHUNKS, TRACE_CHUNKS = 133, 67, 100
 MAX_TRACE_ROUNDS = 20
 MIN_N_EFF = 10.0
+# transport-full: 50 + 100 chunks of 2 steps = 100 + 200 steps. With
+# EVERY = 3 the eDPD run's worst skin ratio in its timed window was 1.035
+# on an H100 (PERF.md): the energy-conserving fluid's internal
+# temperatures spread as T^2/cv and fatten the velocity tail, so its full
+# runs rebuild every 2 steps.
+TRANSPORT_EVERY = 2
+TRANSPORT_EQUIL_CHUNKS, TRANSPORT_TIMED_CHUNKS = 50, 100
+PROFILE_CHUNKS = 10
+# transport-physics, tDPD decay: tdpd_diffusion(l=8, kappa_c=2) from these
+# starts. Its decay rate per 100 steps is held against the JAX package's
+# dense path on a CPU: 0.3591, the mean over JAX init_seeds 0-11 (standard
+# deviation 0.0037, range 0.354-0.367), which the slow test
+# tests/test_torch_transport_decay.py recomputes, beside the port's rate
+# from one of those starts. Tolerances: 5% per start, 3% in the mean.
+TDPD_DECAY_SEEDS = (0, 1, 2, 3, 4, 5)
+TDPD_DECAY_RATE_JAX = 0.3591
+TDPD_DECAY_RATE_TOL, TDPD_DECAY_MEAN_TOL = 0.05, 0.03
+# --decay-from: the card's rate against JAX's from the same start
+DECAY_SAME_START_TOL = 0.02
+
+# The least time a kernel could take (bound_ms): the larger of its bytes
+# (each input read once, each output written once) over the card's memory
+# rate and its operations over the fp32 rate outside the tensor cores (the
+# NVIDIA H100 SXM data sheet). Integer
+# operations are counted at the same rate; the card's int32 rate is lower,
+# so the bound stays a lower bound. Operations per in-range pair, counted
+# from the CUDA sources (arithmetic after the cutoff test; the candidate
+# tests are not counted): K1 33 fp32 + 11 integer (the hash mix); K2 74
+# fp32 (with 3 divisions, 2 sqrt) + 33 integer (mix and two streams); K3
+# 34 fp32 + 22 integer, plus, inside rcc, 4 fp32 and per species 10 fp32
+# + 11 integer. The hash: ~20 integer operations per TEA round per row.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_PAIR = {"pair_dpd_v3": 44, "pair_edpd_v3": 107}
+TDPD_OPS_PER_PAIR, TDPD_OPS_PER_RCC_PAIR, TDPD_OPS_PER_SPECIES = 56, 4, 21
+HASH_OPS_PER_ROUND = 20
 
 
 def run(cmd):
@@ -112,6 +177,150 @@ def compare_forces(f_k, vir_k, f_p, vir_p, mask, min_image, label):
         raise AssertionError(f"{label}: rel {rel:.3g} (< {tol}), pad {pad}, "
                              f"virial rel {vrel:.3g} (< {vtol})")
     return err, rel, vrel
+
+
+def bound(tensors_in, tensors_out, ops):
+    """(bound_ms, bound_by) of a kernel from its inputs, outputs and
+    operation count."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in list(tensors_in) + list(tensors_out))
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pair_counts(bst, cfg, rcc=None):
+    """Ordered pairs inside rc (and inside rcc) that this state's rows
+    give the kernels: the plain versions' own candidate walk."""
+    from meso_tpu_torch.kernels.pair_dpd_v3 import _stencil_pairs
+    n_rc = n_rcc = 0
+    for _, _, _, r2 in _stencil_pairs(bst.x, bst.mask, bst.box, cfg, 1.0):
+        n_rc += int(r2.numel())
+        if rcc is not None:
+            n_rcc += int((r2 < rcc * rcc).sum())
+    return n_rc, n_rcc
+
+
+def with_fields(bst):
+    """The state with the transport tests' fields: T = 1 + 0.3 sin x and
+    two species C = (1 + 0.5 cos x, 0.5 + 0.2 sin y), zero on pad rows."""
+    import torch
+    m = bst.mask
+    t = torch.where(m, 1.0 + 0.3 * torch.sin(bst.x[:, 0]), 0.0)
+    c = torch.stack([1.0 + 0.5 * torch.cos(bst.x[:, 0]),
+                     0.5 + 0.2 * torch.sin(bst.x[:, 1])], -1)
+    return bst.replace(T=t.contiguous(),
+                       C=torch.where(m[:, None], c, 0.0).contiguous())
+
+
+def mode_amplitudes(x0, c, l):
+    """The cosine mode's amplitude along x of one species' C, two ways:
+    2<(C - mean C) cos kx>, and the JAX test's 2<C cos kx>
+    (tests/physics/test_transport.py:77-80). The second carries
+    2 mean(C) <cos kx>, a sampling term of the random positions alone of
+    size sqrt(2/N) ~ 0.036 at N = 1536: as large as the mode itself after
+    600 steps. The first drops that term exactly."""
+    import numpy as np
+    cos_kx = np.cos(2 * np.pi * x0 / l)
+    return (float(2 * np.mean((c - c.mean()) * cos_kx)),
+            float(2 * np.mean(c * cos_kx)))
+
+
+def decay_fit(amps):
+    """The JAX test's decay assertions on an amplitude series sampled every
+    100 steps (test_transport.py:84-98): (they hold, the decay rate per 100
+    steps from the log-linear fit, the fit's largest residual)."""
+    import numpy as np
+    amps = np.asarray(amps, dtype=float)
+    tt = np.arange(len(amps), dtype=float)
+    log_a = np.log(np.maximum(amps, 1e-9))
+    k, b = np.polyfit(tt, log_a, 1)
+    resid = float(np.abs(log_a - (k * tt + b)).max())
+    ok = bool(amps[0] > 0.3 and (np.diff(amps) < 0).all()
+              and amps[-1] < 0.5 * amps[0] and resid < 0.25)
+    return ok, float(-k), resid
+
+
+def transport_path(model):
+    """The 1M transport path through its builder, as transport-full runs it:
+    edpd_slab or tdpd_diffusion at L=70 from the default start (with the
+    capacity fit_capacity gives that start), the sort rebuild. Returns
+    (system, params, state) at set-up."""
+    from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
+    if model == "edpd":
+        system, params, state = edpd_slab(
+            l=L_MAIN, kappa=2.0, cv=30.0, t_hot=1.3, t_cold=0.7,
+            force_path="pallas", skin=SKIN, device=DEVICE)
+    else:
+        system, params, state = tdpd_diffusion(
+            l=L_MAIN, kappa_c=2.0, force_path="pallas", skin=SKIN,
+            device=DEVICE)
+    return (system.replace(cells=system.cells.replace(rebuild="sort")),
+            params, state)
+
+
+def transport_params():
+    """The kernel checks' coefficients: the JAX transport tests' eDPD and
+    two-species tDPD (rcc 0.8, s1 2), and "tdpd_1species", the layout
+    and branch the tDPD path gives K3: one species, rcc = rc = 1, s1 = 1,
+    tdpd_diffusion's kappa_c and seed, with the random flux on (eps_c 0.3,
+    as the random-flux run of transport-physics)."""
+    from meso_tpu_torch.ops.edpd import EDPDParams
+    from meso_tpu_torch.ops.tdpd import TDPDParams
+    return {"edpd": EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.5,
+                                     cv=10.0, seed=7, device=DEVICE),
+            "tdpd": TDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                                     kappa_c=[1.0, 0.5], eps_c=[0.1, 0.05],
+                                     rcc=0.8, s1=2.0, seed=5, device=DEVICE),
+            "tdpd_1species": TDPDParams.build(
+                a=25.0, gamma=4.5, rc=1.0, kt=1.0, kappa_c=[2.0],
+                eps_c=[0.3], rcc=1.0, seed=441, device=DEVICE)}
+
+
+def transport_fns(model):
+    """(kernel wrapper, plain version, dense oracle, the state's input to
+    the kernel: T, both species of C, or the first species alone)."""
+    from meso_tpu_torch.kernels import pair_dpd_v3 as kern
+    from meso_tpu_torch.ops.edpd import dense_forces_edpd
+    from meso_tpu_torch.ops.tdpd import dense_forces_tdpd
+    if model == "edpd":
+        return (kern.bucket_forces_pallas_v3_edpd,
+                kern.bucket_forces_v3_edpd_plain, dense_forces_edpd,
+                lambda bst: bst.T)
+    return (kern.bucket_forces_pallas_v3_tdpd,
+            kern.bucket_forces_v3_tdpd_plain, dense_forces_tdpd,
+            (lambda bst: bst.C) if model == "tdpd"
+            else (lambda bst: bst.C[:, :1].contiguous()))
+
+
+def compare_transport(got, want, mask, min_image, label):
+    """K2/K3 against a reference (f, flux, virial) with the JAX transport
+    tests' bounds: f 2e-5 (5e-5 without min-image), flux 5e-5, virial 1e-4
+    (1e-3), pad rows exactly 0, and per-species sum of dC/dt over max
+    |dC/dt| below 5e-5 (tDPD)."""
+    import torch
+    (f_k, q_k, vir_k), (f_p, q_p, vir_p) = got, want
+    rel = ((f_k - f_p)[mask].abs().max() / f_p[mask].abs().max()).item()
+    q_scale = q_p[mask].abs().max().item()
+    qrel = (q_k - q_p)[mask].abs().max().item() / q_scale
+    pad = (max(f_k[~mask].abs().max().item(),
+               q_k[~mask].abs().max().item())
+           if bool((~mask).any()) else 0.0)
+    vrel = abs(vir_k.item() - vir_p.item()) / abs(vir_p.item())
+    qsum = (q_k[mask].sum(0).abs().max().item() / q_scale
+            if q_k.ndim == 2 else 0.0)
+    tol, vtol = (2e-5, 1e-4) if min_image else (5e-5, 1e-3)
+    finite = bool(torch.isfinite(f_k).all() and torch.isfinite(q_k).all())
+    if not (finite and rel < tol and qrel < 5e-5 and pad == 0.0
+            and vrel < vtol and qsum < 5e-5):
+        raise AssertionError(
+            f"{label}: f rel {rel:.3g} (< {tol}), flux rel {qrel:.3g} "
+            f"(< 5e-5), pad {pad}, virial rel {vrel:.3g} (< {vtol}), "
+            f"species sum {qsum:.3g} (< 5e-5), finite {finite}")
+    return {"max_abs_err": max((f_k - f_p)[mask].abs().max().item(),
+                               (q_k - q_p)[mask].abs().max().item()),
+            "rel": rel, "flux_rel": qrel, "virial_rel": vrel,
+            "species_sum_rel": qsum}
 
 
 def phase_env():
@@ -245,11 +454,440 @@ def phase_kernels():
             bst.tag, step, params.seed), 20),
         "rebuild_sort_ms": timed_ms(lambda: rebuild_buckets(bst, cfg), 10),
     }
+    n_rc, _ = pair_counts(bst, cfg)
+    # K1 as timed (need_virial off): x, v, tag, mask, h in, f out; the
+    # hash: tag in, h out
+    pair_bound = bound([bst.x, bst.v, bst.tag, bst.mask, bst.tag], [f_k],
+                       OPS_PER_PAIR["pair_dpd_v3"] * n_rc)
+    hash_bound = bound([bst.tag], [bst.tag], bst.n * 8 * HASH_OPS_PER_ROUND)
     out["l70"] = {"n": n, "nr": bst.n, "ncell": list(cfg.ncell),
-                  "capacity": cfg.capacity, "max_abs_err": err, "rel": rel,
-                  "virial_rel": vrel, "hash_max_abs_err": hash_err, **ms}
+                  "capacity": cfg.capacity, "pairs_in_rc": n_rc,
+                  "max_abs_err": err, "rel": rel,
+                  "virial_rel": vrel, "hash_max_abs_err": hash_err, **ms,
+                  "pair_bound_ms": pair_bound[0],
+                  "pair_bound_by": pair_bound[1],
+                  "hash_bound_ms": hash_bound[0],
+                  "hash_bound_by": hash_bound[1]}
     say("kernels-l70", **out["l70"])
     return out
+
+
+def phase_transport_kernels():
+    """K2 and K3 against their plain versions and the port's dense oracles
+    at l=8, then at the 1M shape with their times and K1's on the same
+    rows."""
+    import torch
+    from meso_tpu_torch.core import rng
+    from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
+                                                    bucket_forces_v3_plain,
+                                                    uniform_stream_v3)
+    from meso_tpu_torch.ops.dpd import DPDParams
+    out = {"l8": []}
+    params = transport_params()
+    step = 12
+
+    # the device uniform_stream helper, bitwise, on random and edge hashes
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    h = torch.cat([torch.randint(0, 2 ** 32, (1 << 20,), generator=gen,
+                                 dtype=torch.int64, device=DEVICE),
+                   torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1],
+                                dtype=torch.int64, device=DEVICE)])
+    for salt in range(10):
+        if not torch.equal(uniform_stream_v3(h, salt).view(torch.int32),
+                           rng.uniform_stream(h, salt).view(torch.int32)):
+            raise AssertionError(f"uniform_stream kernel != plain (salt "
+                                 f"{salt})")
+
+    for spill in (True, False):
+        for min_image in (False, True):
+            l, n = (8.0, 1536) if spill else (5.0, 500)
+            bst, cfg = bucket_case(l, n, spill, min_image)
+            bst = with_fields(bst)
+            m = bst.mask
+            idx = torch.nonzero(m).squeeze(1)
+            for model in params:
+                fn, plain, dense, field = transport_fns(model)
+                fld = field(bst)
+                for rng_mode in ("fast", "tea"):
+                    label = (f"{model} l{l:g} {rng_mode} spill={spill} "
+                             f"min_image={min_image}")
+                    got = fn(bst.x, bst.v, fld, bst.typ, bst.tag, m, bst.box,
+                             step, params[model], 0.01, cfg,
+                             rng_mode=rng_mode)
+                    torch.cuda.synchronize()
+                    want = plain(bst.x, bst.v, fld, bst.tag, m, bst.box, step,
+                                 params[model], 0.01, cfg, rng_mode)
+                    rec = compare_transport(got, want, m, min_image, label)
+                    # and the port's dense oracle over the valid rows
+                    f_d, q_d, vir_d = dense(
+                        bst.x[idx], bst.v[idx], fld[idx], bst.typ[idx],
+                        bst.tag[idx], m[idx], bst.box, step, params[model],
+                        0.01, rng_mode=rng_mode)
+                    dense_rec = compare_transport(
+                        (got[0][idx], got[1][idx], got[2]),
+                        (f_d, q_d, vir_d), m[idx], min_image,
+                        label + " vs dense")
+                    out["l8"].append({"case": label, **rec,
+                                      "dense_rel": dense_rec["rel"],
+                                      "dense_flux_rel":
+                                          dense_rec["flux_rel"]})
+    say("kernels-transport-l8", cases=len(out["l8"]),
+        worst_rel=max(c["rel"] for c in out["l8"]),
+        worst_flux_rel=max(c["flux_rel"] for c in out["l8"]),
+        worst_dense_rel=max(c["dense_rel"] for c in out["l8"]),
+        worst_dense_flux_rel=max(c["dense_flux_rel"] for c in out["l8"]))
+
+    # the 1M shape of the transport builders: spill, fast, min-image
+    n = int(round(3.0 * L_MAIN ** 3))
+    bst, cfg = bucket_case(L_MAIN, n, True, True)
+    bst = with_fields(bst)
+    rcc = params["tdpd"].rcc
+    n_rc, n_rcc_2sp = pair_counts(bst, cfg, rcc=rcc)
+    n_rcc = {rcc: n_rcc_2sp, 1.0: n_rc}
+    rec = {"n": n, "nr": bst.n, "pairs_in_rc": n_rc,
+           "pairs_in_rcc": n_rcc_2sp}
+    for model in params:
+        fn, plain, _, field = transport_fns(model)
+        fld = field(bst)
+        args = (bst.x, bst.v, fld, bst.typ, bst.tag, bst.mask, bst.box, step,
+                params[model], 0.01, cfg)
+        got = fn(*args)
+        want = plain(bst.x, bst.v, fld, bst.tag, bst.mask, bst.box, step,
+                     params[model], 0.01, cfg)
+        rec[model] = compare_transport(got, want, bst.mask, True,
+                                       f"{model} L70")
+        rec[model]["ms"] = timed_ms(lambda: fn(*args), 20)
+        rec[model]["plain_ms"] = timed_ms(
+            lambda: plain(bst.x, bst.v, fld, bst.tag, bst.mask, bst.box,
+                          step, params[model], 0.01, cfg), 3)
+        # inputs x, v, the field, tag, mask and h (int32, the size of tag)
+        ins = [bst.x, bst.v, fld, bst.tag, bst.mask, bst.tag]
+        if model == "edpd":
+            ops = OPS_PER_PAIR["pair_edpd_v3"] * n_rc
+        else:
+            ns = params[model].n_species
+            ops = (TDPD_OPS_PER_PAIR * n_rc
+                   + (TDPD_OPS_PER_RCC_PAIR + TDPD_OPS_PER_SPECIES * ns)
+                   * n_rcc[params[model].rcc])
+        # outputs: f, the flux and the per-row virial
+        outs = [got[0], got[1], got[1].new_empty(bst.n)]
+        rec[model]["bound_ms"], rec[model]["bound_by"] = bound(ins, outs, ops)
+    # each path's own inputs at set-up: its builder's state and capacity
+    # and its coefficients, at the first step's counter; the kernels'
+    # record reads these
+    for model in ("edpd", "tdpd"):
+        system, sparams, st = transport_path(model)
+        fn, plain, _, _ = transport_fns(model)
+        fld = st.T if model == "edpd" else st.C
+        cfg_p = system.cells
+        args = (st.x, st.v, fld, st.typ, st.tag, st.mask, st.box, 1,
+                sparams.pair, system.dt, cfg_p)
+        got = fn(*args)
+        want = plain(st.x, st.v, fld, st.tag, st.mask, st.box, 1,
+                     sparams.pair, system.dt, cfg_p)
+        prec = compare_transport(got, want, st.mask, True, f"{model} path")
+        prec["ms"] = timed_ms(lambda: fn(*args), 20)
+        prec["plain_ms"] = timed_ms(
+            lambda: plain(st.x, st.v, fld, st.tag, st.mask, st.box, 1,
+                          sparams.pair, system.dt, cfg_p), 3)
+        p_rc, _ = pair_counts(st, cfg_p)
+        ops = (OPS_PER_PAIR["pair_edpd_v3"] * p_rc if model == "edpd" else
+               (TDPD_OPS_PER_PAIR + TDPD_OPS_PER_RCC_PAIR
+                + TDPD_OPS_PER_SPECIES * sparams.pair.n_species) * p_rc)
+        prec["bound_ms"], prec["bound_by"] = bound(
+            [st.x, st.v, fld, st.tag, st.mask, st.tag],
+            [got[0], got[1], got[1].new_empty(st.n)], ops)
+        prec.update(nr=st.n, capacity=cfg_p.capacity, pairs_in_rc=p_rc)
+        rec[f"{model}_path"] = prec
+        del system, sparams, st, fld, got, want, args
+    dpd = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=77,
+                          device=DEVICE)
+    k1_args = (bst.x, bst.v, bst.typ, bst.tag, bst.mask, bst.box, step, dpd,
+               0.01, cfg)
+    rec["k1_ms"] = timed_ms(lambda: bucket_forces_pallas_v3(
+        *k1_args, rng_mode="fast", need_virial=False), 20)
+    f_k1, _ = bucket_forces_pallas_v3(*k1_args, rng_mode="fast")
+    f_p1, _ = bucket_forces_v3_plain(bst.x, bst.v, bst.tag, bst.mask,
+                                     bst.box, step, dpd, 0.01, cfg)
+    rec["k1_rel"] = ((f_k1 - f_p1)[bst.mask].abs().max()
+                     / f_p1[bst.mask].abs().max()).item()
+    out["l70"] = rec
+    say("kernels-transport-l70", **rec)
+    return out
+
+
+def advance(system, params, state, steps, every=EVERY):
+    """run_bucket_chunked over `steps` steps in chunks of `every` (and one
+    shorter chunk for the remainder). Returns (state, [diagnostics])."""
+    from meso_tpu_torch.core.system import run_bucket_chunked
+    diags = []
+    full, rest = divmod(steps, every)
+    for chunks, per in ((full, every), (1 if rest else 0, rest)):
+        if chunks:
+            state, d = run_bucket_chunked(system, params, state, chunks, per,
+                                          thermo_trace=False)
+            diags.append(d)
+    return state, diags
+
+
+def phase_transport_physics():
+    """The deck-size physics gates of tests/physics/test_transport.py on the
+    card, through K2 and K3 (force_path "pallas", skin 0.4)."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
+    from meso_tpu_torch.obs import kinetic_energy, potential_energy_dense
+    from meso_tpu_torch.obs.profiles import field_profile
+    kw = dict(force_path="pallas", skin=SKIN, device=DEVICE)
+    res = {}
+    overflow = 0
+
+    def note(diags):
+        nonlocal overflow
+        overflow = max([overflow] + [int(d["bucket_overflow"])
+                                     for d in diags])
+
+    # eDPD energy conservation (test_transport.py:14-37)
+    system, params, state = edpd_slab(l=5.0, cv=20.0, kappa=0.5, **kw)
+    system = system.replace(fixes=())
+    pair = params.pair
+
+    def total_e(s):
+        m = s.mask
+        return float(kinetic_energy(s.v, params.mass[:1], m)
+                     + pair.cv * torch.sum(s.T[m])
+                     + potential_energy_dense(s.x[m], s.typ[m], m[m], s.box,
+                                              pair.a, pair.rc))
+
+    e0 = total_e(state)
+    state, diags = advance(system, params, state, 300)
+    note(diags)
+    e1 = total_e(state)
+    t = state.T[state.mask]
+    res["edpd_energy"] = {"e0": e0, "e1": e1, "rel_drift": abs(e1 - e0)
+                          / abs(e0), "t_min": float(t.min()),
+                          "t_max": float(t.max())}
+    ok_energy = (res["edpd_energy"]["rel_drift"] < 0.01
+                 and bool(torch.isfinite(t).all()) and float(t.min()) > 0.3
+                 and float(t.max()) < 3.0)
+
+    # eDPD Fourier slab (test_transport.py:40-67)
+    system, params, state = edpd_slab(l=8.0, cv=30.0, kappa=2.0, t_hot=1.3,
+                                      t_cold=0.7, **kw)
+    state, diags = advance(system, params, state, 1200)
+    note(diags)
+    nb = 16
+    acc = np.zeros(nb)
+    cnt_acc = np.zeros(nb)
+    for _ in range(10):
+        state, diags = advance(system, params, state, 30)
+        note(diags)
+        xc, tbar, cnt = field_profile(state, state.T[:, None], axis=0,
+                                      nbins=nb)
+        acc += tbar[:, 0].cpu().numpy() * cnt.cpu().numpy()
+        cnt_acc += cnt.cpu().numpy()
+    tprof = acc / np.maximum(cnt_acc, 1)
+    xc = xc.cpu().numpy()
+    grad = np.diff(tprof[(xc > 0.8) & (xc < 4.2)])
+    mid = float(tprof[(xc > 2.2) & (xc < 2.8)].mean())
+    res["edpd_slab"] = {"profile": tprof.tolist(), "t_first": tprof[0],
+                        "t_cold_bin": tprof[8], "max_grad": float(grad.max()),
+                        "mid": mid}
+    ok_slab = (tprof[0] > 1.2 and tprof[8] < 0.8 and (grad < 0.05).all()
+               and abs(mid - 1.0) < 0.08)
+
+    # tDPD mode decay and mass (test_transport.py:70-100), from each start
+    # of TDPD_DECAY_SEEDS (the builder's default, 4, among them)
+    runs = []
+    for init_seed in TDPD_DECAY_SEEDS:
+        system, params, state = tdpd_diffusion(
+            l=8.0, kappa_c=2.0, eps_c=0.0, init_seed=init_seed, **kw)
+        runs.append({"init_seed": init_seed,
+                     **tdpd_decay(system, params, state, note)})
+    rates = np.asarray([r["rate"] for r in runs])
+    res["tdpd_decay"] = {
+        "runs": runs, "rate_mean": float(rates.mean()),
+        "rate_reference": TDPD_DECAY_RATE_JAX,
+        "passes": sum(r["passes"] for r in runs),
+        "jax_estimator_passes": sum(r["jax_estimator_passes"] for r in runs),
+        "starts": len(runs)}
+    ok_decay = all(r["passes"] and r["c_min"] > -0.05
+                   and r["c_rel_drift"] < 1e-4 for r in runs)
+    ok_rate = (abs(rates / TDPD_DECAY_RATE_JAX - 1.0).max()
+               < TDPD_DECAY_RATE_TOL
+               and abs(rates.mean() / TDPD_DECAY_RATE_JAX - 1.0)
+               < TDPD_DECAY_MEAN_TOL)
+
+    # tDPD random flux conserves sum C (test_transport.py:103-110)
+    system, params, state = tdpd_diffusion(l=5.0, kappa_c=1.0, eps_c=0.3,
+                                           **kw)
+    c0 = float(torch.sum(state.C[state.mask, 0]))
+    state, diags = advance(system, params, state, 200)
+    note(diags)
+    c1 = float(torch.sum(state.C[state.mask, 0]))
+    res["tdpd_random_flux"] = {"c_rel_drift": abs(c1 - c0) / abs(c0)}
+    ok_flux = res["tdpd_random_flux"]["c_rel_drift"] < 1e-4
+    res["bucket_overflow"] = overflow
+    say("transport-physics", **res)
+    checks = {"eDPD energy within 1%, 0.3 < T < 3": ok_energy,
+              "Fourier slab profile": ok_slab,
+              "tDPD mode decay and mass, every start": ok_decay,
+              "tDPD decay rate within 5% of the JAX dense path's (3% in "
+              "the mean)": ok_rate,
+              "tDPD random flux conserves sum C": ok_flux,
+              "bucket_overflow == 0": overflow == 0}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"transport physics failed: {failed}")
+    return res
+
+
+def tdpd_decay(system, params, state, note=None):
+    """600 steps of a tDPD cosine-mode run at l=8, sampled every 100: both
+    amplitude estimators, their decay_fit verdicts and rates, min C and the
+    drift of sum C. note(diags) sees every chunk's diagnostics."""
+    import numpy as np
+
+    def species0(s):
+        # a rebuild moves rows: the mask is read anew each time
+        return (s.x[s.mask, 0].cpu().numpy(),
+                s.C[s.mask, 0].cpu().numpy().astype(np.float64))
+
+    x0, c = species0(state)
+    c_tot0 = c.sum()
+    amps = [mode_amplitudes(x0, c, 8.0)]
+    for _ in range(6):
+        state, diags = advance(system, params, state, 100)
+        if note is not None:
+            note(diags)
+        x0, c = species0(state)
+        amps.append(mode_amplitudes(x0, c, 8.0))
+    amps, amps_jax = (np.asarray(a) for a in zip(*amps))
+    ok, rate, resid = decay_fit(amps)
+    ok_jax, rate_jax, resid_jax = decay_fit(amps_jax)
+    return {"amps": amps.tolist(), "rate": rate, "resid": resid,
+            "passes": ok, "amps_jax_estimator": amps_jax.tolist(),
+            "rate_jax_estimator": rate_jax,
+            "resid_jax_estimator": resid_jax,
+            "jax_estimator_passes": ok_jax, "c_min": float(c.min()),
+            "c_rel_drift": abs(c.sum() - c_tot0) / abs(c_tot0)}
+
+
+def phase_decay_from(path):
+    """--decay-from FILE: the tDPD decay on the card from the JAX package's
+    own starts. FILE is written by the slow test
+    tests/test_torch_transport_decay.py on a CPU: each start as bridge
+    arrays ("<i>/x", "<i>/v", ...) and the JAX dense path's rate from it
+    ("<i>/rate"). Every card rate must lie within DECAY_SAME_START_TOL of
+    JAX's from the same start. The verdicts of both amplitude estimators
+    are reported: the card's, and the JAX dense run's own with the JAX
+    test's estimator ("<i>/jax_estimator_passes")."""
+    import numpy as np
+    from meso_tpu_torch import bridge
+    from meso_tpu_torch.core.system import fit_capacity, setup
+    from meso_tpu_torch.models.transport import tdpd_diffusion
+    data = np.load(path)
+    starts = sorted({int(k.split("/")[0]) for k in data.files})
+    runs = []
+    for i in starts:
+        src = {k.split("/", 1)[1]: data[k] for k in data.files
+               if k.split("/")[0] == str(i)}
+        st = bridge.state_from(src, device=DEVICE)
+        system, params, _ = tdpd_diffusion(
+            l=8.0, kappa_c=2.0, eps_c=0.0, force_path="pallas", skin=SKIN,
+            device=DEVICE)
+        system = fit_capacity(system, st)
+        rec = tdpd_decay(system, params, setup(system, params, st))
+        runs.append({"start": i, "rate": rec["rate"],
+                     "jax_rate": float(src["rate"]),
+                     "ratio": rec["rate"] / float(src["rate"]),
+                     "passes": rec["passes"],
+                     "jax_estimator_passes": rec["jax_estimator_passes"],
+                     "jax_dense_jax_estimator_passes":
+                         bool(src["jax_estimator_passes"])})
+    ratios = np.asarray([r["ratio"] for r in runs])
+    res = {"runs": runs, "worst": float(abs(ratios - 1.0).max()),
+           "mean_ratio": float(ratios.mean()),
+           "rate_mean": float(np.mean([r["rate"] for r in runs])),
+           **{k: sum(r[k] for r in runs) for k in (
+               "passes", "jax_estimator_passes",
+               "jax_dense_jax_estimator_passes")},
+           "starts": len(runs)}
+    say("decay-from-jax-starts", **res)
+    if res["worst"] >= DECAY_SAME_START_TOL:
+        raise AssertionError(f"tDPD decay rate off JAX's from the same start "
+                             f"by {res['worst']:.3g} (< "
+                             f"{DECAY_SAME_START_TOL})")
+    return res
+
+
+def phase_transport_full(model):
+    """One transport model at 1,029,000 particles through the normal entry
+    points, launch counts set to 0 just before it is built and read just
+    after its timed window."""
+    import torch
+    from meso_tpu_torch.kernels.pair_dpd_v3 import (LAUNCHES,
+                                                    reset_launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    system, params, state = transport_path(model)
+    n = int(state.n_valid())
+    c0 = float(torch.sum(state.C[state.mask])) if model == "tdpd" else None
+    state, d_eq = advance(system, params, state,
+                          TRANSPORT_EQUIL_CHUNKS * TRANSPORT_EVERY,
+                          TRANSPORT_EVERY)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, d_timed = advance(system, params, state,
+                             TRANSPORT_TIMED_CHUNKS * TRANSPORT_EVERY,
+                             TRANSPORT_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    steps = (TRANSPORT_EQUIL_CHUNKS + TRANSPORT_TIMED_CHUNKS) \
+        * TRANSPORT_EVERY
+    force_evals = 1 + steps
+    timed_steps = TRANSPORT_TIMED_CHUNKS * TRANSPORT_EVERY
+    overflow = max(int(d["bucket_overflow"]) for d in d_eq + d_timed)
+    skin_timed = max(float(d["worst_skin_ratio"]) for d in d_timed)
+    skin_equil = max(float(d["worst_skin_ratio"]) for d in d_eq)
+    fields = (state.x, state.v, state.f) + (
+        (state.T, state.dTdt) if model == "edpd" else (state.C, state.dCdt))
+    finite = all(bool(torch.isfinite(t).all()) for t in fields)
+    kernel = "pair_edpd_v3" if model == "edpd" else "pair_tdpd_v3"
+    res = {"model": model, "n_particles": n, "rows": state.n,
+           "capacity": system.cells.capacity,
+           "rebuild": system.cells.rebuild,
+           "steps_per_rebuild": TRANSPORT_EVERY, "steps": steps,
+           "timed_steps": timed_steps, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / timed_steps,
+           "particle_steps_per_s": n * timed_steps / wall,
+           "setup_and_equil_s": t1 - t0, "bucket_overflow": overflow,
+           "worst_skin_ratio": skin_timed,
+           "worst_skin_ratio_equil": skin_equil,
+           "force_evals": force_evals, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    checks = {f"{kernel} launches == force evaluations":
+              launches[kernel] == force_evals,
+              "hash launches == force evaluations":
+              launches["particle_hash"] == force_evals,
+              "bucket_overflow == 0": overflow == 0,
+              "worst_skin_ratio < 1": skin_timed < 1.0,
+              "state finite": finite}
+    if model == "edpd":
+        t = state.T[state.mask]
+        res["t_min"], res["t_max"] = float(t.min()), float(t.max())
+        checks["0.3 < T < 3"] = res["t_min"] > 0.3 and res["t_max"] < 3.0
+    else:
+        c1 = float(torch.sum(state.C[state.mask]))
+        res["c_rel_drift"] = abs(c1 - c0) / abs(c0)
+        checks["sum C drift < 1e-4"] = res["c_rel_drift"] < 1e-4
+    say(f"transport-full-{model}", **res)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"transport-full {model} failed: {failed}")
+    return res
 
 
 def phase_main_path():
@@ -304,7 +942,8 @@ def phase_main_path():
     skin_ratio = skin["timed"]
     finite = all(bool(torch.isfinite(t).all())
                  for t in (state.x, state.v, state.f))
-    res = {"n_particles": n, "rows": state.n, "steps": force_evals - 1,
+    res = {"n_particles": n, "rows": state.n,
+           "capacity": system.cells.capacity, "steps": force_evals - 1,
            "timed_steps": timed_steps, "wall_s": wall,
            "ms_per_step": 1e3 * wall / timed_steps,
            "particle_steps_per_s": n * timed_steps / wall,
@@ -334,32 +973,116 @@ def phase_main_path():
     return res
 
 
+def phase_profile():
+    """torch.profiler over PROFILE_CHUNKS chunks of each 1M path, after a
+    short warm-up from its builder: device time per chunk by kernel, and
+    the card's busy share of the window's wall time (one stream, so kernel
+    times add up); the numbers back PERF.md's breakdowns."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from meso_tpu_torch.models.classic import classic_fluid
+    paths = {
+        "classic": (lambda: classic_fluid(
+            l=L_MAIN, rng_mode="fast", force_path="pallas", pair_kernel="v3",
+            rebuild="sort", wrap_mode="rebuild", skin=SKIN,
+            rebuild_every=EVERY, device=DEVICE), EVERY),
+        "edpd": (lambda: transport_path("edpd"), TRANSPORT_EVERY),
+        "tdpd": (lambda: transport_path("tdpd"), TRANSPORT_EVERY)}
+    out = {}
+    for name, (build, every) in paths.items():
+        system, params, state = build()
+        system = system.replace(cells=system.cells.replace(rebuild="sort"))
+        state, _ = advance(system, params, state, 30 * every, every)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = advance(system, params, state,
+                               PROFILE_CHUNKS * every, every)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernels[e.key[:80]] = (us / 1e3 / PROFILE_CHUNKS, e.count)
+        busy = sum(ms for ms, _ in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+        out[name] = {"steps_per_chunk": every,
+                     "wall_ms_per_chunk": wall_ms / PROFILE_CHUNKS,
+                     "device_ms_per_chunk": busy,
+                     "busy_share": busy * PROFILE_CHUNKS / wall_ms,
+                     "kernel_launches_per_chunk":
+                         sum(c for _, c in kernels.values())
+                         / PROFILE_CHUNKS,
+                     "top": [{"kernel": k, "ms_per_chunk": ms,
+                              "calls": c} for k, (ms, c) in top]}
+        say(f"profile-{name}", **out[name])
+    return out
+
+
+def kernel_records(record):
+    """The kernels' JSON record: every kernel of the ported paths, with its
+    launches on the path that runs it (K1 and the hash: the classic main
+    path; K2: the eDPD path; K3: the tDPD path)."""
+    l70 = record["kernels"]["l70"]
+    tl70 = record["transport_kernels"]["l70"]
+    k1_launches = record["main_path"]["launches"]
+    full = record["transport_full"]
+    k1_src = "meso_tpu_torch/csrc/pair_dpd_v3.cu"
+    tr_src = "meso_tpu_torch/csrc/pair_transport_v3.cu"
+    rows = [
+        {"name": "pair_dpd_v3", "route": "cuda", "source": k1_src,
+         "replaces": "meso_tpu/kernels/pair_dpd_v3.py:75",
+         "launches": k1_launches["pair_dpd_v3"],
+         "max_abs_err": l70["max_abs_err"], "ms": l70["pair_ms"],
+         "plain_ms": l70["pair_plain_ms"], "bound_ms": l70["pair_bound_ms"],
+         "bound_by": l70["pair_bound_by"], "library_ms": None},
+        {"name": "particle_hash", "route": "cuda", "source": k1_src,
+         "replaces": "meso_tpu/kernels/pair_dpd_v3.py:161",
+         "launches": k1_launches["particle_hash"],
+         "max_abs_err": l70["hash_max_abs_err"], "ms": l70["hash_ms"],
+         "plain_ms": l70["hash_plain_ms"], "bound_ms": l70["hash_bound_ms"],
+         "bound_by": l70["hash_bound_by"], "library_ms": None}]
+    # K2's and K3's numbers are those at the inputs their path gives them
+    for model, line in (("edpd", 871), ("tdpd", 896)):
+        name = f"pair_{model}_v3"
+        rec = tl70[f"{model}_path"]
+        rows.append(
+            {"name": name, "route": "cuda", "source": tr_src,
+             "replaces": f"meso_tpu/kernels/pair_dpd_v3.py:{line}",
+             "launches": full[model]["launches"][name],
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": None})
+    return {"kernels": rows}
+
+
 def main(argv):
     import torch
     info = phase_env()
     record = {"env": info, "build": phase_build()}
-    record["kernels"] = phase_kernels()
-    if "--kernels-only" not in argv:
+    if "--decay-from" in argv:
+        record["decay_from"] = phase_decay_from(
+            argv[argv.index("--decay-from") + 1])
+    else:
+        record["kernels"] = phase_kernels()
+        record["transport_kernels"] = phase_transport_kernels()
+    if "--kernels-only" not in argv and "--decay-from" not in argv:
         record["main_path"] = phase_main_path()
+        record["transport_physics"] = phase_transport_physics()
+        record["transport_full"] = {m: phase_transport_full(m)
+                                    for m in ("edpd", "tdpd")}
+        record["profile"] = phase_profile()
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    if "--kernels-only" in argv:
+    if "--kernels-only" in argv or "--decay-from" in argv:
         return 0
-    l70 = record["kernels"]["l70"]
-    launches = record["main_path"]["launches"]
-    src = "meso_tpu_torch/csrc/pair_dpd_v3.cu"
-    print(json.dumps({"kernels": [
-        {"name": "pair_dpd_v3", "route": "cuda", "source": src,
-         "replaces": "meso_tpu/kernels/pair_dpd_v3.py:75",
-         "launches": launches["pair_dpd_v3"],
-         "max_abs_err": l70["max_abs_err"], "ms": l70["pair_ms"],
-         "plain_ms": l70["pair_plain_ms"]},
-        {"name": "particle_hash", "route": "cuda", "source": src,
-         "replaces": "meso_tpu/kernels/pair_dpd_v3.py:161",
-         "launches": launches["particle_hash"],
-         "max_abs_err": l70["hash_max_abs_err"], "ms": l70["hash_ms"],
-         "plain_ms": l70["hash_plain_ms"]}]}), flush=True)
+    print(json.dumps(kernel_records(record)), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

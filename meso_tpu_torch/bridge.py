@@ -1,8 +1,8 @@
 """Carry states and parameters across from the JAX package, and back.
 
 Each ``*_from`` function takes a mapping of arrays, or an object whose
-attributes are arrays (a ``meso_tpu`` State, Box, DPDParams, SystemParams
-or CellConfig), reads every field through ``numpy.asarray`` and builds the
+attributes are arrays (a ``meso_tpu`` State, Box, DPDParams, EDPDParams,
+TDPDParams, SystemParams or CellConfig), reads every field through ``numpy.asarray`` and builds the
 port's counterpart on ``device``. ``*_to_numpy`` goes the other way. The
 module takes numpy and never imports JAX; the tests feed it JAX output.
 """
@@ -19,6 +19,8 @@ from meso_tpu_torch.core.state import PER_PARTICLE, State
 from meso_tpu_torch.core.system import SystemParams
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops.dpd import DPDParams
+from meso_tpu_torch.ops.edpd import EDPDParams
+from meso_tpu_torch.ops.tdpd import TDPDParams
 
 _DTYPES = {"x": np.float32, "v": np.float32, "f": np.float32,
            "typ": np.int32, "tag": np.int32, "image": np.int32,
@@ -76,7 +78,7 @@ def dpd_params_from(src, device=None) -> DPDParams:
         sigma=_tensor(_get(src, "sigma"), np.float32, device),
         rc=_tensor(_get(src, "rc"), np.float32, device),
         kt=float(np.asarray(_get(src, "kt"))),
-        seed=int(np.asarray(_get(src, "seed")).astype(np.uint32)),
+        seed=_seed(src),
         s_exp=float(np.asarray(_get(src, "s_exp"))))
 
 
@@ -87,11 +89,63 @@ def dpd_params_to_numpy(params: DPDParams) -> dict:
             "s_exp": np.float32(params.s_exp)}
 
 
+def _scalar(src, name) -> float:
+    return float(np.asarray(_get(src, name), dtype=np.float32))
+
+
+def _seed(src) -> int:
+    return int(np.asarray(_get(src, "seed")).astype(np.uint32))
+
+
+def edpd_params_from(src, device=None) -> EDPDParams:
+    return EDPDParams(
+        **{name: _tensor(_get(src, name), np.float32, device)
+           for name in ("a", "gamma", "rc", "kappa")},
+        cv=_scalar(src, "cv"), mass=_scalar(src, "mass"), seed=_seed(src))
+
+
+def edpd_params_to_numpy(params: EDPDParams) -> dict:
+    out = {name: getattr(params, name).cpu().numpy()
+           for name in ("a", "gamma", "rc", "kappa")}
+    out.update(cv=np.float32(params.cv), mass=np.float32(params.mass),
+               seed=np.uint32(params.seed))
+    return out
+
+
+_TDPD_TENSORS = ("a", "gamma", "sigma", "rc", "kappa_c", "eps_c")
+
+
+def tdpd_params_from(src, device=None) -> TDPDParams:
+    return TDPDParams(
+        **{name: _tensor(_get(src, name), np.float32, device)
+           for name in _TDPD_TENSORS},
+        rcc=_scalar(src, "rcc"), s1=_scalar(src, "s1"), seed=_seed(src),
+        s_exp=_scalar(src, "s_exp"))
+
+
+def tdpd_params_to_numpy(params: TDPDParams) -> dict:
+    out = {name: getattr(params, name).cpu().numpy()
+           for name in _TDPD_TENSORS}
+    out.update(rcc=np.float32(params.rcc), s1=np.float32(params.s1),
+               seed=np.uint32(params.seed), s_exp=np.float32(params.s_exp))
+    return out
+
+
+def pair_params_from(src, device=None):
+    """The pair parameters of any model, told apart by their fields:
+    ``kappa`` and ``cv`` mean eDPD, ``kappa_c`` tDPD, else classic DPD."""
+    if _get_opt(src, "kappa_c") is not None:
+        return tdpd_params_from(src, device)
+    if _get_opt(src, "kappa") is not None and _get_opt(src, "cv") is not None:
+        return edpd_params_from(src, device)
+    return dpd_params_from(src, device)
+
+
 def system_params_from(src, device=None) -> SystemParams:
     if _get(src, "bonded") is not None:
         raise NotImplementedError(
             "bonded parameters are not ported yet (ROADMAP Queue 1 item 10)")
-    return SystemParams(pair=dpd_params_from(_get(src, "pair"), device),
+    return SystemParams(pair=pair_params_from(_get(src, "pair"), device),
                         mass=_tensor(_get(src, "mass"), np.float32, device),
                         inv_mass=_tensor(_get(src, "inv_mass"), np.float32,
                                          device))

@@ -118,6 +118,20 @@ def pair_hash_tea(tag_i, tag_j, step, seed, rounds: int = 8):
     return v0
 
 
+def pair_hash(tag_i, tag_j, step, seed, rounds: int = 8,
+              rng_mode: str = "fast"):
+    """The symmetric pair hash the transport models draw their streams
+    from: ``pair_hash_tea`` in the TEA tier, ``combine_symmetric`` of the
+    two particle hashes in the fast tier (meso_tpu/ops/edpd.py:102-110 and
+    ops/tdpd.py:89-96 write this choice out in place)."""
+    if rng_mode == "tea":
+        return pair_hash_tea(tag_i, tag_j, step, seed, rounds=rounds)
+    if rng_mode == "fast":
+        return combine_symmetric(particle_hash(tag_i, step, seed, rounds),
+                                 particle_hash(tag_j, step, seed, rounds))
+    raise ValueError(f"unknown rng_mode {rng_mode!r}")
+
+
 def maxwell_velocities(generator: torch.Generator, n: int, kt: float, mass,
                        dim: int = 3, device=None) -> torch.Tensor:
     """`velocity create`-style Maxwell init: draw, zero the momentum,

@@ -6,9 +6,10 @@ fixes -> final_integrate -> end_of_step fixes. Where JAX runs steps under
 ``jit`` and ``lax.scan``, the port runs them in a Python loop; every tensor
 stays on the device and nothing synchronises inside the loop.
 
-Ported: model "dpd" with force_path "pallas" (the Hopper kernel) and
-"dense" (the O(N^2) oracle). Every other model, force path and bond style
-raises ``NotImplementedError`` naming its ROADMAP item.
+Ported: the models "dpd", "edpd" and "tdpd", each with force_path "pallas"
+(the Hopper kernels K1, K2, K3) and "dense" (the O(N^2) oracles). Every
+other force path and bond style raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,9 +26,8 @@ from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
 from meso_tpu_torch.ops.dpd import DPDParams, dense_forces
 
 _BUCKET_PATHS = ("bucket", "pallas", "pallas_banded")
+_MODELS = ("dpd", "edpd", "tdpd")
 _TODO = {
-    "edpd": "eDPD is not ported yet (ROADMAP Queue 1 item 8, kernel K2)",
-    "tdpd": "tDPD is not ported yet (ROADMAP Queue 1 item 8, kernel K3)",
     "nlist": "force_path 'nlist' is not ported yet (ROADMAP Queue 1 item 13)",
     "bucket": "force_path 'bucket' is not ported yet (ROADMAP Queue 1 "
               "item 13)",
@@ -35,6 +35,10 @@ _TODO = {
                      "Queue 2, kernel K6)",
     "v2": "pair_kernel 'v2' is not ported yet (ROADMAP Queue 2, kernel K5)",
     "bond": "bonded terms are not ported yet (ROADMAP Queue 1 item 10)",
+    # the eDPD/tDPD selectors whose kernel differs from the classic one
+    "transport_pallas_banded": "force_path 'pallas_banded' for eDPD/tDPD "
+                               "is not ported yet (ROADMAP Queue 2, kernel "
+                               "K7)",
 }
 
 
@@ -125,35 +129,60 @@ def _per_type(table: torch.Tensor, typ: torch.Tensor) -> torch.Tensor:
     return table[typ.long()]
 
 
+def _unported(system: System) -> NotImplementedError:
+    """The error for a force path or pair kernel that is not ported."""
+    key = system.force_path
+    if key == "pallas":
+        key = system.pair_kernel
+    elif key == "pallas_banded" and system.model != "dpd":
+        key = "transport_pallas_banded"
+    return NotImplementedError(_TODO.get(
+        key, f"force_path {system.force_path!r} with pair_kernel "
+             f"{system.pair_kernel!r}"))
+
+
 def compute_forces(system: System, params: SystemParams, state: State,
                    x, v, step: int, nlist_idx=None, t=None, c=None,
                    need_virial: bool = True):
     """Dispatch to the configured model and force path. Returns (f, aux);
-    aux carries 'virial'."""
-    if system.model != "dpd":
-        raise NotImplementedError(
-            _TODO.get(system.model, f"model {system.model!r}"))
-    if system.force_path == "dense":
-        f, virial, _ = dense_forces(
-            x, v, state.typ, state.tag, state.mask, state.box, step,
-            params.pair, system.dt, rng_mode=system.rng_mode,
-            rng_rounds=system.rng_rounds)
-        return f, {"virial": virial}
-    if system.force_path == "pallas":
-        if not system.pair_kernel.startswith("v3"):
-            raise NotImplementedError(
-                _TODO.get(system.pair_kernel,
-                          f"pair_kernel {system.pair_kernel!r}"))
+    aux carries 'virial' and, per model, 'dTdt' / 'dCdt'. need_virial only
+    reaches the classic kernel; the transport kernels always sum it."""
+    if system.model not in _MODELS:
+        raise ValueError(f"unknown model {system.model!r}")
+    pallas = (system.force_path == "pallas"
+              and system.pair_kernel.startswith("v3"))
+    if system.force_path != "dense" and not pallas:
+        raise _unported(system)
+    args = (x, v, state.typ, state.tag, state.mask, state.box, step,
+            params.pair, system.dt)
+    if system.model == "dpd":
+        if not pallas:
+            f, virial, _ = dense_forces(*args, rng_mode=system.rng_mode,
+                                        rng_rounds=system.rng_rounds)
+            return f, {"virial": virial}
         from meso_tpu_torch.kernels.pair_dpd_v3 import bucket_forces_pallas_v3
         f, virial = bucket_forces_pallas_v3(
-            x, v, state.typ, state.tag, state.mask, state.box, step,
-            params.pair, system.dt, system.cells,
-            rng_mode=system.rng_mode, rng_rounds=system.rng_rounds,
-            s_exp=system.s_exp, z_chunks=system.z_chunks,
-            need_virial=need_virial)
+            *args, system.cells, rng_mode=system.rng_mode,
+            rng_rounds=system.rng_rounds, s_exp=system.s_exp,
+            z_chunks=system.z_chunks, need_virial=need_virial)
         return f, {"virial": virial}
-    raise NotImplementedError(
-        _TODO.get(system.force_path, f"force_path {system.force_path!r}"))
+    from meso_tpu_torch.kernels import pair_dpd_v3 as kern
+    from meso_tpu_torch.ops import edpd, tdpd
+    if system.model == "edpd":
+        field, name = t, "dTdt"
+        fn = (kern.bucket_forces_pallas_v3_edpd if pallas
+              else edpd.dense_forces_edpd)
+    else:
+        field, name = c, "dCdt"
+        fn = (kern.bucket_forces_pallas_v3_tdpd if pallas
+              else tdpd.dense_forces_tdpd)
+    extra = dict(rng_rounds=system.rng_rounds, rng_mode=system.rng_mode)
+    if pallas:
+        args = args + (system.cells,)
+        extra["z_chunks"] = system.z_chunks
+    # the per-particle field (T or C) follows v, as in the JAX signatures
+    f, flux, virial = fn(x, v, field, *args[2:], **extra)
+    return f, {"virial": virial, name: flux}
 
 
 def _post_forces(system: System, params: SystemParams, state: State,
@@ -170,7 +199,10 @@ def _post_forces(system: System, params: SystemParams, state: State,
 def make_step(system: System, with_aux: bool = False):
     """Build the one-step function for this system.
 
-    with_aux=True: step_fn returns (state, aux) with the pair 'virial'."""
+    with_aux=True: step_fn returns (state, aux) with the pair 'virial'.
+    eDPD and tDPD steps advance T or C by dt * dT/dt or dt * dC/dt on the
+    mobile rows after final_integrate, then run the end_of_step fixes, in
+    the JAX package's order."""
     wrap_each_step = system.wrap_mode != "rebuild"
     if not wrap_each_step:
         if system.force_path not in _BUCKET_PATHS:
@@ -180,9 +212,8 @@ def make_step(system: System, with_aux: bool = False):
             raise ValueError("wrap_mode='rebuild' is incompatible with "
                              "post_integrate fixes (walls need in-box "
                              "positions every step)")
-    if system.model != "dpd":
-        raise NotImplementedError(
-            _TODO.get(system.model, f"model {system.model!r}"))
+    if system.model not in _MODELS:
+        raise ValueError(f"unknown model {system.model!r}")
 
     def step_fn(params: SystemParams, state: State, nlist_idx=None):
         inv_m = _per_type(params.inv_mass, state.typ)
@@ -210,6 +241,14 @@ def make_step(system: System, with_aux: bool = False):
         v1 = final_integrate(state.v, state.f, f_new, system.dt, inv_m, move)
         new_state = state.replace(x=x1, v=v1, f=f_new, image=image1,
                                   step=new_step)
+        zero = torch.zeros((), dtype=torch.float32, device=state.device)
+        if system.model == "edpd":
+            t1 = state.T + system.dt * torch.where(move, aux["dTdt"], zero)
+            new_state = new_state.replace(T=t1, dTdt=aux["dTdt"])
+        elif system.model == "tdpd":
+            c1 = state.C + system.dt * torch.where(move[:, None],
+                                                   aux["dCdt"], zero)
+            new_state = new_state.replace(C=c1, dCdt=aux["dCdt"])
         for fx in system.fixes:
             if hasattr(fx, "end_of_step"):
                 new_state = fx.end_of_step(system, params, new_state)
@@ -232,6 +271,34 @@ def setup(system: System, params: SystemParams, state: State) -> State:
                            state.step, t=state.T, c=state.C)
     f0 = _post_forces(system, params, state, state.x, state.v, f0)
     return state.replace(f=f0)
+
+
+# slots fit_capacity may add to the capacity sized from the density
+_FIT_EXTRA_SLOTS = 8
+
+
+def fit_capacity(system: System, state: State) -> System:
+    """The system with the least bucket capacity, from its own up to
+    ``_FIT_EXTRA_SLOTS`` more, that places this N-row start with no
+    overflow.
+
+    ``CellConfig.for_box`` sizes K from the density alone. A uniform random
+    start has Poisson occupancy, and at a million particles some seeds put
+    a few rows more into one run of cells than K=16 and the spill room
+    hold; the relaxed fluid's occupancy spreads far less. The builders
+    call this before ``setup``, so such a start runs at a K of 17 or 18
+    instead of failing. Where none of those capacities fits, the system comes back
+    unchanged and ``setup`` raises naming K. Paths without buckets are
+    returned unchanged."""
+    if system.force_path not in _BUCKET_PATHS:
+        return system
+    from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
+    cfg = system.cells
+    for k in range(cfg.capacity, cfg.capacity + _FIT_EXTRA_SLOTS + 1):
+        _, overflow = rebuild_buckets(state, cfg.replace(capacity=k))
+        if int(overflow) == 0:
+            return system.replace(cells=cfg.replace(capacity=k))
+    return system
 
 
 def _bucket_chunk(system: System, params: SystemParams, state: State,

@@ -17,16 +17,7 @@
 // GPU design): no atomics, and a deterministic per-row sum. Newton folding
 // is left to a later change.
 //
-// Periodicity: with min_image = 0 (System.wrap_mode = "rebuild", the main
-// path) positions are wrapped only at rebuild time, so the thread computes
-// no minimum image: when the stencil's cell index wraps on an axis it adds
-// -L (below 0) or +L (above n-1) on that axis to the source coordinate,
-// exactly the pre-shifted pad copies of pair_dpd_v3.py:681-722. It takes
-// dr = (xi - xj) - shift, so that the two rows of a pair get exactly
-// opposite dr and the pair forces cancel up to the rounding of the row
-// sums. Wrap-relief rows of cell ncx-1 sit pre-shifted in cell 0
-// (bucket_layout.py:392-406) and need nothing more. With min_image = 1 the
-// thread applies dr - rint(dr / L) * L on every axis.
+// Periodicity and the stencil walk: for_each_pair in dpd_common.cuh.
 //
 // RNG: the fast tier reads h[j] = TEA-8(tag, tag ^ 0xDEADBEEF, step, seed)
 // from particle_hash_kernel (one launch per step) and mixes it with
@@ -44,63 +35,11 @@
 // of the traffic. Shared-memory cell tiles and Newton folding would cut it
 // further and are left to later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dpd_common.cuh"
 
 namespace {
 
-constexpr uint32_t kDelta = 0x9E3779B9u;
-constexpr uint32_t kK2 = 0xC2B2AE35u;
-constexpr uint32_t kK3 = 0x27D4EB2Fu;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t tea_v0(uint32_t v0, uint32_t v1,
-                                           uint32_t k0, uint32_t k1,
-                                           int rounds) {
-  uint32_t s = 0u;
-  for (int r = 0; r < rounds; ++r) {
-    s += kDelta;
-    v0 += ((v1 << 4) + k0) ^ (v1 + s) ^ ((v1 >> 5) + k1);
-    v1 += ((v0 << 4) + kK2) ^ (v0 + s) ^ ((v0 >> 5) + kK3);
-  }
-  return v0;
-}
-
-__device__ __forceinline__ uint32_t combine_symmetric(uint32_t hi,
-                                                      uint32_t hj) {
-  uint32_t a = hi + hj;
-  const uint32_t b = hi ^ hj;
-  a ^= a >> 16;
-  a *= 0x7FEB352Du;
-  a ^= b;
-  a ^= a >> 15;
-  a *= 0x846CA68Bu;
-  a ^= a >> 16;
-  return a;
-}
-
-__device__ __forceinline__ float u32_to_symmetric_uniform(uint32_t u) {
-  // top 23 bits through int32: exact in float32
-  const float unit = static_cast<float>(static_cast<int>(u >> 9)) *
-                     1.1920928955078125e-07f;
-  return (unit - 0.5f) * 3.4641016151377544f;
-}
-
-// Periodic stencil index: wraps c into [0, n) and returns the coordinate
-// shift the source needs when the index wrapped (no-min-image mode).
-__device__ __forceinline__ int wrap_index(int c, int n, float len,
-                                          float* shift) {
-  if (c < 0) {
-    *shift = -len;
-    return c + n;
-  }
-  if (c >= n) {
-    *shift = len;
-    return c - n;
-  }
-  *shift = 0.0f;
-  return c;
-}
+using namespace meso;
 
 __global__ void particle_hash_kernel(const int32_t* __restrict__ tag,
                                      uint32_t* __restrict__ h, int n,
@@ -134,85 +73,34 @@ pair_dpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
 
   float fx = 0.0f, fy = 0.0f, fz = 0.0f, vsum = 0.0f;
   if (valid[row]) {
-    int t = row;
-    const int cx = t % nx;
-    t /= nx;
-    t /= k;  // slot
-    const int cz = t % nz;
-    const int cy = t / nz;
-
     const float a = a_tab[0];
     const float gamma = gamma_tab[0];
     const float s = sigma_tab[0] * dt_inv_sqrt;
     const float rc = rc_tab[0];
-    const float rc2 = rc * rc;
     const float inv_rc = 1.0f / rc;
-    const float lx = box_hi[0] - box_lo[0];
-    const float ly = box_hi[1] - box_lo[1];
-    const float lz = box_hi[2] - box_lo[2];
-    const float inv_lx = 1.0f / lx, inv_ly = 1.0f / ly, inv_lz = 1.0f / lz;
-
-    const float xi = x[3 * row], yi = x[3 * row + 1], zi = x[3 * row + 2];
     const float vxi = v[3 * row], vyi = v[3 * row + 1], vzi = v[3 * row + 2];
     const int32_t tag_i = tag[row];
     const uint32_t h_i = kTea ? 0u : h[row];
-
-    for (int dy = -1; dy <= 1; ++dy) {
-      float shy;
-      const int sy = wrap_index(cy + dy, ny, ly, &shy);
-      for (int dz = -1; dz <= 1; ++dz) {
-        float shz;
-        const int sz = wrap_index(cz + dz, nz, lz, &shz);
-        const int yz_base = (sy * nz + sz) * k;
-        for (int dx = -xr; dx <= xr; ++dx) {
-          float shx;
-          const int sx = wrap_index(cx + dx, nx, lx, &shx);
-          for (int sl = 0; sl < k; ++sl) {
-            const int j = (yz_base + sl) * nx + sx;
-            if (!valid[j]) continue;
-            float drx = xi - x[3 * j];
-            float dry = yi - x[3 * j + 1];
-            float drz = zi - x[3 * j + 2];
-            if (kMinImage) {
-              drx -= rintf(drx * inv_lx) * lx;
-              dry -= rintf(dry * inv_ly) * ly;
-              drz -= rintf(drz * inv_lz) * lz;
-            } else {
-              // (xi - xj) - shift, not xi - (xj + shift): the pair's two
-              // rows then get exactly opposite dr, and forces
-              drx -= shx;
-              dry -= shy;
-              drz -= shz;
-            }
-            const float r2 = drx * drx + dry * dry + drz * drz;
-            if (!(r2 < rc2) || !(r2 > 0.0f)) continue;
-            const float rinv = rsqrtf(r2);
-            const float rr = r2 * rinv;
-            const float w = 1.0f - rr * inv_rc;
-            const float ev = (drx * (vxi - v[3 * j]) +
-                              dry * (vyi - v[3 * j + 1]) +
-                              drz * (vzi - v[3 * j + 2])) * rinv;
-            uint32_t hp;
-            if (kTea) {
-              const int32_t tag_j = tag[j];
-              const int32_t lo = tag_i < tag_j ? tag_i : tag_j;
-              const int32_t hi = tag_i < tag_j ? tag_j : tag_i;
-              hp = tea_v0(static_cast<uint32_t>(lo), static_cast<uint32_t>(hi),
-                          step, seed, rounds);
-            } else {
-              hp = combine_symmetric(h_i, h[j]);
-            }
-            const float theta = u32_to_symmetric_uniform(hp);
-            const float fmag = w * (a - (gamma * w) * ev + s * theta);
-            const float fr = fmag * rinv;
-            fx += fr * drx;
-            fy += fr * dry;
-            fz += fr * drz;
-            if (kVirial) vsum += 0.5f * fmag * rr;
-          }
-        }
-      }
-    }
+    for_each_pair<kMinImage>(
+        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr, rc * rc,
+        [&](int j, float drx, float dry, float drz, float r2) {
+          const float rinv = rsqrtf(r2);
+          const float rr = r2 * rinv;
+          const float w = 1.0f - rr * inv_rc;
+          const float ev = (drx * (vxi - v[3 * j]) +
+                            dry * (vyi - v[3 * j + 1]) +
+                            drz * (vzi - v[3 * j + 2])) * rinv;
+          const uint32_t hp = pair_hash<kTea>(tag_i, kTea ? tag[j] : 0,
+                                              h_i, kTea ? 0u : h[j], step,
+                                              seed, rounds);
+          const float theta = u32_to_symmetric_uniform(hp);
+          const float fmag = w * (a - (gamma * w) * ev + s * theta);
+          const float fr = fmag * rinv;
+          fx += fr * drx;
+          fy += fr * dry;
+          fz += fr * drz;
+          if (kVirial) vsum += 0.5f * fmag * rr;
+        });
   }
   f[3 * row] = fx;
   f[3 * row + 1] = fy;

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` file under ``meso_tpu_torch/csrc/`` is compiled with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, which is
-loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
-library goes into ``build/meso_tpu_torch/`` at the repository root, named by
-a hash of the sources and flags, at first use; a later call with the same
-sources loads it without compiling. Nothing here runs at import time.
+for ``sm_90a`` into an object file, all of them at once in parallel, and the
+objects are linked into one shared library with a plain C interface, which
+is loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+The ``*.cuh`` headers beside them are included by the sources and never
+compiled on their own. The library goes into ``build/meso_tpu_torch/`` at
+the repository root, named by a hash of the sources, the headers and the
+flags, at first use; a later call with the same files loads it without
+compiling. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "meso_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +40,18 @@ SIGNATURES = {
     # nx, ny, nz, k, xr, min_image, tea, need_virial, dt_inv_sqrt,
     # step, seed, rounds, stream
     "meso_pair_dpd_v3": (_P,) * 13 + (_I,) * 8 + (_F, _U, _U, _I, _P),
+    # h, out, n, salt, stream
+    "meso_uniform_stream": (_P, _P, _I, _U, _P),
+    # x, v, t, tag, valid, h, a, gamma, kappa, rc, box_lo, box_hi, f, dtdt,
+    # vir, nx, ny, nz, k, xr, min_image, tea, dt_inv_sqrt, mass, cv,
+    # step, seed, rounds, stream
+    "meso_pair_edpd_v3": (_P,) * 15 + (_I,) * 7 + (_F,) * 3
+    + (_U, _U, _I, _P),
+    # x, v, c, tag, valid, h, a, gamma, sigma, rc, kappa_c, eps_c, box_lo,
+    # box_hi, f, dcdt, vir, nx, ny, nz, k, xr, ns, min_image, tea,
+    # dt_inv_sqrt, rcc, s1, step, seed, rounds, stream
+    "meso_pair_tdpd_v3": (_P,) * 17 + (_I,) * 8 + (_F,) * 3
+    + (_U, _U, _I, _P),
 }
 
 
@@ -56,17 +72,36 @@ def find_nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The translation units, one object file each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def library_path(nvcc: str) -> Path:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     h.update(nvcc.encode())
-    for src in sources():
+    for src in headers() + sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmeso_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Start every command at once, wait for all; return their joined
+    output, or raise naming each one that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}"
+              for p, cmd, out in zip(procs, cmds, outs) if p.returncode]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
 
 
 def build() -> Path:
@@ -77,19 +112,15 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources(), objs)])
+        lib = Path(tmp) / out.name
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(lib),
+                          *map(str, objs)]])
+        out.with_suffix(".log").write_text(log)
+        os.replace(lib, out)
     return out
 
 

@@ -1,16 +1,22 @@
-"""Classic-DPD bucket forces (port of ``meso_tpu/kernels/pair_dpd_v3.py``,
-the classic entry point ``bucket_forces_pallas_v3``).
+"""Bucket pair forces for the three pair models (port of
+``meso_tpu/kernels/pair_dpd_v3.py``: ``bucket_forces_pallas_v3`` (classic,
+K1), ``bucket_forces_pallas_v3_edpd`` (K2) and
+``bucket_forces_pallas_v3_tdpd`` (K3)).
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernels of
-``csrc/pair_dpd_v3.cu`` (the per-particle hash, then the pair kernel) or
-raises. On a CPU tensor, and only there, it runs the plain torch version
-``bucket_forces_v3_plain``, which computes the same function. There is no
-fallback from one to the other.
+On a CUDA tensor each wrapper launches the hand-written Hopper kernels (the
+per-particle hash of ``csrc/pair_dpd_v3.cu`` in the fast RNG tier, then the
+pair kernel of ``csrc/pair_dpd_v3.cu`` or ``csrc/pair_transport_v3.cu``) or
+raises. On a CPU tensor, and only there, it runs its plain torch version
+(``bucket_forces_v3_plain``, ``bucket_forces_v3_edpd_plain``,
+``bucket_forces_v3_tdpd_plain``), which computes the same function. There
+is no fallback from one to the other.
 
-Covered: the fast and TEA RNG tiers, spill and strict layouts, the
-min-image and no-min-image (``cfg.wrap_at_rebuild``) modes, and
-``need_virial``. Multi-type tables, ``s_exp != 1``, exclusions and
-``debug_pairs`` raise ``NotImplementedError`` (ROADMAP Queue 2, K1).
+Covered: the fast and TEA RNG tiers, spill and strict layouts, and the
+min-image and no-min-image (``cfg.wrap_at_rebuild``) modes; for K1 also
+``need_virial``, for K3 up to ``MAX_SPECIES`` species. Multi-type tables,
+``s_exp != 1``, exclusions, ``debug_pairs`` and more species raise
+``NotImplementedError`` (ROADMAP Queue 2, the K1-K3 cases left), and
+``rcc > rc`` raises ``ValueError`` (the stencil covers rc only).
 ``interpret``, ``z_chunks``, ``dyn_roll``, ``lane_pad`` and ``w_pad`` are
 TPU lowering knobs: they are accepted and ignored.
 """
@@ -26,11 +32,19 @@ from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.neighbor.bucket_layout import grid_shape, n_rows
 from meso_tpu_torch.neighbor.cells import CellConfig
-from meso_tpu_torch.ops.dpd import DPDParams
+from meso_tpu_torch.ops import edpd as edpdmod
+from meso_tpu_torch.ops import tdpd as tdpdmod
+from meso_tpu_torch.ops.dpd import DPDParams, pair_force
 
 # Launch counts of each kernel, raised by one at each launch and nowhere
-# else; chip_smoke.py resets and reads them around the main path.
-LAUNCHES = {"pair_dpd_v3": 0, "particle_hash": 0}
+# else; chip_smoke.py resets and reads them around each path it drives.
+LAUNCHES = {"pair_dpd_v3": 0, "particle_hash": 0, "pair_edpd_v3": 0,
+            "pair_tdpd_v3": 0, "uniform_stream": 0}
+
+# species the tDPD kernel keeps in registers (kMaxSpecies in the source)
+MAX_SPECIES = 8
+
+_TODO = "is not ported yet (ROADMAP Queue 2, the K1-K3 cases left)"
 
 
 def reset_launch_counts() -> None:
@@ -38,18 +52,10 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_supported(params: DPDParams, cfg: CellConfig, rng_mode: str,
-                     s_exp: float, debug_pairs: bool) -> int:
-    """Raise for cases the port does not cover; return the x half-window."""
-    todo = "is not ported yet (ROADMAP Queue 2, K1 remaining cases)"
-    if params.n_types != 1:
-        raise NotImplementedError(f"multi-type pair tables {todo}")
-    if s_exp != 1.0 or params.s_exp != 1.0:
-        raise NotImplementedError(f"s_exp != 1 {todo}")
-    if params.excl is not None:
-        raise NotImplementedError(f"special-bonds exclusions {todo}")
-    if debug_pairs:
-        raise NotImplementedError(f"debug_pairs accounting {todo}")
+def _half_window(cfg: CellConfig, rng_mode: str, n_types: int) -> int:
+    """Raise for what no pair kernel covers; return the x half-window."""
+    if n_types != 1:
+        raise NotImplementedError(f"multi-type pair tables {_TODO}")
     if rng_mode not in ("fast", "tea"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
     nx, ny, nz = cfg.ncell
@@ -57,6 +63,33 @@ def _check_supported(params: DPDParams, cfg: CellConfig, rng_mode: str,
     if nx < 2 * xr + 1 or ny < 3 or nz < 3:
         raise ValueError(f"ncell={cfg.ncell} too small for the +-{xr} "
                          "x-window and +-1 y/z windows")
+    return xr
+
+
+def _check_supported(params: DPDParams, cfg: CellConfig, rng_mode: str,
+                     s_exp: float, debug_pairs: bool) -> int:
+    """The classic kernel's cases; returns the x half-window."""
+    if s_exp != 1.0 or params.s_exp != 1.0:
+        raise NotImplementedError(f"s_exp != 1 {_TODO}")
+    if params.excl is not None:
+        raise NotImplementedError(f"special-bonds exclusions {_TODO}")
+    if debug_pairs:
+        raise NotImplementedError(f"debug_pairs accounting {_TODO}")
+    return _half_window(cfg, rng_mode, params.n_types)
+
+
+def _check_tdpd(params, cfg: CellConfig, rng_mode: str) -> int:
+    xr = _half_window(cfg, rng_mode, params.n_types)
+    if params.s_exp != 1.0:
+        # the kernel's force takes w = 1 - r/rc, as K3's does
+        raise NotImplementedError(f"s_exp != 1 {_TODO}")
+    if params.n_species > MAX_SPECIES:
+        raise NotImplementedError(
+            f"more than {MAX_SPECIES} tDPD species {_TODO}")
+    if params.rcc > params.rc_max:
+        raise ValueError(
+            "bucket tDPD path requires rcc <= rc (rc-based stencil): "
+            f"rcc={params.rcc}, rc={params.rc_max}")
     return xr
 
 
@@ -72,15 +105,11 @@ def _launch_hash(lib, tag: torch.Tensor, step: int, seed: int,
     return h
 
 
-def _check_cuda(tensors: dict, nr: int) -> None:
-    want = {"x": (torch.float32, (nr, 3)), "v": (torch.float32, (nr, 3)),
-            "tag": (torch.int32, (nr,)), "mask": (torch.bool, (nr,)),
-            "a": (torch.float32, None), "gamma": (torch.float32, None),
-            "sigma": (torch.float32, None), "rc": (torch.float32, None),
-            "box.lo": (torch.float32, (3,)), "box.hi": (torch.float32, (3,))}
-    dev = tensors["x"].device
-    for name, t in tensors.items():
-        dtype, shape = want[name]
+def _check_cuda(specs: dict) -> None:
+    """specs: name -> (tensor, dtype, shape or None). Every tensor must be
+    a contiguous CUDA tensor on the first one's device."""
+    dev = next(iter(specs.values()))[0].device
+    for name, (t, dtype, shape) in specs.items():
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the CUDA kernel "
                              f"needs every input on {dev}")
@@ -91,6 +120,27 @@ def _check_cuda(tensors: dict, nr: int) -> None:
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _row_specs(nr: int, x, v, tag, mask, box: Box) -> dict:
+    f32 = torch.float32
+    return {"x": (x, f32, (nr, 3)), "v": (v, f32, (nr, 3)),
+            "tag": (tag, torch.int32, (nr,)), "mask": (mask, torch.bool, (nr,)),
+            "box.lo": (box.lo, f32, (3,)), "box.hi": (box.hi, f32, (3,))}
+
+
+def _tables(params, names) -> dict:
+    return {name: (getattr(params, name), torch.float32, (1, 1))
+            for name in names}
+
+
+def _hash_or_tag(lib, tag, step_u: int, seed: int, rng_mode: str,
+                 rounds: int):
+    """The kernels' h input: the per-particle hash (fast tier, one launch)
+    or the tags themselves (TEA tier, read as tags and never as h)."""
+    if rng_mode == "tea":
+        return tag
+    return _launch_hash(lib, tag, step_u, seed, rounds)
 
 
 def particle_hash_v3(tag: torch.Tensor, step: int, seed: int,
@@ -106,6 +156,27 @@ def particle_hash_v3(tag: torch.Tensor, step: int, seed: int,
                          "tensor")
     return _launch_hash(lib, tag, step, seed, rounds).to(torch.int64) \
         & 0xFFFFFFFF
+
+
+def uniform_stream_v3(h: torch.Tensor, salt: int) -> torch.Tensor:
+    """``rng.uniform_stream`` of uint32 hashes (held in int64, as the plain
+    RNG holds them), through the device helper the transport kernels use:
+    a probe that lets the card check that helper bitwise. On a CPU tensor it
+    is ``rng.uniform_stream``."""
+    if h.device.type == "cpu":
+        return rngmod.uniform_stream(h, salt)
+    lib = _build.load_library()
+    if h.device.type != "cuda" or h.dtype != torch.int64:
+        raise ValueError("uniform_stream_v3 takes an int64 CUDA tensor")
+    u = h & 0xFFFFFFFF
+    bits = torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+    out = torch.empty(bits.shape, dtype=torch.float32, device=h.device)
+    code = lib.meso_uniform_stream(
+        bits.data_ptr(), out.data_ptr(), bits.numel(), salt & 0xFFFFFFFF,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(code, "uniform_stream")
+    LAUNCHES["uniform_stream"] += 1
+    return out
 
 
 def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
@@ -125,13 +196,10 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
                                       cfg, rng_mode, rng_rounds, need_virial)
     lib = _build.load_library()
     nr = n_rows(cfg)
-    _check_cuda({"x": x, "v": v, "tag": tag, "mask": mask, "a": params.a,
-                 "gamma": params.gamma, "sigma": params.sigma,
-                 "rc": params.rc, "box.lo": box.lo, "box.hi": box.hi}, nr)
+    _check_cuda({**_row_specs(nr, x, v, tag, mask, box),
+                 **_tables(params, ("a", "gamma", "sigma", "rc"))})
     step_u = step & 0xFFFFFFFF
-    tea = rng_mode == "tea"
-    h = tag if tea else _launch_hash(lib, tag, step_u, params.seed,
-                                     rng_rounds)
+    h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     vir_rows = (torch.empty((nr,), dtype=torch.float32, device=x.device)
                 if need_virial else None)
@@ -143,8 +211,8 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
         box.hi.data_ptr(), f.data_ptr(),
         None if vir_rows is None else vir_rows.data_ptr(),
         nx, ny, nz, cfg.capacity, xr, int(not cfg.wrap_at_rebuild),
-        int(tea), int(need_virial), 1.0 / math.sqrt(dt), step_u,
-        params.seed, rng_rounds,
+        int(rng_mode == "tea"), int(need_virial), 1.0 / math.sqrt(dt),
+        step_u, params.seed, rng_rounds,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "pair_dpd_v3")
     LAUNCHES["pair_dpd_v3"] += 1
@@ -153,7 +221,89 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-# candidates per group of stencil offsets in the plain version: small grids
+def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
+                                 step: int, params, dt: float,
+                                 cfg: CellConfig, rng_mode: str = "fast",
+                                 rng_rounds: int = 8, interpret=None,
+                                 z_chunks: int = 0, lane_pad: int = 0,
+                                 w_pad: int = 0):
+    """eDPD forces and heat on bucket rows (K2). Returns (f (nr, 3),
+    dTdt (nr,), virial). ``typ`` is unused (one particle type)."""
+    xr = _half_window(cfg, rng_mode, params.n_types)
+    if x.device.type == "cpu":
+        return bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box, step,
+                                           params, dt, cfg, rng_mode,
+                                           rng_rounds)
+    lib = _build.load_library()
+    nr = n_rows(cfg)
+    _check_cuda({**_row_specs(nr, x, v, tag, mask, box),
+                 "t": (t, torch.float32, (nr,)),
+                 **_tables(params, ("a", "gamma", "kappa", "rc"))})
+    step_u = step & 0xFFFFFFFF
+    h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
+    dtdt = torch.empty((nr,), dtype=torch.float32, device=x.device)
+    vir_rows = torch.empty((nr,), dtype=torch.float32, device=x.device)
+    nx, ny, nz = cfg.ncell
+    code = lib.meso_pair_edpd_v3(
+        x.data_ptr(), v.data_ptr(), t.data_ptr(), tag.data_ptr(),
+        mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
+        params.gamma.data_ptr(), params.kappa.data_ptr(),
+        params.rc.data_ptr(), box.lo.data_ptr(), box.hi.data_ptr(),
+        f.data_ptr(), dtdt.data_ptr(), vir_rows.data_ptr(),
+        nx, ny, nz, cfg.capacity, xr, int(not cfg.wrap_at_rebuild),
+        int(rng_mode == "tea"), 1.0 / math.sqrt(dt), params.mass, params.cv,
+        step_u, params.seed, rng_rounds,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "pair_edpd_v3")
+    LAUNCHES["pair_edpd_v3"] += 1
+    return f, dtdt, torch.sum(vir_rows)
+
+
+def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
+                                 step: int, params, dt: float,
+                                 cfg: CellConfig, rng_mode: str = "fast",
+                                 rng_rounds: int = 8, interpret=None,
+                                 z_chunks: int = 0, lane_pad: int = 0,
+                                 w_pad: int = 0):
+    """tDPD forces and per-species fluxes on bucket rows (K3). Returns
+    (f (nr, 3), dCdt (nr, S), virial). ``typ`` is unused (one type)."""
+    xr = _check_tdpd(params, cfg, rng_mode)
+    if x.device.type == "cpu":
+        return bucket_forces_v3_tdpd_plain(x, v, c, tag, mask, box, step,
+                                           params, dt, cfg, rng_mode,
+                                           rng_rounds)
+    lib = _build.load_library()
+    nr = n_rows(cfg)
+    ns = params.n_species
+    _check_cuda({**_row_specs(nr, x, v, tag, mask, box),
+                 "c": (c, torch.float32, (nr, ns)),
+                 **_tables(params, ("a", "gamma", "sigma", "rc")),
+                 "kappa_c": (params.kappa_c, torch.float32, (ns,)),
+                 "eps_c": (params.eps_c, torch.float32, (ns,))})
+    step_u = step & 0xFFFFFFFF
+    h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
+    dcdt = torch.empty((nr, ns), dtype=torch.float32, device=x.device)
+    vir_rows = torch.empty((nr,), dtype=torch.float32, device=x.device)
+    nx, ny, nz = cfg.ncell
+    code = lib.meso_pair_tdpd_v3(
+        x.data_ptr(), v.data_ptr(), c.data_ptr(), tag.data_ptr(),
+        mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
+        params.gamma.data_ptr(), params.sigma.data_ptr(),
+        params.rc.data_ptr(), params.kappa_c.data_ptr(),
+        params.eps_c.data_ptr(), box.lo.data_ptr(), box.hi.data_ptr(),
+        f.data_ptr(), dcdt.data_ptr(), vir_rows.data_ptr(),
+        nx, ny, nz, cfg.capacity, xr, ns, int(not cfg.wrap_at_rebuild),
+        int(rng_mode == "tea"), 1.0 / math.sqrt(dt), params.rcc, params.s1,
+        step_u, params.seed, rng_rounds,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "pair_tdpd_v3")
+    LAUNCHES["pair_tdpd_v3"] += 1
+    return f, dcdt, torch.sum(vir_rows)
+
+
+# candidates per group of stencil offsets in the plain versions: small grids
 # take every offset in one vectorised pass, the 1M-particle grid one offset
 # (~32M candidates) at a time
 _PLAIN_GROUP_CANDIDATES = 1 << 24
@@ -167,42 +317,30 @@ def _axis_shift(n: int, d: int, length, device):
     return torch.where(c < 0, -length, torch.where(c >= n, length, zero))
 
 
-def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
-                           params: DPDParams, dt: float, cfg: CellConfig,
-                           rng_mode: str = "fast", rng_rounds: int = 8,
-                           need_virial: bool = True):
-    """The same function as the CUDA kernel, in plain torch.
+def _stencil_pairs(x, mask, box: Box, cfg: CellConfig, rc2):
+    """The candidate walk of the plain versions, shared by the three models.
 
     Walks the 27 (strict) or 45 (spill) stencil offsets in groups; for each
     offset it rolls the (ny, nz, K, nx) planes so that every target cell
     faces its source cell, applies the same coordinate shifts
-    (no-min-image) or the minimum image, and adds the (ny, nz, K, K, nx)
-    block of pair forces into the targets. Groups are sized so that no
-    pass holds more than ``_PLAIN_GROUP_CANDIDATES`` candidates, unless one
-    offset alone does (~32M at the 1M-particle shape)."""
+    (no-min-image) or the minimum image as the kernels, and tests the
+    cutoff over every candidate of the group. It yields, per group, the
+    in-range pairs only: (target row, source row, [dx, dy, dz], r2), with
+    dr = x_target - x_source. Groups are sized so that no pass holds more
+    than ``_PLAIN_GROUP_CANDIDATES`` candidates, unless one offset alone
+    does (~32M at the 1M-particle shape)."""
     ny, nz, k, nx = grid_shape(cfg)
     xr = 2 if cfg.spill else 1
     min_image = not cfg.wrap_at_rebuild
     dev = x.device
     lens = box.lengths
     inv_l = 1.0 / lens
-    a = params.a[0, 0]
-    gamma = params.gamma[0, 0]
-    s = params.sigma[0, 0] * (1.0 / math.sqrt(dt))
-    rc = params.rc[0, 0]
-    rc2, inv_rc = rc * rc, 1.0 / rc
 
     def planes(t):
         return t.reshape(ny, nz, k, nx)
 
     xp = [planes(x[:, c]) for c in range(3)]
-    vp = [planes(v[:, c]) for c in range(3)]
     mp = planes(mask)
-    if rng_mode == "fast":
-        ident = planes(rngmod.particle_hash(tag, step, params.seed,
-                                            rounds=rng_rounds))
-    else:
-        ident = planes(tag)
 
     def tgt(t):   # (1, ny, nz, K, 1, nx): target slot axis
         return t[None, :, :, :, None, :]
@@ -215,8 +353,6 @@ def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
     group = max(1, _PLAIN_GROUP_CANDIDATES // (ny * nz * k * k * nx))
     sizes = (ny, nz, nx)
     shape_of = ((ny, 1, 1, 1), (1, nz, 1, 1), (1, 1, 1, nx))
-    f = torch.zeros((ny * nz * k * nx, 3), dtype=torch.float32, device=dev)
-    vir = torch.zeros((ny * nz * k * nx,), dtype=torch.float32, device=dev)
     for g0 in range(0, len(offsets), group):
         offs = offsets[g0:g0 + group]
 
@@ -226,7 +362,6 @@ def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
                                            dims=(0, 1, 3))
                                 for dy, dz, dx in offs])
 
-        # the cutoff test over every candidate of the group ...
         dr = []
         for c in range(3):
             d = tgt(xp[c]) - src(sources(xp[c]))
@@ -243,32 +378,119 @@ def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
             dr.append(d)
         r2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
         ok = tgt(mp) & src(sources(mp)) & (r2 < rc2) & (r2 > 0.0)
-        # ... and the force on the few candidates inside rc only
         g, cy, cz, kt, ks, cx = ok.nonzero(as_tuple=True)
         o = torch.tensor(offs, dtype=torch.int64, device=dev)[g]
         sy = (cy + o[:, 0]) % ny
         sz = (cz + o[:, 1]) % nz
         sx = (cx + o[:, 2]) % nx
-        d = [dc[g, cy, cz, kt, ks, cx] for dc in dr]
-        r2p = r2[g, cy, cz, kt, ks, cx]
-        rinv = torch.rsqrt(r2p)
-        rr = r2p * rinv
+        row = ((cy * nz + cz) * k + kt) * nx + cx
+        src_row = ((sy * nz + sz) * k + ks) * nx + sx
+        yield (row, src_row, [dc[g, cy, cz, kt, ks, cx] for dc in dr],
+               r2[g, cy, cz, kt, ks, cx])
+
+
+def _pair_hashes(tag, step: int, seed: int, rng_mode: str, rounds: int):
+    """fn(row, src) -> the symmetric pair hash the kernels draw from."""
+    if rng_mode == "fast":
+        h = rngmod.particle_hash(tag, step, seed, rounds=rounds)
+        return lambda i, j: rngmod.combine_symmetric(h[i], h[j])
+    return lambda i, j: rngmod.pair_hash_tea(tag[i], tag[j], step, seed,
+                                             rounds=rounds)
+
+
+def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
+                           params: DPDParams, dt: float, cfg: CellConfig,
+                           rng_mode: str = "fast", rng_rounds: int = 8,
+                           need_virial: bool = True):
+    """The same function as the classic CUDA kernel, in plain torch: the
+    ``_stencil_pairs`` walk, then the kernel's force on the in-range
+    pairs, added into their target rows."""
+    a = params.a[0, 0]
+    gamma = params.gamma[0, 0]
+    s = params.sigma[0, 0] * (1.0 / math.sqrt(dt))
+    rc = params.rc[0, 0]
+    inv_rc = 1.0 / rc
+    if rng_mode == "fast":
+        ident = rngmod.particle_hash(tag, step, params.seed,
+                                     rounds=rng_rounds)
+    else:
+        ident = tag
+    nr = x.shape[0]
+    f = torch.zeros((nr, 3), dtype=torch.float32, device=x.device)
+    vir = torch.zeros((nr,), dtype=torch.float32, device=x.device)
+    for row, src, d, r2 in _stencil_pairs(x, mask, box, cfg, rc * rc):
+        rinv = torch.rsqrt(r2)
+        rr = r2 * rinv
         w = 1.0 - rr * inv_rc
-        ev = sum(d[c] * (vp[c][cy, cz, kt, cx] - vp[c][sy, sz, ks, sx])
-                 for c in range(3)) * rinv
-        id_i, id_j = ident[cy, cz, kt, cx], ident[sy, sz, ks, sx]
+        ev = sum(d[c] * (v[row, c] - v[src, c]) for c in range(3)) * rinv
         if rng_mode == "fast":
-            theta = rngmod.pair_uniform_fast(id_i, id_j)
+            theta = rngmod.pair_uniform_fast(ident[row], ident[src])
         else:
-            theta = rngmod.pair_uniform_tea(id_i, id_j, step, params.seed,
-                                            rounds=rng_rounds)
+            theta = rngmod.pair_uniform_tea(ident[row], ident[src], step,
+                                            params.seed, rounds=rng_rounds)
         fmag = w * (a - (gamma * w) * ev + s * theta)
         fr = fmag * rinv
-        row = ((cy * nz + cz) * k + kt) * nx + cx
         f.index_add_(0, row, torch.stack([fr * dc for dc in d], -1))
         if need_virial:
             vir.index_add_(0, row, 0.5 * fmag * rr)
-    f_rows = f
     if need_virial:
-        return f_rows, torch.sum(vir)
-    return f_rows, torch.zeros((), dtype=torch.float32, device=dev)
+        return f, torch.sum(vir)
+    return f, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box: Box, step: int,
+                                params, dt: float, cfg: CellConfig,
+                                rng_mode: str = "fast", rng_rounds: int = 8):
+    """The same function as the eDPD CUDA kernel, in plain torch: the
+    ``_stencil_pairs`` walk, then ``ops.edpd.edpd_pair`` on the in-range
+    pairs. Returns (f, dTdt, virial)."""
+    nr = x.shape[0]
+    dev = x.device
+    pair_hash = _pair_hashes(tag, step, params.seed, rng_mode, rng_rounds)
+    rc = params.rc[0, 0]
+    f = torch.zeros((nr, 3), dtype=torch.float32, device=dev)
+    q = torch.zeros((nr,), dtype=torch.float32, device=dev)
+    vir = torch.zeros((nr,), dtype=torch.float32, device=dev)
+    for row, src, d, _ in _stencil_pairs(x, mask, box, cfg, rc * rc):
+        theta, zeta = edpdmod.noises_from_hash(pair_hash(row, src),
+                                               tag[row], tag[src])
+        f_p, q_p, vir_p = edpdmod.edpd_pair(
+            torch.stack(d, -1), v[row] - v[src], t[row], t[src], theta,
+            zeta, params.a[0, 0], params.gamma[0, 0], rc,
+            params.kappa[0, 0], params.mass, 1.0 / math.sqrt(dt))
+        f.index_add_(0, row, f_p)
+        q.index_add_(0, row, q_p)
+        vir.index_add_(0, row, vir_p)
+    return f, q / params.cv, torch.sum(vir)
+
+
+def bucket_forces_v3_tdpd_plain(x, v, c, tag, mask, box: Box, step: int,
+                                params, dt: float, cfg: CellConfig,
+                                rng_mode: str = "fast", rng_rounds: int = 8):
+    """The same function as the tDPD CUDA kernel, in plain torch: the
+    ``_stencil_pairs`` walk, then ``ops.dpd.pair_force`` and
+    ``ops.tdpd.tdpd_flux`` on the in-range pairs. Returns
+    (f, dCdt (nr, S), virial)."""
+    nr = x.shape[0]
+    dev = x.device
+    ns = params.n_species
+    pair_hash = _pair_hashes(tag, step, params.seed, rng_mode, rng_rounds)
+    rc = params.rc[0, 0]
+    dt_inv_sqrt = 1.0 / math.sqrt(dt)
+    f = torch.zeros((nr, 3), dtype=torch.float32, device=dev)
+    q = torch.zeros((nr, ns), dtype=torch.float32, device=dev)
+    vir = torch.zeros((nr,), dtype=torch.float32, device=dev)
+    for row, src, d, _ in _stencil_pairs(x, mask, box, cfg, rc * rc):
+        dr = torch.stack(d, -1)
+        theta, xi = tdpdmod.noises_from_hash(pair_hash(row, src), tag[row],
+                                             tag[src], ns)
+        f_p, vir_p = pair_force(dr, v[row] - v[src], theta, params.a[0, 0],
+                                params.gamma[0, 0], params.sigma[0, 0], rc,
+                                dt_inv_sqrt, params.s_exp)
+        q_p = tdpdmod.tdpd_flux(dr, c[row], c[src], xi, params.kappa_c,
+                                params.eps_c, params.rcc, params.s1,
+                                dt_inv_sqrt, True)
+        f.index_add_(0, row, f_p)
+        q.index_add_(0, row, q_p)
+        vir.index_add_(0, row, vir_p)
+    return f, q, torch.sum(vir)

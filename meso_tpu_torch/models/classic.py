@@ -11,7 +11,8 @@ import torch
 
 from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.core.state import State, create_random
-from meso_tpu_torch.core.system import System, SystemParams, setup
+from meso_tpu_torch.core.system import (System, SystemParams, fit_capacity,
+                                        setup)
 from meso_tpu_torch.ops.dpd import DPDParams
 
 
@@ -23,13 +24,17 @@ def classic_fluid(l: float = 32.0, density: float = 3.0, kt: float = 1.0,
                   spill: bool | None = None, pair_kernel: str = "v3",
                   rebuild: str = "gather", capacity: int | None = None,
                   wrap_mode: str = "step", z_chunks: int = 0,
-                  device=None) -> tuple[System, SystemParams, State]:
-    """Build (system, params, state) for the classic fluid, forces set.
+                  device="cuda") -> tuple[System, SystemParams, State]:
+    """Build (system, params, state) for the classic fluid, forces set, on
+    ``device``: the card unless the caller asks for another (the CPU tests
+    pass ``device="cpu"``); with no card, torch raises.
 
     The initial state is drawn from a ``torch.Generator`` seeded with
     ``init_seed`` on ``device``; its draws differ from the JAX package's.
-    spill defaults to on for force_path="pallas"."""
-    device = torch.device("cpu" if device is None else device)
+    spill defaults to on for force_path="pallas". With ``capacity`` None
+    the bucket capacity is sized from the density and raised, where this
+    start needs it, by ``fit_capacity``; a given capacity is kept."""
+    device = torch.device(device)
     box = Box.cubic(l, device=device)
     n = int(round(density * l ** 3))
     gen = torch.Generator(device=device)
@@ -48,4 +53,6 @@ def classic_fluid(l: float = 32.0, density: float = 3.0, kt: float = 1.0,
     if force_path != "nlist":
         system = system.replace(force_path=force_path)
     system = system.replace(pair_kernel=pair_kernel)
+    if capacity is None:
+        system = fit_capacity(system, state)
     return system, params, setup(system, params, state)

@@ -253,6 +253,7 @@ def to_bucket_state(state: State, cfg: CellConfig) -> State:
     new, overflow = rebuild_buckets(state, cfg)
     if int(overflow):
         raise ValueError(
-            f"bucket capacity K={cfg.capacity} overflowed by {int(overflow)}; "
-            "increase capacity")
+            f"bucket capacity K={cfg.capacity} overflowed by {int(overflow)} "
+            f"rows at set-up ({int(state.n_valid())} particles in "
+            f"{cfg.n_cells} cells); pass a larger capacity")
     return new

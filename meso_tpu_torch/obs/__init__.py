@@ -1,7 +1,11 @@
-"""Observables (port of meso_tpu.obs): the scalar thermo reductions so far."""
+"""Observables (port of meso_tpu.obs): the scalar thermo reductions and the
+binned field profiles so far."""
 
+from meso_tpu_torch.obs.profiles import bin_index, field_profile, profile
 from meso_tpu_torch.obs.thermo import (kinetic_energy, kinetic_temperature,
-                                       pressure, total_momentum)
+                                       potential_energy_dense, pressure,
+                                       total_momentum)
 
 __all__ = ["kinetic_temperature", "total_momentum", "pressure",
-           "kinetic_energy"]
+           "kinetic_energy", "potential_energy_dense", "bin_index",
+           "profile", "field_profile"]

@@ -65,6 +65,21 @@ class DPDParams:
         return dataclasses.replace(self, **kw)
 
 
+def f32(val) -> float:
+    """The float32 value of a Python number, as a Python float."""
+    return float(torch.tensor(float(val), dtype=torch.float32))
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, through float64.
+
+    PyTorch's float32 CPU ``sqrt`` (2.13 CPU build) is up to 1 ulp off, and
+    has returned values accurate to only 2^-12 for one worker thread's
+    chunk on a process's first calls; the float64 root rounded to float32
+    is exact, as XLA's and the CUDA kernels' ``sqrtf`` are."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def pair_force(dr, vij, theta, a, gamma, sigma, rc, dt_inv_sqrt: float,
                s_exp: float):
     """Groot-Warren force for a batch of pairs.

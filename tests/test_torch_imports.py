@@ -2,6 +2,7 @@
 never replaced by their plain versions off the CPU, and unported paths
 raise instead of running something else."""
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -15,12 +16,15 @@ from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.core.state import create_random
 from meso_tpu_torch.core.system import System, SystemParams, make_step, setup
 from meso_tpu_torch.kernels import _build
-from meso_tpu_torch.kernels.pair_dpd_v3 import (LAUNCHES,
-                                                bucket_forces_pallas_v3,
-                                                particle_hash_v3)
+from meso_tpu_torch.kernels.pair_dpd_v3 import (
+    LAUNCHES, bucket_forces_pallas_v3, bucket_forces_pallas_v3_edpd,
+    bucket_forces_pallas_v3_tdpd, particle_hash_v3, uniform_stream_v3)
 from meso_tpu_torch.models.classic import classic_fluid
+from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops.dpd import DPDParams
+from meso_tpu_torch.ops.edpd import EDPDParams
+from meso_tpu_torch.ops.tdpd import TDPDParams
 
 REPO = Path(__file__).resolve().parents[1]
 MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
@@ -29,7 +33,10 @@ MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.kernels._build",
            "meso_tpu_torch.neighbor.bucket_layout",
            "meso_tpu_torch.neighbor.nlist", "meso_tpu_torch.models.classic",
-           "meso_tpu_torch.obs.thermo", "meso_tpu_torch.ops.dpd"]
+           "meso_tpu_torch.models.transport", "meso_tpu_torch.obs.thermo",
+           "meso_tpu_torch.obs.profiles", "meso_tpu_torch.ops.dpd",
+           "meso_tpu_torch.ops.edpd", "meso_tpu_torch.ops.tdpd",
+           "meso_tpu_torch.ops.fixes"]
 
 
 def test_import_leaves_jax_out():
@@ -58,7 +65,7 @@ def _meta_case():
     wrappers must take their kernel path."""
     system, params, state = classic_fluid(
         l=6.0, rng_mode="fast", force_path="pallas", wrap_mode="rebuild",
-        rebuild="sort", skin=0.4, rebuild_every=3)
+        rebuild="sort", skin=0.4, rebuild_every=3, device="cpu")
     meta = bridge.state_from(bridge.state_to_numpy(state), device="meta")
     return system, params.pair.to("meta"), meta
 
@@ -78,18 +85,62 @@ def test_non_cpu_input_without_nvcc_raises(monkeypatch):
                                 1, pair, 0.01, system.cells)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         particle_hash_v3(st.tag, 1, pair.seed)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        uniform_stream_v3(st.tag.to(torch.int64), 0)
+    n = st.n
+    edpd = EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.0, cv=10.0,
+                            seed=1).to("meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bucket_forces_pallas_v3_edpd(
+            st.x, st.v, torch.ones(n, device="meta"), st.typ, st.tag,
+            st.mask, st.box, 1, edpd, 0.01, system.cells)
+    tdpd = TDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, kappa_c=[1.0],
+                            eps_c=[0.1], rcc=1.0, seed=1).to("meta")
+    # the rcc <= rc guard reads the rc table once per params object, which
+    # a meta tensor cannot give: seed that cached value
+    tdpd.__dict__["rc_max"] = 1.0
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bucket_forces_pallas_v3_tdpd(
+            st.x, st.v, torch.ones((n, 1), device="meta"), st.typ, st.tag,
+            st.mask, st.box, 1, tdpd, 0.01, system.cells)
     assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("builder", [classic_fluid, edpd_slab,
+                                     tdpd_diffusion])
+def test_entry_points_default_to_the_card(builder):
+    """The builders run on the card unless asked for the CPU; with no card
+    torch raises and nothing falls back to the CPU."""
+    assert inspect.signature(builder).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            builder(l=6.0, force_path="pallas", skin=0.4)
 
 
 def test_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "meso_tpu_torch"
-    assert [p.name for p in _build.sources()] == ["pair_dpd_v3.cu"]
+    assert [p.name for p in _build.sources()] == ["pair_dpd_v3.cu",
+                                                  "pair_transport_v3.cu"]
+    assert [p.name for p in _build.headers()] == ["dpd_common.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS
+
+
+def test_build_hash_covers_headers(monkeypatch, tmp_path):
+    """An edited header names another library: a stale build is never
+    loaded."""
+    for src in _build.sources() + _build.headers():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path("nvcc")
+    header = tmp_path / "dpd_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path("nvcc") != before
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(model="edpd"), "Queue 1 item 8"),
-    (dict(model="tdpd"), "Queue 1 item 8"),
+    (dict(model="edpd", force_path="bucket"), "Queue 1 item 13"),
+    (dict(model="tdpd", force_path="pallas_banded"), "K7"),
     (dict(force_path="nlist", wrap_mode="step"), "Queue 1 item 13"),
     (dict(force_path="bucket"), "Queue 1 item 13"),
     (dict(force_path="pallas_banded"), "K6"),
@@ -101,13 +152,19 @@ def test_unported_paths_raise(change, match):
                              wrap_at_rebuild=True)
     system = System(rng_mode="fast", force_path="pallas", wrap_mode="rebuild",
                     cells=cfg).replace(**change)
-    params = SystemParams.build(DPDParams.build(a=25.0, gamma=4.5, rc=1.0,
-                                                kt=1.0, seed=1))
+    pair = {"dpd": DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                                   seed=1),
+            "edpd": EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.0,
+                                     cv=10.0, seed=1),
+            "tdpd": TDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                                     kappa_c=[1.0], eps_c=[0.0], rcc=1.0,
+                                     seed=1)}[system.model]
+    params = SystemParams.build(pair)
     box = Box.cubic(6.0)
-    state = create_random(torch.Generator().manual_seed(0), 648, box)
+    state = create_random(torch.Generator().manual_seed(0), 648, box,
+                          n_species=int(system.model == "tdpd"),
+                          with_energy=system.model == "edpd")
     with pytest.raises(NotImplementedError, match=match):
-        if change.get("model"):
-            make_step(system)
         setup(system, params, state)
 
 

@@ -116,7 +116,8 @@ def test_long_run_kt_and_momentum():
     computes it), and total momentum drifts by less than 1e-4."""
     system, params, state = classic_fluid(
         l=7.0, rng_mode="fast", force_path="pallas", rebuild="sort",
-        wrap_mode="rebuild", skin=0.4, rebuild_every=3, init_seed=1)
+        wrap_mode="rebuild", skin=0.4, rebuild_every=3, init_seed=1,
+        device="cpu")
     system = system.replace(lam=LAM)
     mass = params.mass[:1]
     p0 = total_momentum(state.v, mass, state.mask)
