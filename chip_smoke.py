@@ -40,15 +40,39 @@ Phases, one line of output each (any failure raises and exits non-zero):
    timed steps each, a sort rebuild every 2 steps, with launch counts,
    overflow, skin ratio, finiteness, T within (0.3, 3) and the drift of
    sum C checked;
-9. profile: torch.profiler over 10 chunks of each 1M path, device time per
+9. kernels-general-l8: K1's general variant (pair_dpd_v3_general: more
+   than one type, s_exp != 1, special-bonds exclusions, debug_pairs)
+   against its plain version in every covered combination (fast/tea x
+   spill/strict x min-image/no-min-image, two types with an asymmetric a
+   table and rc_01 = 0.8, s_exp = 0.5, exclusions E = 2 at weight 0.25),
+   plus the two 1M paths' own combinations; forces within the JAX v3
+   tests' bounds, debug_pairs bitwise;
+10. kernels-general-l70: the general variant on each new 1M path's inputs
+   at set-up (walls-full, polymer-full), with its time, the plain time,
+   K1's one-type time on the same rows and the bound; K1's one-type time
+   at the main-path shape held within 3% of PR 2's on the same card;
+11. walls-physics: the gates of tests/physics/test_walls.py at their deck
+   sizes through the kernels and run_bucket (Poiseuille parabola and
+   viscosity, Couette profile, frozen walls, Mueller-Plathe viscosity on
+   force_path "pallas");
+12. bonded-physics: the gates of tests/physics/test_polymer.py (FENE
+   chains, also with special_weight 0.5; the membrane vesicle);
+13. walls-full and polymer-full: poiseuille(lx=h=lz=70) and
+   polymer_melt(l=70, 3200 chains of 16, special_weight 0.5), 1,029,000
+   particles each, 300 steps of run_bucket then 200 timed steps of
+   run_bucket_chunked at the first of 3 or 2 steps per rebuild that keeps
+   the skin ratio below 1, every force evaluation through the general
+   variant, with each path's gates;
+14. profile: torch.profiler over 10 chunks of each 1M path, device time per
    kernel and the card's busy share.
 
-``--kernels-only`` stops after phase 5. ``--decay-from FILE`` runs only
+Phases 9 and 10 run after phase 5, phases 11-13 after phase 8.
+``--kernels-only`` stops after phase 10. ``--decay-from FILE`` runs only
 the tDPD decay from the JAX package's starts in FILE, against the JAX
 rates stored beside them (see phase_decay_from).
 
-Launch counts are set to 0 just before each path (6, and each model of 8)
-is driven and read just after. The last three lines are the kernels' JSON
+Launch counts are set to 0 just before each path (6, each model of 8, and
+each path of 13) is driven and read just after. The last three lines are the kernels' JSON
 record, the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Every number is also written to
 build/chip_smoke.json.
@@ -86,6 +110,17 @@ TDPD_DECAY_RATE_JAX = 0.3591
 TDPD_DECAY_RATE_TOL, TDPD_DECAY_MEAN_TOL = 0.05, 0.03
 # --decay-from: the card's rate against JAX's from the same start
 DECAY_SAME_START_TOL = 0.02
+# K1's one-type time through the wrapper at the main-path shape, PR 2's
+# runs (PERF.md), and the card it was taken on: on that card it may move
+# by at most 3% while K1's other cases are added beside it
+K1_PR2_MS, K1_TIME_TOL = 2.30, 0.03
+K1_PR2_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+# walls-full and polymer-full: equilibration with run_bucket, then a timed
+# window of run_bucket_chunked in blocks, at the first rebuild cadence
+# whose worst skin ratio stays below 1
+FULL_EQUIL_STEPS, FULL_TIMED_STEPS, FULL_BLOCKS = 300, 200, 4
+FULL_CADENCES = (3, 2)
+POLYMER_CHAINS, POLYMER_CHAIN_LEN = 3200, 16
 
 # The least time a kernel could take (bound_ms): the larger of its bytes
 # (each input read once, each output written once) over the card's memory
@@ -98,9 +133,13 @@ DECAY_SAME_START_TOL = 0.02
 # fp32 (with 3 divisions, 2 sqrt) + 33 integer (mix and two streams); K3
 # 34 fp32 + 22 integer, plus, inside rcc, 4 fp32 and per species 10 fp32
 # + 11 integer. The hash: ~20 integer operations per TEA round per row.
+# K1's general variant: 38 fp32 (K1's, with r2 summed again, rc^2 and
+# 1/rc per pair) + 12 integer per pair, and 2 integer per exclusion slot.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-OPS_PER_PAIR = {"pair_dpd_v3": 44, "pair_edpd_v3": 107}
+OPS_PER_PAIR = {"pair_dpd_v3": 44, "pair_edpd_v3": 107,
+                "pair_dpd_v3_general": 50}
+OPS_PER_EXCL_SLOT = 2
 TDPD_OPS_PER_PAIR, TDPD_OPS_PER_RCC_PAIR, TDPD_OPS_PER_SPECIES = 56, 4, 21
 HASH_OPS_PER_ROUND = 20
 
@@ -973,11 +1012,13 @@ def phase_main_path():
     return res
 
 
-def phase_profile():
+def phase_profile(full_cadence):
     """torch.profiler over PROFILE_CHUNKS chunks of each 1M path, after a
     short warm-up from its builder: device time per chunk by kernel, and
     the card's busy share of the window's wall time (one stream, so kernel
-    times add up); the numbers back PERF.md's breakdowns."""
+    times add up); the numbers back PERF.md's breakdowns. The wall and
+    polymer paths run at the cadence their full runs chose
+    (``full_cadence``) and list their 20 costliest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from meso_tpu_torch.models.classic import classic_fluid
@@ -987,7 +1028,9 @@ def phase_profile():
             rebuild="sort", wrap_mode="rebuild", skin=SKIN,
             rebuild_every=EVERY, device=DEVICE), EVERY),
         "edpd": (lambda: transport_path("edpd"), TRANSPORT_EVERY),
-        "tdpd": (lambda: transport_path("tdpd"), TRANSPORT_EVERY)}
+        "tdpd": (lambda: transport_path("tdpd"), TRANSPORT_EVERY),
+        "walls": (walls_path, full_cadence["walls"]),
+        "polymer": (polymer_path, full_cadence["polymer"])}
     out = {}
     for name, (build, every) in paths.items():
         system, params, state = build()
@@ -1001,16 +1044,10 @@ def phase_profile():
                                PROFILE_CHUNKS * every, every)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        kernels = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            kernels[e.key[:80]] = (us / 1e3 / PROFILE_CHUNKS, e.count)
+        kernels = device_times(prof, PROFILE_CHUNKS)
         busy = sum(ms for ms, _ in kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[
+            :20 if name in full_cadence else 12]
         out[name] = {"steps_per_chunk": every,
                      "wall_ms_per_chunk": wall_ms / PROFILE_CHUNKS,
                      "device_ms_per_chunk": busy,
@@ -1020,8 +1057,611 @@ def phase_profile():
                          / PROFILE_CHUNKS,
                      "top": [{"kernel": k, "ms_per_chunk": ms,
                               "calls": c} for k, (ms, c) in top]}
+        if name in full_cadence:
+            out[name]["hooks_per_step"] = profile_hooks(system, params,
+                                                        state)
         say(f"profile-{name}", **out[name])
     return out
+
+
+def device_times(prof, reps):
+    """{kernel name: (device ms per rep, launches)} of a profiler window."""
+    import torch
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key[:80]] = (us / 1e3 / reps, e.count)
+    return kernels
+
+
+def profile_hooks(system, params, state, reps=10):
+    """Device time and launches per step of what the wall and polymer paths
+    add to the step around the pair kernel: the bonded terms and post_force
+    fixes (``_post_forces``) and the end_of_step fixes, called ``reps``
+    times on the path's state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from meso_tpu_torch.core.system import _post_forces
+    f0 = torch.zeros_like(state.f)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            _post_forces(system, params, state, state.x, state.v, f0,
+                         image=state.image)
+            for fx in system.fixes:
+                if hasattr(fx, "end_of_step"):
+                    fx.end_of_step(system, params, state)
+        torch.cuda.synchronize()
+    kernels = device_times(prof, reps)
+    return {"device_ms": sum(ms for ms, _ in kernels.values()),
+            "launches": sum(c for _, c in kernels.values()) / reps}
+
+
+def deferred_wrap(system):
+    """The system with the main path's rebuild and wrap: the sort rebuild
+    and the box wrap deferred to rebuild time (K1's no-min-image kernels)."""
+    return system.replace(wrap_mode="rebuild", cells=system.cells.replace(
+        rebuild="sort", wrap_at_rebuild=True))
+
+
+def walls_path():
+    """walls-full at set-up: the Poiseuille channel at 1,029,000 particles
+    (29,400 of them frozen type-1 wall beads), under the deferred wrap (R5
+    is no fault: tests/test_torch_walls_r5.py)."""
+    from meso_tpu_torch.models.walls import poiseuille
+    system, params, state = poiseuille(
+        lx=L_MAIN, h=L_MAIN, lz=L_MAIN, wall_width=1.0, g=0.1,
+        force_path="pallas", rng_mode="fast", skin=SKIN, dt=0.01,
+        device=DEVICE)
+    return deferred_wrap(system), params, state
+
+
+def polymer_path():
+    """polymer-full at set-up: 3,200 FENE chains of 16 beads (51,200 beads,
+    48,000 bonds) in solvent, 1,029,000 particles, special-bonds weight
+    0.5 (exclusion table (1,029,001, 2)), under the deferred wrap."""
+    from meso_tpu_torch.models.polymer import polymer_melt
+    system, params, state = polymer_melt(
+        l=L_MAIN, n_chains=POLYMER_CHAINS, chain_len=POLYMER_CHAIN_LEN,
+        special_weight=0.5,
+        force_path="pallas", rng_mode="fast", skin=SKIN, dt=0.01,
+        device=DEVICE)
+    return deferred_wrap(system), params, state
+
+
+def general_params(n, two_types=True, s_exp=0.5, excl=True):
+    """K1's general case as kernels-general-l8 checks it: two types with an
+    asymmetric a table and rc_01 = 0.8 < rc = 1, s_exp, and exclusions
+    (E = 2, weight 0.25) along random chains of 8 tags among 1..n."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch.ops.dpd import DPDParams, build_exclusions
+    p = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=77,
+                        n_types=2 if two_types else 1, s_exp=s_exp,
+                        device=DEVICE)
+    if two_types:
+        p = p.replace(
+            a=p.a * torch.tensor([[1.0, 1.4], [1.2, 2.0]], device=DEVICE),
+            rc=p.rc * torch.tensor([[1.0, 0.8], [0.8, 1.0]], device=DEVICE))
+    if excl:
+        perm = np.random.RandomState(0).permutation(n) + 1
+        bonds = np.asarray([(perm[i], perm[i + 1]) for i in range(n - 1)
+                            if (i + 1) % 8], np.int32)
+        ex, w = build_exclusions(bonds, n, weight=0.25, max_excl=2,
+                                 device=DEVICE)
+        p = p.replace(excl=ex, excl_w=w)
+    return p
+
+
+def general_pair_count(st, cfg, params):
+    """Ordered pairs inside their own rc_ij that these rows give K1's
+    general variant."""
+    import torch
+    from meso_tpu_torch.kernels.pair_dpd_v3 import _stencil_pairs
+    nt = params.n_types
+    rc2 = (params.rc * params.rc).reshape(-1)
+    total = 0
+    for row, src, _, r2 in _stencil_pairs(st.x, st.mask, st.box, cfg,
+                                          torch.max(rc2)):
+        p = st.typ[row].long() * nt + st.typ[src].long()
+        total += int((r2 < rc2[p]).sum())
+    return total
+
+
+def general_bound(st, f, params, n_pairs):
+    """(bound_ms, bound_by) of K1's general variant as timed (no virial):
+    x, v, tag, typ, mask, h and the exclusion table in, f out."""
+    ins = [st.x, st.v, st.tag, st.typ, st.mask, st.tag]
+    e = 0
+    if params.excl is not None:
+        ins.append(params.excl)
+        e = params.excl.shape[1]
+    return bound(ins, [f], (OPS_PER_PAIR["pair_dpd_v3_general"]
+                            + OPS_PER_EXCL_SLOT * e) * n_pairs)
+
+
+def phase_general_kernels(k1_ms, card):
+    """K1's general variant against its plain version: at l=8 in every
+    covered combination, then on each new 1M path's own inputs, with its
+    time, the plain time, K1's one-type time on the same rows and the
+    bound. ``k1_ms`` is K1's one-type time at the main-path shape (phase
+    3): on the card PR 2 measured it on (``card``, from nvidia-smi) it must
+    stay within K1_TIME_TOL of PR 2's."""
+    import torch
+    from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
+                                                    bucket_forces_v3_plain)
+    from meso_tpu_torch.ops.dpd import DPDParams
+    out = {"l8": []}
+    step = 42
+    cases = [("general", general_params(1536))]
+    # the two paths' own combinations: two types alone (walls), one type
+    # with exclusions (polymers)
+    cases += [("two_types", general_params(1536, s_exp=1.0, excl=False)),
+              ("excl", general_params(1536, two_types=False, s_exp=1.0))]
+    for spill in (True, False):
+        for min_image in (False, True):
+            bst0, cfg = bucket_case(8.0, 1536, spill, min_image)
+            m = bst0.mask
+            for name, p in cases:
+                # types alternate by tag where the table has two
+                bst = bst0.replace(typ=(bst0.tag % p.n_types)
+                                   .to(torch.int32))
+                for rng_mode in ("fast", "tea"):
+                    if name != "general" and (rng_mode, spill) != ("fast",
+                                                                   True):
+                        continue
+                    args = (bst.x, bst.v, bst.typ, bst.tag, m, bst.box, step,
+                            p, 0.01, cfg)
+                    kw = dict(rng_mode=rng_mode, s_exp=p.s_exp)
+                    label = (f"l8 {name} {rng_mode} spill={spill} "
+                             f"min_image={min_image}")
+                    f_k, vir_k = bucket_forces_pallas_v3(*args, **kw)
+                    f_k2, vir_off = bucket_forces_pallas_v3(
+                        *args, need_virial=False, **kw)
+                    d_k, dvir_k = bucket_forces_pallas_v3(
+                        *args, debug_pairs=True, **kw)
+                    torch.cuda.synchronize()
+                    plain_args = (bst.x, bst.v, bst.tag, m, bst.box, step, p,
+                                  0.01, cfg, rng_mode)
+                    f_p, vir_p = bucket_forces_v3_plain(*plain_args,
+                                                        typ=bst.typ)
+                    d_p, _ = bucket_forces_v3_plain(*plain_args, typ=bst.typ,
+                                                    debug_pairs=True)
+                    err, rel, vrel = compare_forces(f_k, vir_k, f_p, vir_p, m,
+                                                    min_image, label)
+                    if not torch.equal(f_k, f_k2) or vir_off.item() != 0.0:
+                        raise AssertionError(f"{label}: need_virial=False "
+                                             "changed the forces")
+                    if not torch.equal(d_k, d_p) or dvir_k.item() != 0.0:
+                        bad = int((d_k != d_p).any(1).sum())
+                        raise AssertionError(f"{label}: debug_pairs differs "
+                                             f"from the plain version on "
+                                             f"{bad} rows")
+                    out["l8"].append({"case": label, "max_abs_err": err,
+                                      "rel": rel, "virial_rel": vrel,
+                                      "pairs": int(d_k[:, 0].sum())})
+    say("kernels-general-l8", cases=len(out["l8"]),
+        worst_rel=max(c["rel"] for c in out["l8"]),
+        worst_virial_rel=max(c["virial_rel"] for c in out["l8"]),
+        debug_pairs="bitwise")
+
+    rec = {"k1_main_shape_ms": k1_ms, "k1_pr2_ms": K1_PR2_MS,
+           "k1_change": k1_ms / K1_PR2_MS - 1.0,
+           "k1_pr2_card": K1_PR2_CARD, "card": card}
+    for name, build in (("walls", walls_path), ("polymer", polymer_path)):
+        system, sparams, st = build()
+        cfg, pair = system.cells, sparams.pair
+        args = (st.x, st.v, st.typ, st.tag, st.mask, st.box, 1, pair,
+                system.dt, cfg)
+        plain_args = (st.x, st.v, st.tag, st.mask, st.box, 1, pair,
+                      system.dt, cfg)
+        f_k, vir_k = bucket_forces_pallas_v3(*args, rng_mode="fast")
+        f_p, vir_p = bucket_forces_v3_plain(*plain_args, typ=st.typ)
+        err, rel, vrel = compare_forces(f_k, vir_k, f_p, vir_p, st.mask,
+                                        False, f"{name} path")
+        d_k, _ = bucket_forces_pallas_v3(*args, rng_mode="fast",
+                                         debug_pairs=True)
+        d_p, _ = bucket_forces_v3_plain(*plain_args, typ=st.typ,
+                                        debug_pairs=True)
+        if not torch.equal(d_k, d_p):
+            raise AssertionError(f"{name} path: debug_pairs differs")
+        n_pairs = general_pair_count(st, cfg, pair)
+        prec = {"nr": st.n, "capacity": cfg.capacity,
+                "n_types": pair.n_types,
+                "excl": None if pair.excl is None
+                else list(pair.excl.shape),
+                "pairs_in_rc": n_pairs, "max_abs_err": err, "rel": rel,
+                "virial_rel": vrel,
+                "ms": timed_ms(lambda: bucket_forces_pallas_v3(
+                    *args, rng_mode="fast", need_virial=False), 20),
+                "plain_ms": timed_ms(lambda: bucket_forces_v3_plain(
+                    *plain_args, typ=st.typ, need_virial=False), 3)}
+        # K1's one-type kernel on the same rows: the path's own a, gamma
+        # and rc for type 0, no exclusions
+        one = DPDParams.build(a=float(pair.a[0, 0]),
+                              gamma=float(pair.gamma[0, 0]),
+                              rc=float(pair.rc[0, 0]), kt=pair.kt,
+                              seed=pair.seed, device=DEVICE)
+        prec["k1_same_rows_ms"] = timed_ms(lambda: bucket_forces_pallas_v3(
+            *args[:7], one, *args[8:], rng_mode="fast", need_virial=False),
+            20)
+        prec["bound_ms"], prec["bound_by"] = general_bound(st, f_k, pair,
+                                                           n_pairs)
+        rec[name] = prec
+        del system, sparams, st, f_k, f_p, d_k, d_p, args, plain_args
+    out["l70"] = rec
+    say("kernels-general-l70", **rec)
+    if card == K1_PR2_CARD and abs(rec["k1_change"]) > K1_TIME_TOL:
+        raise AssertionError(f"K1's one-type time {k1_ms:.4f} ms moved by "
+                             f"{100 * rec['k1_change']:+.2f}% from PR 2's "
+                             f"{K1_PR2_MS} ms on the same card")
+    return out
+
+
+def run_full_path(label, build):
+    """One 1M path through its builder: FULL_EQUIL_STEPS with run_bucket,
+    then FULL_TIMED_STEPS of run_bucket_chunked, synchronised on both
+    sides, in FULL_BLOCKS blocks with the observables sampled on the
+    device between them. The timed window runs at the first cadence of
+    FULL_CADENCES whose worst skin ratio stays below 1 (from the
+    equilibrated state each time). Launch counts are set to 0 just before
+    the builder and read just after the last window. Returns (record, the
+    state at set-up, the final state, the per-block samples)."""
+    import torch
+    from meso_tpu_torch.core.system import run_bucket
+    from meso_tpu_torch.kernels.pair_dpd_v3 import (LAUNCHES,
+                                                    reset_launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    system, params, start = build()
+    t_built = time.perf_counter()
+    state, d_eq = run_bucket(system, params, start, FULL_EQUIL_STEPS)
+    torch.cuda.synchronize()
+    t_eq = time.perf_counter()
+    force_evals = 1 + FULL_EQUIL_STEPS
+    windows = []
+    for every in FULL_CADENCES:
+        s = state
+        samples, diags = [], []
+        per_block = FULL_TIMED_STEPS // FULL_BLOCKS
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(FULL_BLOCKS):
+            s, d = advance(system, params, s, per_block, every)
+            diags += d
+            samples.append(SAMPLERS[label](params, s))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        force_evals += FULL_TIMED_STEPS
+        win = {"steps_per_rebuild": every, "wall_s": wall,
+               "ms_per_step": 1e3 * wall / FULL_TIMED_STEPS,
+               "worst_skin_ratio": max(float(d["worst_skin_ratio"])
+                                       for d in diags),
+               "bucket_overflow": max(int(d["bucket_overflow"])
+                                      for d in diags)}
+        windows.append(win)
+        if win["worst_skin_ratio"] < 1.0:
+            break
+    launches = dict(LAUNCHES)
+    n = int(start.n_valid())
+    win = windows[-1]
+    res = {"path": label, "n_particles": n, "rows": s.n,
+           "capacity": system.cells.capacity,
+           "rebuild": system.cells.rebuild, "wrap_mode": system.wrap_mode,
+           "n_types": params.pair.n_types,
+           "build_s": t_built - t0, "equil_s": t_eq - t_built,
+           "equil_steps": FULL_EQUIL_STEPS,
+           "equil_rebuilds": d_eq["n_rebuilds"],
+           "equil_worst_disp_at_rebuild":
+               float(d_eq["worst_disp_at_rebuild"]),
+           "timed_steps": FULL_TIMED_STEPS,
+           "steps_per_rebuild": win["steps_per_rebuild"],
+           "ms_per_step": win["ms_per_step"],
+           "particle_steps_per_s": 1e3 * n / win["ms_per_step"],
+           "worst_skin_ratio": win["worst_skin_ratio"],
+           "windows": windows,
+           "bucket_overflow": max([int(d_eq["bucket_overflow"])]
+                                  + [w["bucket_overflow"] for w in windows]),
+           "force_evals": force_evals, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finite = all(bool(torch.isfinite(t).all()) for t in (s.x, s.v, s.f))
+    checks = {
+        "every force evaluation through pair_dpd_v3_general":
+            launches["pair_dpd_v3_general"] == force_evals
+            and launches["pair_dpd_v3"] == 0,
+        "hash launches == force evaluations":
+            launches["particle_hash"] == force_evals,
+        "bucket_overflow == 0": res["bucket_overflow"] == 0,
+        "worst_skin_ratio < 1": win["worst_skin_ratio"] < 1.0,
+        "state finite": finite}
+    return res, checks, (system, params, start, s, samples)
+
+
+def by_tag(state, values):
+    """values (N, ...) of the valid rows, in tag order."""
+    import torch
+    m = state.mask
+    return values[m][torch.argsort(state.tag[m])]
+
+
+def sample_walls(params, state):
+    """Between walls-full's timed blocks: the fluid's kT in the flow frame
+    (temperature_profile over type 0, 70 bins along y) and its mean x
+    velocity, as device scalars."""
+    import torch
+    from meso_tpu_torch.obs.profiles import temperature_profile
+    mass = params.mass[state.typ.long()]
+    _, kt, cnt = temperature_profile(state, mass, axis=1, nbins=70, typ=0,
+                                     subtract_flow=True)
+    fluid = state.mask & (state.typ == 0)
+    return (torch.sum(kt * cnt) / torch.sum(cnt),
+            torch.sum(torch.where(fluid, state.v[:, 0], 0.0))
+            / torch.sum(fluid))
+
+
+def sample_polymer(params, state):
+    """Between polymer-full's timed blocks: kT and the total momentum."""
+    from meso_tpu_torch.obs import kinetic_temperature, total_momentum
+    mass = params.mass[state.typ.long()]
+    return (kinetic_temperature(state.v, mass, state.mask),
+            total_momentum(state.v, mass, state.mask))
+
+
+SAMPLERS = {"walls": sample_walls, "polymer": sample_polymer}
+
+
+def bond_lengths(state, bond_tags, n_tags):
+    """Minimum-image length of each bond, from the rows holding its tags."""
+    import torch
+    from meso_tpu_torch.ops.bonded import inverse_tag_map
+    inv = inverse_tag_map(state.tag, state.mask, n_tags)
+    bt = bond_tags.long()
+    d = state.box.min_image(state.x[inv[bt[:, 0]]] - state.x[inv[bt[:, 1]]])
+    return torch.sqrt(torch.sum(d * d, -1))
+
+
+def phase_walls_full():
+    import numpy as np
+    import torch
+    res, checks, (system, params, start, s, samples) = run_full_path(
+        "walls", walls_path)
+    kts = np.asarray([float(k) for k, _ in samples])
+    vxs = [float(v) for _, v in samples]
+    steps = system.dt * (FULL_EQUIL_STEPS + FULL_TIMED_STEPS)
+    wall0 = start.typ == 1
+    lens = start.box.lengths
+    x0 = by_tag(start, torch.remainder(start.x, lens))
+    x1 = by_tag(s, torch.remainder(s.x, lens))
+    wall = by_tag(start, wall0)
+    fluid_y = s.x[s.mask & (s.typ == 0), 1]
+    fix = next(f for f in system.fixes if type(f).__name__ ==
+               "FixBounceBack")
+    res.update(n_wall_beads=int(wall0.sum()), kT_fluid_flow_frame=kts.tolist(),
+               kT_mean=float(kts.mean()), mean_fluid_vx=vxs,
+               g_t=0.1 * steps,
+               fluid_y_min=float(fluid_y.min()),
+               fluid_y_max=float(fluid_y.max()),
+               wall_max_move=float((x1[wall] - x0[wall]).abs().max()))
+    say("walls-full", **res)
+    checks.update({
+        "wall beads unmoved (by tag)": torch.equal(x1[wall], x0[wall]),
+        "no fluid bead beyond the bounce-back planes by > 0.2":
+            res["fluid_y_min"] > fix.lo - 0.2
+            and res["fluid_y_max"] < fix.hi + 0.2,
+        "fluid kT (flow frame) within 3% of 1":
+            abs(res["kT_mean"] - 1.0) < 0.03})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"walls-full failed: {failed}")
+    return res
+
+
+def phase_polymer_full():
+    import numpy as np
+    import torch
+    from meso_tpu_torch.obs import total_momentum
+    res, checks, (system, params, start, s, samples) = run_full_path(
+        "polymer", polymer_path)
+    kts = np.asarray([float(k) for k, _ in samples])
+    mass0 = params.mass[start.typ.long()]
+    p0 = total_momentum(start.v, mass0, start.mask)
+    drift = max(float((p - p0).abs().max()) for _, p in samples)
+    bl = bond_lengths(s, params.bonded.bond_tags, system.n_tags)
+    res.update(n_bonds=int(bl.numel()),
+               excl_shape=list(params.pair.excl.shape),
+               kT=kts.tolist(), kT_mean=float(kts.mean()),
+               momentum_drift=drift, bond_max=float(bl.max()),
+               bond_mean=float(bl.mean()))
+    say("polymer-full", **res)
+    checks.update({
+        "bond max < 1.45": res["bond_max"] < 1.45,
+        "0.30 < bond mean < 0.75": 0.30 < res["bond_mean"] < 0.75,
+        "momentum drift < 5e-2": drift < 5e-2,
+        "kT within 2% of 1": abs(res["kT_mean"] - 1.0) < 0.02})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"polymer-full failed: {failed}")
+    return res
+
+
+def averaged_profile(system, params, state, nsteps_equil, nsamples,
+                     sample_every, nbins):
+    """tests/physics/test_walls.py::_averaged_profile through run_bucket:
+    (state, bin centres, mean fluid x velocity per bin, counts, overflow)."""
+    import numpy as np
+    from meso_tpu_torch.core.system import run_bucket
+    from meso_tpu_torch.obs.profiles import velocity_profile
+    state, d = run_bucket(system, params, state, nsteps_equil)
+    overflow = int(d["bucket_overflow"])
+    acc = np.zeros(nbins)
+    cnt_acc = np.zeros(nbins)
+    for _ in range(nsamples):
+        state, d = run_bucket(system, params, state, sample_every)
+        overflow = max(overflow, int(d["bucket_overflow"]))
+        y, u, cnt = velocity_profile(state, axis=1, flow_axis=0,
+                                     nbins=nbins, typ=0)
+        cnt = cnt.cpu().numpy()
+        acc += u.cpu().numpy() * cnt
+        cnt_acc += cnt
+    return (state, y.cpu().numpy(), acc / np.maximum(cnt_acc, 1.0), cnt_acc,
+            overflow)
+
+
+def phase_walls_physics():
+    """The deck-size gates of tests/physics/test_walls.py on the card,
+    through K1's general variant and run_bucket (the JAX tests use
+    run_adaptive, which is the nlist path's loop)."""
+    import numpy as np
+    from meso_tpu_torch.core.system import run_bucket
+    from meso_tpu_torch.models.classic import classic_fluid
+    from meso_tpu_torch.models.walls import couette, poiseuille
+    from meso_tpu_torch.obs.viscosity import run_viscosity_mp
+    kw = dict(force_path="pallas", device=DEVICE)
+    g, h, w = 0.1, 6.0, 1.0
+    res = {}
+    checks = {}
+
+    # Poiseuille parabola and viscosity (test_walls.py:32-65)
+    system, params, state = poiseuille(g=g, h=h, wall_width=w, **kw)
+    state, y, u, cnt, of_p = averaged_profile(system, params, state, 1500,
+                                              40, 25, 24)
+    sel = (y > w + 0.15) & (y < h - w - 0.15) & (cnt > 0)
+    ys, us = y[sel], u[sel]
+    a_mat = np.stack([np.ones_like(ys), ys, ys * ys], 1)
+    coef = np.linalg.lstsq(a_mat, us, rcond=None)[0]
+    u_max = float(us.max())
+    rms = float(np.sqrt(np.mean((us - a_mat @ coef) ** 2)))
+    eta = float(-3.0 * g / (2 * coef[2]))
+    y_vertex = float(-coef[1] / (2 * coef[2]))
+    m = state.mask
+    yf = state.x[m & (state.typ == 0), 1]
+    res["poiseuille"] = {"profile": u.tolist(), "u_max": u_max,
+                         "rms_over_umax": rms / u_max, "curvature": coef[2],
+                         "eta": eta, "y_vertex": y_vertex,
+                         "fluid_y_min": float(yf.min()),
+                         "fluid_y_max": float(yf.max()),
+                         "bucket_overflow": of_p}
+    checks["Poiseuille: flow developed, parabolic, concave"] = (
+        u_max > 0.2 and rms / u_max < 0.08 and coef[2] < 0)
+    checks["Poiseuille: 0.5 < eta < 2"] = 0.5 < eta < 2.0
+    checks["Poiseuille: vertex within 0.4 of h/2"] = \
+        abs(y_vertex - h / 2) < 0.4
+    checks["Poiseuille: fluid inside [w - 0.2, h - w + 0.2]"] = (
+        res["poiseuille"]["fluid_y_min"] > w - 0.2
+        and res["poiseuille"]["fluid_y_max"] < h - w + 0.2)
+
+    # Couette linear profile (test_walls.py:68-85)
+    system, params, state = couette(u=1.0, h=h, wall_width=w, **kw)
+    state, y, u, cnt, of_c = averaged_profile(system, params, state, 1500,
+                                              40, 25, 24)
+    sel = (y > w + 0.15) & (y < h - w - 0.15) & (cnt > 0)
+    ys, us = y[sel], u[sel]
+    a_mat = np.stack([np.ones_like(ys), ys], 1)
+    coef = np.linalg.lstsq(a_mat, us, rcond=None)[0]
+    slope_expect = 1.0 / (h - 2 * w)
+    rms = float(np.sqrt(np.mean((us - a_mat @ coef) ** 2)))
+    res["couette"] = {"profile": u.tolist(), "slope": float(coef[1]),
+                      "slope_expected": slope_expect, "rms": rms,
+                      "centre": float(coef[0] + coef[1] * h / 2),
+                      "bucket_overflow": of_c}
+    checks["Couette: slope within 25%"] = \
+        abs(coef[1] - slope_expect) / slope_expect < 0.25
+    checks["Couette: rms < 0.1 U"] = rms < 0.1
+    checks["Couette: antisymmetric"] = abs(res["couette"]["centre"]) < 0.1
+
+    # frozen wall beads, by tag (test_walls.py:88-113)
+    system, params, start = poiseuille(g=g, **kw)
+    state, d = run_bucket(system, params, start, 100)
+    wall = by_tag(start, start.typ == 1)
+    moved = float((by_tag(state, state.x) - by_tag(start, start.x))[wall]
+                  .abs().max())
+    res["frozen_walls"] = {"max_move": moved,
+                           "bucket_overflow": int(d["bucket_overflow"])}
+    checks["frozen wall beads do not move"] = moved == 0.0
+
+    # Mueller-Plathe viscosity (test_walls.py:116-131) on the pallas path:
+    # the JAX test's force_path "bucket" is not ported (ROADMAP Queue 1
+    # item 13)
+    system, params, state = classic_fluid(l=8.0, skin=0.4, **kw)
+    eta_mp, det = run_viscosity_mp(system, params, state, nswaps=150,
+                                   swap_every=10)
+    res["muller_plathe"] = {"eta": eta_mp, "flux": det["flux"],
+                            "slope": det["slope"],
+                            "force_path": system.force_path}
+    checks["Mueller-Plathe: flux > 0, 0.6 < eta < 1.6"] = (
+        det["flux"] > 0 and 0.6 < eta_mp < 1.6)
+    checks["bucket_overflow == 0"] = max(of_p, of_c, int(d[
+        "bucket_overflow"])) == 0
+    say("walls-physics", **res)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"walls physics failed: {failed}")
+    return res
+
+
+def phase_bonded_physics():
+    """The deck-size gates of tests/physics/test_polymer.py on the card,
+    through K1 (general variant where exclusions are on) and run_bucket;
+    the FENE gates also on the polymer_special deck's special_weight=0.5."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch.core.system import run_bucket
+    from meso_tpu_torch.models.polymer import (membrane_suspension,
+                                               polymer_melt)
+    from meso_tpu_torch.obs import total_momentum
+    kw = dict(force_path="pallas", device=DEVICE)
+    res, checks = {}, {}
+    for name, sw in (("fene", None), ("fene_special", 0.5)):
+        system, params, state = polymer_melt(l=6.0, n_chains=3,
+                                             chain_len=10, special_weight=sw,
+                                             **kw)
+        p0 = total_momentum(state.v, params.mass[state.typ.long()],
+                            state.mask)
+        state, d = run_bucket(system, params, state, 400)
+        bl = bond_lengths(state, params.bonded.bond_tags, system.n_tags)
+        drift = float((total_momentum(state.v, params.mass[state.typ.long()],
+                                      state.mask) - p0).abs().max())
+        res[name] = {"bond_max": float(bl.max()),
+                     "bond_mean": float(bl.mean()), "momentum_drift": drift,
+                     "bucket_overflow": int(d["bucket_overflow"]),
+                     "finite": bool(torch.isfinite(state.x).all())}
+        r = res[name]
+        checks[f"{name}: bonds below 1.45, mean in (0.30, 0.75)"] = (
+            r["bond_max"] < 1.45 and 0.30 < r["bond_mean"] < 0.75)
+        checks[f"{name}: finite, momentum drift < 5e-2, overflow 0"] = (
+            r["finite"] and drift < 5e-2 and r["bucket_overflow"] == 0)
+
+    # the vesicle (test_polymer.py:46-71)
+    system, params, state, mesh = membrane_suspension(
+        l=10.0, radius=2.5, subdiv=1, density=3.0, **kw)
+    state, d = run_bucket(system, params, state, 300)
+    n_mem = mesh["n_mem"]
+    pos = by_tag(state, state.x).cpu().numpy()[:n_mem].astype(np.float64)
+    faces = mesh["faces"]
+    p0 = pos[faces[:, 0]]
+    cr = np.cross(pos[faces[:, 1]] - p0, pos[faces[:, 2]] - p0)
+    area = float(0.5 * np.linalg.norm(cr, axis=1).sum())
+    vol = float(abs((p0 * cr).sum() / 6.0))
+    bl = bond_lengths(state, params.bonded.bond_tags, system.n_tags)
+    res["membrane"] = {"area": area, "area0": mesh["area0"], "volume": vol,
+                       "volume0": mesh["vol0"], "edge_max": float(bl.max()),
+                       "l_max": mesh["l_max"],
+                       "bucket_overflow": int(d["bucket_overflow"])}
+    checks["membrane: area and volume within 10%, edges below l_max"] = (
+        abs(area - mesh["area0"]) / mesh["area0"] < 0.10
+        and abs(vol - mesh["vol0"]) / mesh["vol0"] < 0.10
+        and float(bl.max()) < mesh["l_max"]
+        and res["membrane"]["bucket_overflow"] == 0)
+    say("bonded-physics", **res)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bonded physics failed: {failed}")
+    return res
 
 
 def kernel_records(record):
@@ -1047,6 +1687,21 @@ def kernel_records(record):
          "max_abs_err": l70["hash_max_abs_err"], "ms": l70["hash_ms"],
          "plain_ms": l70["hash_plain_ms"], "bound_ms": l70["hash_bound_ms"],
          "bound_by": l70["hash_bound_by"], "library_ms": None}]
+    # K1's general variant: its launches on both paths that run it, its
+    # numbers on walls-full's inputs (two types; polymer-full's are in
+    # build/chip_smoke.json and PERF.md)
+    gl70 = record["general_kernels"]["l70"]
+    gen = gl70["walls"]
+    rows.append(
+        {"name": "pair_dpd_v3_general", "route": "cuda", "source": k1_src,
+         "replaces": "meso_tpu/kernels/pair_dpd_v3.py:75",
+         "launches": sum(record[p]["launches"]["pair_dpd_v3_general"]
+                         for p in ("walls_full", "polymer_full")),
+         "max_abs_err": max(gl70[p]["max_abs_err"]
+                            for p in ("walls", "polymer")),
+         "ms": gen["ms"], "plain_ms": gen["plain_ms"],
+         "bound_ms": gen["bound_ms"], "bound_by": gen["bound_by"],
+         "library_ms": None})
     # K2's and K3's numbers are those at the inputs their path gives them
     for model, line in (("edpd", 871), ("tdpd", 896)):
         name = f"pair_{model}_v3"
@@ -1071,12 +1726,20 @@ def main(argv):
     else:
         record["kernels"] = phase_kernels()
         record["transport_kernels"] = phase_transport_kernels()
+        record["general_kernels"] = phase_general_kernels(
+            record["kernels"]["l70"]["pair_ms"], info["card"])
     if "--kernels-only" not in argv and "--decay-from" not in argv:
         record["main_path"] = phase_main_path()
         record["transport_physics"] = phase_transport_physics()
         record["transport_full"] = {m: phase_transport_full(m)
                                     for m in ("edpd", "tdpd")}
-        record["profile"] = phase_profile()
+        record["walls_physics"] = phase_walls_physics()
+        record["bonded_physics"] = phase_bonded_physics()
+        record["walls_full"] = phase_walls_full()
+        record["polymer_full"] = phase_polymer_full()
+        record["profile"] = phase_profile(
+            {p: record[f"{p}_full"]["steps_per_rebuild"]
+             for p in ("walls", "polymer")})
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

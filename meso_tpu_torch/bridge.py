@@ -2,13 +2,17 @@
 
 Each ``*_from`` function takes a mapping of arrays, or an object whose
 attributes are arrays (a ``meso_tpu`` State, Box, DPDParams, EDPDParams,
-TDPDParams, SystemParams or CellConfig), reads every field through ``numpy.asarray`` and builds the
-port's counterpart on ``device``. ``*_to_numpy`` goes the other way. The
-module takes numpy and never imports JAX; the tests feed it JAX output.
+TDPDParams, BondedParams, SystemParams or CellConfig), reads every field
+through ``numpy.asarray`` and builds the port's counterpart on ``device``.
+``system_from`` carries a JAX ``System`` across, its fixes mapped by class
+name onto the port's fixes of the same fields. ``*_to_numpy`` goes the
+other way. The module takes numpy and never imports JAX; the tests feed it
+JAX output.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -16,8 +20,11 @@ import torch
 
 from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.core.state import PER_PARTICLE, State
-from meso_tpu_torch.core.system import SystemParams
+from meso_tpu_torch.core.system import System, SystemParams
+from meso_tpu_torch.models.transport import FixRegionT
 from meso_tpu_torch.neighbor.cells import CellConfig
+from meso_tpu_torch.ops import fixes as fixmod
+from meso_tpu_torch.ops.bonded import BondedParams
 from meso_tpu_torch.ops.dpd import DPDParams
 from meso_tpu_torch.ops.edpd import EDPDParams
 from meso_tpu_torch.ops.tdpd import TDPDParams
@@ -67,11 +74,12 @@ def state_to_numpy(state: State) -> dict:
     return out
 
 
+def _opt_tensor(src, name, dtype, device):
+    a = _get_opt(src, name)
+    return None if a is None else _tensor(a, dtype, device)
+
+
 def dpd_params_from(src, device=None) -> DPDParams:
-    if _get(src, "excl") is not None:
-        raise NotImplementedError(
-            "special-bonds exclusions are not ported yet (ROADMAP Queue 1 "
-            "item 10)")
     return DPDParams(
         a=_tensor(_get(src, "a"), np.float32, device),
         gamma=_tensor(_get(src, "gamma"), np.float32, device),
@@ -79,14 +87,31 @@ def dpd_params_from(src, device=None) -> DPDParams:
         rc=_tensor(_get(src, "rc"), np.float32, device),
         kt=float(np.asarray(_get(src, "kt"))),
         seed=_seed(src),
-        s_exp=float(np.asarray(_get(src, "s_exp"))))
+        s_exp=float(np.asarray(_get(src, "s_exp"))),
+        excl=_opt_tensor(src, "excl", np.int32, device),
+        excl_w=_opt_tensor(src, "excl_w", np.float32, device))
 
 
 def dpd_params_to_numpy(params: DPDParams) -> dict:
-    return {"a": params.a.cpu().numpy(), "gamma": params.gamma.cpu().numpy(),
-            "sigma": params.sigma.cpu().numpy(), "rc": params.rc.cpu().numpy(),
-            "kt": np.float32(params.kt), "seed": np.uint32(params.seed),
-            "s_exp": np.float32(params.s_exp)}
+    out = {"a": params.a.cpu().numpy(), "gamma": params.gamma.cpu().numpy(),
+           "sigma": params.sigma.cpu().numpy(), "rc": params.rc.cpu().numpy(),
+           "kt": np.float32(params.kt), "seed": np.uint32(params.seed),
+           "s_exp": np.float32(params.s_exp)}
+    if params.excl is not None:
+        out.update(excl=params.excl.cpu().numpy(),
+                   excl_w=params.excl_w.cpu().numpy())
+    return out
+
+
+_BONDED_INT = ("bond_tags", "bond_type", "angle_tags", "angle_type",
+               "tri_tags", "tri_mol", "hinge_tags")
+
+
+def bonded_params_from(src, device=None) -> BondedParams:
+    return BondedParams(**{
+        f.name: _opt_tensor(src, f.name, np.int32 if f.name in _BONDED_INT
+                            else np.float32, device)
+        for f in dataclasses.fields(BondedParams)})
 
 
 def _scalar(src, name) -> float:
@@ -142,13 +167,59 @@ def pair_params_from(src, device=None):
 
 
 def system_params_from(src, device=None) -> SystemParams:
-    if _get(src, "bonded") is not None:
-        raise NotImplementedError(
-            "bonded parameters are not ported yet (ROADMAP Queue 1 item 10)")
+    bonded = _get_opt(src, "bonded")
     return SystemParams(pair=pair_params_from(_get(src, "pair"), device),
                         mass=_tensor(_get(src, "mass"), np.float32, device),
                         inv_mass=_tensor(_get(src, "inv_mass"), np.float32,
-                                         device))
+                                         device),
+                        bonded=None if bonded is None
+                        else bonded_params_from(bonded, device))
+
+
+_FIXES = {cls.__name__: cls for cls in (
+    fixmod.FixBodyForce, fixmod.FixBounceBack, fixmod.FixWallMove,
+    fixmod.FixMomentumZero, fixmod.FixSetForce, fixmod.FixSourceC,
+    FixRegionT)}
+
+
+def _plain(value):
+    """A fix field as Python numbers: tuples stay tuples, numpy scalars
+    become floats or ints."""
+    if isinstance(value, (tuple, list)):
+        return tuple(_plain(v) for v in value)
+    if isinstance(value, np.generic):
+        return value.item()
+    return value
+
+
+def fixes_from(fixes) -> tuple:
+    """The port's fix of the same class name and fields for each fix."""
+    out = []
+    for fx in fixes:
+        name = type(fx).__name__
+        if name not in _FIXES:
+            raise NotImplementedError(f"fix {name} is not ported")
+        out.append(_FIXES[name](**{
+            f.name: _plain(getattr(fx, f.name))
+            for f in dataclasses.fields(_FIXES[name])}))
+    return tuple(out)
+
+
+_SYSTEM_FIELDS = ("dt", "lam", "rng_mode", "rng_rounds", "model",
+                  "force_path", "s_exp", "z_chunks", "pair_kernel",
+                  "wrap_mode", "dd_overlap", "bond_style", "n_tags", "n_mols",
+                  "nlist_m", "rc_max")
+
+
+def system_from(src) -> System:
+    """A JAX ``System``: its scalar fields, frozen types, fixes and cell
+    configuration."""
+    cells = _get_opt(src, "cells")
+    return System(**{name: _plain(_get(src, name)) for name in _SYSTEM_FIELDS},
+                  frozen_types=tuple(int(t) for t in
+                                     _get(src, "frozen_types")),
+                  fixes=fixes_from(_get(src, "fixes")),
+                  cells=None if cells is None else cell_config_from(cells))
 
 
 def cell_config_from(src) -> CellConfig:

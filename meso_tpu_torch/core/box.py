@@ -25,6 +25,12 @@ class Box:
                    hi=torch.full((3,), float(l), dtype=torch.float32,
                                  device=device))
 
+    @staticmethod
+    def orthorhombic(lx: float, ly: float, lz: float, device=None) -> "Box":
+        return Box(lo=torch.zeros(3, dtype=torch.float32, device=device),
+                   hi=torch.tensor([lx, ly, lz], dtype=torch.float32,
+                                   device=device))
+
     @property
     def lengths(self) -> torch.Tensor:
         return self.hi - self.lo

@@ -7,9 +7,11 @@ fixes -> final_integrate -> end_of_step fixes. Where JAX runs steps under
 stays on the device and nothing synchronises inside the loop.
 
 Ported: the models "dpd", "edpd" and "tdpd", each with force_path "pallas"
-(the Hopper kernels K1, K2, K3) and "dense" (the O(N^2) oracles). Every
-other force path and bond style raises ``NotImplementedError`` naming its
-ROADMAP item.
+(the Hopper kernels K1, K2, K3) and "dense" (the O(N^2) oracles); the bond
+styles "fene", "harmonic" and "wlc_pow" with the membrane terms
+(``ops/bonded.py``); frozen types and the fixes of ``ops/fixes.py``; the
+loops ``run_bucket_chunked`` and ``run_bucket``. Every other force path
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from meso_tpu_torch.core.integrate import final_integrate, initial_integrate
 from meso_tpu_torch.core.state import State
 from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
-from meso_tpu_torch.ops.dpd import DPDParams, dense_forces
+from meso_tpu_torch.ops.dpd import DPDParams, dense_forces, f32
 
 _BUCKET_PATHS = ("bucket", "pallas", "pallas_banded")
 _MODELS = ("dpd", "edpd", "tdpd")
@@ -34,7 +36,6 @@ _TODO = {
     "pallas_banded": "force_path 'pallas_banded' is not ported yet (ROADMAP "
                      "Queue 2, kernel K6)",
     "v2": "pair_kernel 'v2' is not ported yet (ROADMAP Queue 2, kernel K5)",
-    "bond": "bonded terms are not ported yet (ROADMAP Queue 1 item 10)",
     # the eDPD/tDPD selectors whose kernel differs from the classic one
     "transport_pallas_banded": "force_path 'pallas_banded' for eDPD/tDPD "
                                "is not ported yet (ROADMAP Queue 2, kernel "
@@ -44,12 +45,12 @@ _TODO = {
 
 @dataclass(frozen=True)
 class SystemParams:
-    """Pair coefficient tables + per-type masses."""
+    """Pair coefficient tables + per-type masses (+ bonded topology)."""
 
     pair: DPDParams
     mass: torch.Tensor       # (T,) per-type mass
     inv_mass: torch.Tensor   # (T,) 1/mass
-    bonded: Any = None
+    bonded: Any = None       # ops.bonded.BondedParams or None
 
     @staticmethod
     def build(pair: DPDParams, mass=1.0) -> "SystemParams":
@@ -186,10 +187,16 @@ def compute_forces(system: System, params: SystemParams, state: State,
 
 
 def _post_forces(system: System, params: SystemParams, state: State,
-                 x, v_tilde, f):
-    """post_force fix hooks. Bonded terms are not ported yet."""
+                 x, v_tilde, f, image=None):
+    """Bonded terms, then the post_force fix hooks. ``image`` must be the
+    flags that go with ``x`` (the post-drift image1 in the step): the
+    membrane volume unwraps x with them."""
     if system.bond_style is not None:
-        raise NotImplementedError(_TODO["bond"])
+        from meso_tpu_torch.ops.bonded import bonded_forces
+        f = f + bonded_forces(x, state.tag, state.mask, state.box,
+                              params.bonded, system.bond_style,
+                              system.n_tags, system.n_mols,
+                              image=state.image if image is None else image)
     for fx in system.fixes:
         if hasattr(fx, "post_force"):
             f = fx.post_force(system, params, state, x, v_tilde, f)
@@ -236,7 +243,8 @@ def make_step(system: System, with_aux: bool = False):
         f_new, aux = compute_forces(system, params, state, x1, v_tilde,
                                     new_step, nlist_idx, t=state.T,
                                     c=state.C, need_virial=with_aux)
-        f_new = _post_forces(system, params, state, x1, v_tilde, f_new)
+        f_new = _post_forces(system, params, state, x1, v_tilde, f_new,
+                             image=image1)
 
         v1 = final_integrate(state.v, state.f, f_new, system.dt, inv_m, move)
         new_state = state.replace(x=x1, v=v1, f=f_new, image=image1,
@@ -299,6 +307,43 @@ def fit_capacity(system: System, state: State) -> System:
         if int(overflow) == 0:
             return system.replace(cells=cfg.replace(capacity=k))
     return system
+
+
+def run_bucket(system: System, params: SystemParams, state: State,
+               nsteps: int):
+    """The displacement-triggered bucket loop (``Neighbor::decide``): before
+    each step, rebuild when some particle has moved more than skin/2 since
+    the last rebuild. As in JAX the test reads the positions the previous
+    step's forces were taken at, so a skin overshoot lasts at most one step
+    of motion. ``state`` must be bucket-resident (from ``setup``); the loop
+    starts with a rebuild.
+
+    The decision reads one device scalar, the largest displacement, on the
+    host before every step: one synchronisation per step, which this loop
+    accepts (JAX takes it inside ``lax.cond`` on the device).
+    ``run_bucket_chunked`` is the timed loop. Returns (state, diag) with
+    ``n_rebuilds`` (a Python int), ``worst_disp_at_rebuild`` and
+    ``bucket_overflow``."""
+    from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
+
+    step_fn = make_step(system)
+    half_skin_sq = f32((system.cells.skin * 0.5) ** 2)
+    state, overflow = rebuild_buckets(state, system.cells)
+    x_ref = state.x
+    n_rebuilds = 0
+    worst2 = torch.zeros((), dtype=torch.float32, device=state.device)
+    for _ in range(nsteps):
+        disp2 = max_displacement_sq(state.x, x_ref, state.mask, state.box)
+        if float(disp2) > half_skin_sq:
+            state, of = rebuild_buckets(state, system.cells)
+            x_ref = state.x
+            overflow = torch.maximum(overflow, of)
+            n_rebuilds += 1
+            worst2 = torch.maximum(worst2, disp2)
+        state = step_fn(params, state)
+    return state, {"n_rebuilds": n_rebuilds,
+                   "worst_disp_at_rebuild": torch.sqrt(worst2),
+                   "bucket_overflow": overflow}
 
 
 def _bucket_chunk(system: System, params: SystemParams, state: State,

@@ -40,6 +40,12 @@ SIGNATURES = {
     # nx, ny, nz, k, xr, min_image, tea, need_virial, dt_inv_sqrt,
     # step, seed, rounds, stream
     "meso_pair_dpd_v3": (_P,) * 13 + (_I,) * 8 + (_F, _U, _U, _I, _P),
+    # x, v, tag, typ, valid, h, a, gamma, sigma, rc, n_types, excl,
+    # excl_rows, n_excl, excl_w, box_lo, box_hi, f, vir, nx, ny, nz, k, xr,
+    # min_image, tea, debug, need_virial, dt_inv_sqrt, s_exp, step, seed,
+    # rounds, stream
+    "meso_pair_dpd_v3_general": (_P,) * 10 + (_I, _P, _I, _I) + (_P,) * 5
+    + (_I,) * 9 + (_F, _F, _U, _U, _I, _P),
     # h, out, n, salt, stream
     "meso_uniform_stream": (_P, _P, _I, _U, _P),
     # x, v, t, tag, valid, h, a, gamma, kappa, rc, box_lo, box_hi, f, dtdt,

@@ -12,11 +12,15 @@ raises. On a CPU tensor, and only there, it runs its plain torch version
 is no fallback from one to the other.
 
 Covered: the fast and TEA RNG tiers, spill and strict layouts, and the
-min-image and no-min-image (``cfg.wrap_at_rebuild``) modes; for K1 also
-``need_virial``, for K3 up to ``MAX_SPECIES`` species. Multi-type tables,
-``s_exp != 1``, exclusions, ``debug_pairs`` and more species raise
-``NotImplementedError`` (ROADMAP Queue 2, the K1-K3 cases left), and
-``rcc > rc`` raises ``ValueError`` (the stencil covers rc only).
+min-image and no-min-image (``cfg.wrap_at_rebuild``) modes; for K3 up to
+``MAX_SPECIES`` species. K1 covers every case of the TPU kernel:
+``need_virial``, and, through its general variant
+(``pair_dpd_v3_general``), multi-type tables, ``s_exp != 1``,
+special-bonds exclusions and ``debug_pairs``; the one-type, s_exp = 1,
+no-exclusion case keeps the main path's kernel. For K2 and K3 multi-type
+tables, K3's ``s_exp != 1`` and more species raise ``NotImplementedError``
+(ROADMAP Queue 2, the K2-K3 cases left), and ``rcc > rc`` raises
+``ValueError`` (the stencil covers rc only).
 ``interpret``, ``z_chunks``, ``dyn_roll``, ``lane_pad`` and ``w_pad`` are
 TPU lowering knobs: they are accepted and ignored.
 """
@@ -34,17 +38,17 @@ from meso_tpu_torch.neighbor.bucket_layout import grid_shape, n_rows
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops import edpd as edpdmod
 from meso_tpu_torch.ops import tdpd as tdpdmod
-from meso_tpu_torch.ops.dpd import DPDParams, pair_force
+from meso_tpu_torch.ops.dpd import DPDParams, pair_force, special_weight
 
 # Launch counts of each kernel, raised by one at each launch and nowhere
 # else; chip_smoke.py resets and reads them around each path it drives.
-LAUNCHES = {"pair_dpd_v3": 0, "particle_hash": 0, "pair_edpd_v3": 0,
-            "pair_tdpd_v3": 0, "uniform_stream": 0}
+LAUNCHES = {"pair_dpd_v3": 0, "pair_dpd_v3_general": 0, "particle_hash": 0,
+            "pair_edpd_v3": 0, "pair_tdpd_v3": 0, "uniform_stream": 0}
 
 # species the tDPD kernel keeps in registers (kMaxSpecies in the source)
 MAX_SPECIES = 8
 
-_TODO = "is not ported yet (ROADMAP Queue 2, the K1-K3 cases left)"
+_TODO = "is not ported yet (ROADMAP Queue 2, the K2-K3 cases left)"
 
 
 def reset_launch_counts() -> None:
@@ -52,10 +56,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _half_window(cfg: CellConfig, rng_mode: str, n_types: int) -> int:
+def _half_window(cfg: CellConfig, rng_mode: str) -> int:
     """Raise for what no pair kernel covers; return the x half-window."""
-    if n_types != 1:
-        raise NotImplementedError(f"multi-type pair tables {_TODO}")
     if rng_mode not in ("fast", "tea"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
     nx, ny, nz = cfg.ncell
@@ -66,20 +68,28 @@ def _half_window(cfg: CellConfig, rng_mode: str, n_types: int) -> int:
     return xr
 
 
-def _check_supported(params: DPDParams, cfg: CellConfig, rng_mode: str,
-                     s_exp: float, debug_pairs: bool) -> int:
-    """The classic kernel's cases; returns the x half-window."""
-    if s_exp != 1.0 or params.s_exp != 1.0:
-        raise NotImplementedError(f"s_exp != 1 {_TODO}")
-    if params.excl is not None:
-        raise NotImplementedError(f"special-bonds exclusions {_TODO}")
-    if debug_pairs:
-        raise NotImplementedError(f"debug_pairs accounting {_TODO}")
-    return _half_window(cfg, rng_mode, params.n_types)
+def _check_classic(params: DPDParams, cfg: CellConfig, rng_mode: str,
+                   s_exp: float, debug_pairs: bool) -> tuple[int, bool]:
+    """Returns the x half-window and whether the case needs K1's general
+    variant (more than one type, s_exp != 1, exclusions, debug_pairs)."""
+    if s_exp != params.s_exp:
+        raise ValueError(f"System.s_exp={s_exp} differs from the pair "
+                         f"parameters' s_exp={params.s_exp}")
+    if (params.excl is None) != (params.excl_w is None):
+        raise ValueError("excl and excl_w come together")
+    general = (params.n_types != 1 or s_exp != 1.0
+               or params.excl is not None or debug_pairs)
+    return _half_window(cfg, rng_mode), general
+
+
+def _one_type(params) -> None:
+    if params.n_types != 1:
+        raise NotImplementedError(f"multi-type pair tables {_TODO}")
 
 
 def _check_tdpd(params, cfg: CellConfig, rng_mode: str) -> int:
-    xr = _half_window(cfg, rng_mode, params.n_types)
+    _one_type(params)
+    xr = _half_window(cfg, rng_mode)
     if params.s_exp != 1.0:
         # the kernel's force takes w = 1 - r/rc, as K3's does
         raise NotImplementedError(f"s_exp != 1 {_TODO}")
@@ -130,7 +140,8 @@ def _row_specs(nr: int, x, v, tag, mask, box: Box) -> dict:
 
 
 def _tables(params, names) -> dict:
-    return {name: (getattr(params, name), torch.float32, (1, 1))
+    nt = params.n_types
+    return {name: (getattr(params, name), torch.float32, (nt, nt))
             for name in names}
 
 
@@ -189,15 +200,23 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
     """Classic-DPD forces on bucket rows. Returns (f (nr, 3), virial).
 
     With need_virial=False the virial is not computed and 0.0 is returned.
-    ``typ`` is unused (one particle type)."""
-    xr = _check_supported(params, cfg, rng_mode, s_exp, debug_pairs)
+    ``s_exp`` is the System's mirror of ``params.s_exp`` and must equal it.
+    With ``debug_pairs`` each row's f holds (its in-range partners, the sum
+    of their 14-bit hash keys, 0) and the virial is 0. ``typ`` is read by
+    the general variant only."""
+    xr, general = _check_classic(params, cfg, rng_mode, s_exp, debug_pairs)
     if x.device.type == "cpu":
         return bucket_forces_v3_plain(x, v, tag, mask, box, step, params, dt,
-                                      cfg, rng_mode, rng_rounds, need_virial)
+                                      cfg, rng_mode, rng_rounds, need_virial,
+                                      typ=typ, debug_pairs=debug_pairs)
     lib = _build.load_library()
     nr = n_rows(cfg)
     _check_cuda({**_row_specs(nr, x, v, tag, mask, box),
                  **_tables(params, ("a", "gamma", "sigma", "rc"))})
+    if general:
+        return _launch_general(lib, x, v, typ, tag, mask, box, step, params,
+                               dt, cfg, xr, rng_mode, rng_rounds,
+                               need_virial, debug_pairs)
     step_u = step & 0xFFFFFFFF
     h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
@@ -221,6 +240,49 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _launch_general(lib, x, v, typ, tag, mask, box: Box, step: int,
+                    params: DPDParams, dt: float, cfg: CellConfig, xr: int,
+                    rng_mode: str, rng_rounds: int, need_virial: bool,
+                    debug_pairs: bool):
+    """K1's general variant on CUDA tensors (the wrapper checked the
+    rows and tables)."""
+    nr = n_rows(cfg)
+    specs = {"x": (x, torch.float32, None), "typ": (typ, torch.int32, (nr,))}
+    n_excl = excl_rows = 0
+    if params.excl is not None:
+        excl_rows, n_excl = params.excl.shape
+        specs["excl"] = (params.excl, torch.int32, None)
+        specs["excl_w"] = (params.excl_w, torch.float32, ())
+    _check_cuda(specs)
+    step_u = step & 0xFFFFFFFF
+    # debug_pairs reads the per-particle hash's keys in both RNG tiers
+    h = _hash_or_tag(lib, tag, step_u, params.seed,
+                     "fast" if debug_pairs else rng_mode, rng_rounds)
+    f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
+    virial = need_virial and not debug_pairs
+    vir_rows = (torch.empty((nr,), dtype=torch.float32, device=x.device)
+                if virial else None)
+    nx, ny, nz = cfg.ncell
+    code = lib.meso_pair_dpd_v3_general(
+        x.data_ptr(), v.data_ptr(), tag.data_ptr(), typ.data_ptr(),
+        mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
+        params.gamma.data_ptr(), params.sigma.data_ptr(),
+        params.rc.data_ptr(), params.n_types,
+        None if params.excl is None else params.excl.data_ptr(), excl_rows,
+        n_excl, None if params.excl_w is None else params.excl_w.data_ptr(),
+        box.lo.data_ptr(), box.hi.data_ptr(), f.data_ptr(),
+        None if vir_rows is None else vir_rows.data_ptr(),
+        nx, ny, nz, cfg.capacity, xr, int(not cfg.wrap_at_rebuild),
+        int(rng_mode == "tea"), int(debug_pairs), int(virial),
+        1.0 / math.sqrt(dt), params.s_exp, step_u, params.seed, rng_rounds,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "pair_dpd_v3_general")
+    LAUNCHES["pair_dpd_v3_general"] += 1
+    if virial:
+        return f, torch.sum(vir_rows)
+    return f, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
                                  step: int, params, dt: float,
                                  cfg: CellConfig, rng_mode: str = "fast",
@@ -229,7 +291,8 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
                                  w_pad: int = 0):
     """eDPD forces and heat on bucket rows (K2). Returns (f (nr, 3),
     dTdt (nr,), virial). ``typ`` is unused (one particle type)."""
-    xr = _half_window(cfg, rng_mode, params.n_types)
+    _one_type(params)
+    xr = _half_window(cfg, rng_mode)
     if x.device.type == "cpu":
         return bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box, step,
                                            params, dt, cfg, rng_mode,
@@ -401,39 +464,63 @@ def _pair_hashes(tag, step: int, seed: int, rng_mode: str, rounds: int):
 def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
                            params: DPDParams, dt: float, cfg: CellConfig,
                            rng_mode: str = "fast", rng_rounds: int = 8,
-                           need_virial: bool = True):
-    """The same function as the classic CUDA kernel, in plain torch: the
-    ``_stencil_pairs`` walk, then the kernel's force on the in-range
-    pairs, added into their target rows."""
-    a = params.a[0, 0]
-    gamma = params.gamma[0, 0]
-    s = params.sigma[0, 0] * (1.0 / math.sqrt(dt))
-    rc = params.rc[0, 0]
-    inv_rc = 1.0 / rc
-    if rng_mode == "fast":
-        ident = rngmod.particle_hash(tag, step, params.seed,
-                                     rounds=rng_rounds)
-    else:
-        ident = tag
+                           need_virial: bool = True, typ=None,
+                           debug_pairs: bool = False):
+    """The same function as the classic CUDA kernels, in plain torch: the
+    ``_stencil_pairs`` walk out to the largest rc, then, for the pairs
+    inside their own rc, the kernels' force (per-type-pair tables,
+    ``params.s_exp``, the special-bonds weight), added into their target
+    rows; or, with ``debug_pairs``, the partner counts and key sums. ``typ``
+    is needed with more than one type."""
+    nt = params.n_types
+    if nt > 1 and typ is None:
+        raise ValueError("a multi-type table needs typ")
+    a_t, g_t = params.a.reshape(-1), params.gamma.reshape(-1)
+    s_t = params.sigma.reshape(-1) * (1.0 / math.sqrt(dt))
+    rc_t = params.rc.reshape(-1)
+    inv_rc_t = 1.0 / rc_t
+    s_exp = params.s_exp
+    if rng_mode == "fast" or debug_pairs:
+        h = rngmod.particle_hash(tag, step, params.seed, rounds=rng_rounds)
+    ident = h if rng_mode == "fast" else tag
     nr = x.shape[0]
     f = torch.zeros((nr, 3), dtype=torch.float32, device=x.device)
     vir = torch.zeros((nr,), dtype=torch.float32, device=x.device)
-    for row, src, d, r2 in _stencil_pairs(x, mask, box, cfg, rc * rc):
+    for row, src, d, r2 in _stencil_pairs(x, mask, box, cfg,
+                                          torch.max(rc_t * rc_t)):
+        if nt > 1:
+            p = typ[row].long() * nt + typ[src].long()
+            keep = r2 < rc_t[p] * rc_t[p]
+            row, src, p, r2 = row[keep], src[keep], p[keep], r2[keep]
+            d = [dc[keep] for dc in d]
+        else:
+            p = 0
+        if debug_pairs:
+            f[:, 0].index_add_(0, row, torch.ones_like(r2))
+            f[:, 1].index_add_(0, row, (h[src] >> 18).to(torch.float32))
+            continue
+        a, gamma, s = a_t[p], g_t[p], s_t[p]
         rinv = torch.rsqrt(r2)
         rr = r2 * rinv
-        w = 1.0 - rr * inv_rc
+        w = 1.0 - rr * inv_rc_t[p]
         ev = sum(d[c] * (v[row, c] - v[src, c]) for c in range(3)) * rinv
         if rng_mode == "fast":
             theta = rngmod.pair_uniform_fast(ident[row], ident[src])
         else:
             theta = rngmod.pair_uniform_tea(ident[row], ident[src], step,
                                             params.seed, rounds=rng_rounds)
-        fmag = w * (a - (gamma * w) * ev + s * theta)
+        if s_exp == 1.0:
+            fmag = w * (a - (gamma * w) * ev + s * theta)
+        else:
+            wr = torch.pow(torch.clamp(w, min=0.0), s_exp)
+            fmag = a * w - gamma * (wr * wr) * ev + s * wr * theta
+        if params.excl is not None:
+            fmag = fmag * special_weight(tag[row], tag[src], params)
         fr = fmag * rinv
         f.index_add_(0, row, torch.stack([fr * dc for dc in d], -1))
         if need_virial:
             vir.index_add_(0, row, 0.5 * fmag * rr)
-    if need_virial:
+    if need_virial and not debug_pairs:
         return f, torch.sum(vir)
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
 

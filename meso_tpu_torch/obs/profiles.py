@@ -1,9 +1,10 @@
-"""Spatial profile observables, the ``fix ave/chunk`` analog (port of the
-parts of ``meso_tpu/obs/profiles.py`` the transport validations use).
+"""Spatial profile observables, the ``fix ave/chunk`` analog (port of
+``meso_tpu/obs/profiles.py``).
 
 Particles are binned along one coordinate and per-bin counts and sums of a
-weight are accumulated: masked segment sums that stay on the device. The
-velocity and temperature profiles are ROADMAP Queue 1 item 11.
+weight are accumulated: masked segment sums that stay on the device. They
+give the Poiseuille and Couette velocity profiles, the flow-frame
+temperature, and the eDPD and tDPD field profiles.
 """
 
 from __future__ import annotations
@@ -33,14 +34,54 @@ def profile(x, weights, mask, axis: int, lo, hi, nbins: int):
     return cnt[:nbins], acc[:nbins]
 
 
+def _centers(lo, hi, nbins: int, device):
+    return lo + (torch.arange(nbins, device=device) + 0.5) * (hi - lo) / nbins
+
+
+def _select(state, typ):
+    return state.mask if typ is None else (state.mask & (state.typ == typ))
+
+
+def velocity_profile(state, axis: int, flow_axis: int, nbins: int,
+                     typ: int | None = None):
+    """Mean flow velocity vs coordinate. Returns (bin centres, per-bin
+    mean, count)."""
+    lo, hi = state.box.lo[axis], state.box.hi[axis]
+    cnt, acc = profile(state.x, state.v[:, flow_axis], _select(state, typ),
+                       axis, lo, hi, nbins)
+    return (_centers(lo, hi, nbins, state.device),
+            acc[:, 0] / torch.clamp(cnt, min=1.0), cnt)
+
+
+def temperature_profile(state, mass, axis: int, nbins: int,
+                        typ: int | None = None, subtract_flow: bool = True):
+    """Per-bin kinetic temperature; ``mass`` is per particle (N,). With
+    ``subtract_flow`` each bin's mean velocity is removed first (the
+    thermal temperature, not the flow's kinetic energy). Returns (bin
+    centres, per-bin kT, count)."""
+    mask = _select(state, typ)
+    lo, hi = state.box.lo[axis], state.box.hi[axis]
+    cnt, mv = profile(state.x, mass[:, None] * state.v, mask, axis, lo, hi,
+                      nbins)
+    _, mv2 = profile(state.x, mass * torch.sum(state.v ** 2, -1), mask, axis,
+                     lo, hi, nbins)
+    _, msum = profile(state.x, mass, mask, axis, lo, hi, nbins)
+    cnt_safe = torch.clamp(cnt, min=1.0)
+    if subtract_flow:
+        vbar = mv / torch.clamp(msum, min=1e-9)
+        flow2 = torch.sum(vbar ** 2, -1) * msum[:, 0]
+        kt = (mv2[:, 0] - flow2) / (3.0 * cnt_safe)
+    else:
+        kt = mv2[:, 0] / (3.0 * cnt_safe)
+    return _centers(lo, hi, nbins, state.device), kt, cnt
+
+
 def field_profile(state, field, axis: int, nbins: int,
                   typ: int | None = None):
     """Mean of a per-particle field vs coordinate (eDPD T, tDPD C).
     Returns (bin centres, per-bin mean (nbins, D), count)."""
-    mask = state.mask if typ is None else (state.mask & (state.typ == typ))
-    lo = state.box.lo[axis]
-    hi = state.box.hi[axis]
-    cnt, acc = profile(state.x, field, mask, axis, lo, hi, nbins)
-    centers = lo + (torch.arange(nbins, device=state.device) + 0.5) \
-        * (hi - lo) / nbins
-    return centers, acc / torch.clamp(cnt, min=1.0)[:, None], cnt
+    lo, hi = state.box.lo[axis], state.box.hi[axis]
+    cnt, acc = profile(state.x, field, _select(state, typ), axis, lo, hi,
+                       nbins)
+    return (_centers(lo, hi, nbins, state.device),
+            acc / torch.clamp(cnt, min=1.0)[:, None], cnt)

@@ -4,6 +4,8 @@
     w(r) = 1 - r/rc,  sigma^2 = 2 gamma kT.
 
 ``dense_forces`` is the port's own O(N^2) oracle for the bucket kernel.
+Special-bonds exclusions (``special_weight``, ``build_exclusions``) scale
+the whole pair force and virial of a bonded pair by one weight.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import dataclasses
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from meso_tpu_torch.core import rng as rngmod
@@ -24,8 +27,9 @@ class DPDParams:
 
     The (T, T) tables are float32 tensors on the simulation device. ``seed``
     is the uint32 value of the global RNG seed, held as a Python int; ``kt``
-    and ``s_exp`` are Python floats. ``excl``/``excl_w`` (special-bonds
-    exclusions) exist for the bonded models and are not ported yet."""
+    and ``s_exp`` are Python floats. ``excl`` is the special-bonds table,
+    (n_tags + 1, E) int32 indexed by tag, 0 for an empty slot, and
+    ``excl_w`` its 0-d float32 weight; both None without exclusions."""
 
     a: torch.Tensor
     gamma: torch.Tensor
@@ -57,9 +61,12 @@ class DPDParams:
         return self.a.shape[0]
 
     def to(self, device) -> "DPDParams":
+        def move(t):
+            return None if t is None else t.to(device)
         return dataclasses.replace(
             self, a=self.a.to(device), gamma=self.gamma.to(device),
-            sigma=self.sigma.to(device), rc=self.rc.to(device))
+            sigma=self.sigma.to(device), rc=self.rc.to(device),
+            excl=move(self.excl), excl_w=move(self.excl_w))
 
     def replace(self, **kw) -> "DPDParams":
         return dataclasses.replace(self, **kw)
@@ -101,6 +108,38 @@ def pair_force(dr, vij, theta, a, gamma, sigma, rc, dt_inv_sqrt: float,
     return f, 0.5 * fmag * r
 
 
+def special_weight(tag_i, tag_j, params: DPDParams) -> torch.Tensor:
+    """Pairwise special-bonds weight: ``excl_w`` where tag_j is in tag_i's
+    exclusion list, else 1. Shapes broadcast like tag_i and tag_j."""
+    shape = torch.broadcast_shapes(tag_i.shape, tag_j.shape)
+    if params.excl is None:
+        return torch.ones(shape, dtype=torch.float32, device=tag_i.device)
+    ex = params.excl[tag_i.long()]                      # (..., E)
+    hit = torch.any(ex == tag_j[..., None], dim=-1)
+    return torch.where(hit, params.excl_w.to(torch.float32),
+                       torch.ones((), dtype=torch.float32,
+                                  device=tag_i.device))
+
+
+def build_exclusions(bond_tags, n_tags: int, weight: float = 0.0,
+                     max_excl: int = 6, device=None):
+    """Host-side: per-tag exclusion lists from an (NB, 2) bond-tag table.
+    Returns (excl (n_tags + 1, max_excl) int32, weight 0-d float32) on
+    ``device``; the table is filled in bond order, as the JAX package's."""
+    ex = np.zeros((n_tags + 1, max_excl), np.int32)
+    cnt = np.zeros(n_tags + 1, np.int32)
+    for a, b in np.asarray(bond_tags):
+        if a <= 0:
+            continue
+        for s, t in ((a, b), (b, a)):
+            if cnt[s] >= max_excl:
+                raise ValueError(f"tag {s}: more than {max_excl} exclusions")
+            ex[s, cnt[s]] = t
+            cnt[s] += 1
+    return (torch.from_numpy(ex).to(device),
+            torch.tensor(weight, dtype=torch.float32, device=device))
+
+
 def _theta_dense(tag, step: int, params: DPDParams, rng_mode: str,
                  rng_rounds: int):
     """(N, N) symmetric noise matrix for the dense path."""
@@ -116,10 +155,9 @@ def _theta_dense(tag, step: int, params: DPDParams, rng_mode: str,
 def dense_forces(x, v, typ, tag, mask, box: Box, step: int,
                  params: DPDParams, dt: float, rng_mode: str = "tea",
                  rng_rounds: int = 8):
-    """O(N^2) reference force evaluation. Returns (f, virial, n_neighbors)."""
-    if params.excl is not None:
-        raise NotImplementedError(
-            "special-bonds exclusions: ROADMAP Queue 1 item 10 (bonded)")
+    """O(N^2) reference force evaluation. Returns (f, virial, n_neighbors).
+    With exclusions the special-bonds weight scales each pair's force and
+    virial; n_neighbors counts every pair inside its cutoff."""
     n = x.shape[0]
     dr = box.min_image(x[:, None, :] - x[None, :, :])
     vij = v[:, None, :] - v[None, :, :]
@@ -133,6 +171,10 @@ def dense_forces(x, v, typ, tag, mask, box: Box, step: int,
     f_pair, vir_half = pair_force(dr, vij, theta, params.a[ti, tj],
                                   params.gamma[ti, tj], params.sigma[ti, tj],
                                   rc, dt_inv_sqrt, params.s_exp)
+    if params.excl is not None:
+        w_sp = special_weight(tag[:, None], tag[None, :], params)
+        f_pair = f_pair * w_sp[..., None]
+        vir_half = vir_half * w_sp
     f = torch.sum(f_pair, dim=1)
     virial = torch.sum(vir_half)
     r2 = torch.sum(dr * dr, dim=-1)

@@ -20,7 +20,9 @@ from meso_tpu_torch.kernels.pair_dpd_v3 import (
     LAUNCHES, bucket_forces_pallas_v3, bucket_forces_pallas_v3_edpd,
     bucket_forces_pallas_v3_tdpd, particle_hash_v3, uniform_stream_v3)
 from meso_tpu_torch.models.classic import classic_fluid
+from meso_tpu_torch.models.polymer import membrane_suspension, polymer_melt
 from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
+from meso_tpu_torch.models.walls import couette, poiseuille
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops.dpd import DPDParams
 from meso_tpu_torch.ops.edpd import EDPDParams
@@ -36,7 +38,9 @@ MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.models.transport", "meso_tpu_torch.obs.thermo",
            "meso_tpu_torch.obs.profiles", "meso_tpu_torch.ops.dpd",
            "meso_tpu_torch.ops.edpd", "meso_tpu_torch.ops.tdpd",
-           "meso_tpu_torch.ops.fixes"]
+           "meso_tpu_torch.ops.fixes", "meso_tpu_torch.ops.bonded",
+           "meso_tpu_torch.core.region", "meso_tpu_torch.models.walls",
+           "meso_tpu_torch.models.polymer", "meso_tpu_torch.obs.viscosity"]
 
 
 def test_import_leaves_jax_out():
@@ -117,6 +121,18 @@ def test_entry_points_default_to_the_card(builder):
             builder(l=6.0, force_path="pallas", skin=0.4)
 
 
+@pytest.mark.parametrize("builder,kw", [
+    (poiseuille, dict(lx=6.0, lz=6.0)), (couette, dict(lx=6.0, lz=6.0)),
+    (polymer_melt, dict(l=6.0, n_chains=2, chain_len=5)),
+    (membrane_suspension, dict(l=8.0, radius=2.0, subdiv=0))],
+    ids=["poiseuille", "couette", "polymer_melt", "membrane_suspension"])
+def test_wall_and_bonded_builders_default_to_the_card(builder, kw):
+    assert inspect.signature(builder).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            builder(force_path="pallas", skin=0.4, **kw)
+
+
 def test_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "meso_tpu_torch"
     assert [p.name for p in _build.sources()] == ["pair_dpd_v3.cu",
@@ -145,7 +161,7 @@ def test_build_hash_covers_headers(monkeypatch, tmp_path):
     (dict(force_path="bucket"), "Queue 1 item 13"),
     (dict(force_path="pallas_banded"), "K6"),
     (dict(pair_kernel="v2"), "K5"),
-    (dict(bond_style="fene"), "Queue 1 item 10"),
+    (dict(model="edpd", pair_kernel="v2"), "K5"),
 ])
 def test_unported_paths_raise(change, match):
     cfg = CellConfig.for_box([6.0] * 3, 1.0, 3.0, skin=0.4, rebuild_every=3,

@@ -141,21 +141,37 @@ def test_bridge_round_trip():
 
 @pytest.mark.parametrize("case", ["multitype", "s_exp", "debug_pairs",
                                   "excl"])
-def test_unported_kernel_cases_raise(case):
+def test_unported_kernel_cases_raise(case, monkeypatch):
+    """K1's former NotImplementedError cases now take the general kernel:
+    off the CPU with no compiler they raise for want of nvcc, never fall
+    back to the plain version, and launch nothing."""
+    import torch.utils.cpp_extension
+
+    from meso_tpu_torch.kernels import _build
+    from meso_tpu_torch.kernels.pair_dpd_v3 import LAUNCHES
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("CUDA_PATH", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setattr(torch.utils.cpp_extension, "CUDA_HOME", None)
+    _build.load_library.cache_clear()
     bst, cfg = _bucket_case(True, False)
-    tst = bridge.state_from(bst)
+    tst = bridge.state_from(bst, device="meta")
     params = bridge.dpd_params_from(J_PARAMS)
     kw = {}
     if case == "multitype":
         params = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=7,
                                  n_types=2)
     elif case == "s_exp":
+        params = params.replace(s_exp=0.5)
         kw["s_exp"] = 0.5
     elif case == "debug_pairs":
         kw["debug_pairs"] = True
     else:
-        params = params.replace(excl=torch.zeros((2, 1), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        params = params.replace(excl=torch.zeros((2, 1), dtype=torch.int32),
+                                excl_w=torch.tensor(0.5))
+    before = dict(LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         bucket_forces_pallas_v3(tst.x, tst.v, tst.typ, tst.tag, tst.mask,
-                                tst.box, STEP, params, 0.01,
+                                tst.box, STEP, params.to("meta"), 0.01,
                                 bridge.cell_config_from(cfg), **kw)
+    assert LAUNCHES == before
