@@ -63,16 +63,33 @@ Phases, one line of output each (any failure raises and exits non-zero):
    run_bucket_chunked at the first of 3 or 2 steps per rebuild that keeps
    the skin ratio below 1, every force evaluation through the general
    variant, with each path's gates;
-14. profile: torch.profiler over 10 chunks of each 1M path, device time per
-   kernel and the card's busy share.
+14. kernels-selectors-l8: the fused (K5: pair_fused_dpd/_edpd/_tdpd) and
+   banded (K6: pair_banded_dpd; K7: pair_banded_edpd/_tdpd) entry points,
+   all on csrc/pair_brick.cu, against their plain versions at l=8: fast and
+   TEA, spill (K5) and strict, one type and two with asymmetric tables,
+   s_exp 0.5 and exclusions (classic), one, three and ten species (tDPD),
+   a row that crossed the box mid-window; then K2 and K3 with two types and
+   ten species (fast/TEA x spill/strict x min-image on/off);
+15. kernels-selectors-l70: each of those entry points on its own 1M path's
+   inputs at set-up (spill rows for the fused, strict rows, K=28 and
+   3,500,000 of them, for the banded), and the fused classic kernel on the
+   wall and polymer paths' inputs, with times, plain times and bounds;
+16. the classic, eDPD and tDPD paths at 1,029,000 particles through each
+   selector (v2-classic, v2-edpd, v2-tdpd, banded-classic, banded-edpd,
+   banded-tdpd), with the main path's and transport-full's steps and
+   gates, every force evaluation through the selector's kernel;
+17. banded-physics: the eDPD slab gate and the tDPD decay from one start
+   at deck size through force_path "pallas_banded";
+18. profile: torch.profiler over 10 chunks of each 1M path (the six new
+   ones included), device time per kernel and the card's busy share.
 
-Phases 9 and 10 run after phase 5, phases 11-13 after phase 8.
-``--kernels-only`` stops after phase 10. ``--decay-from FILE`` runs only
+Phases 9, 10, 14 and 15 run after phase 5, phases 11-13 and 16-17 after
+phase 8. ``--kernels-only`` stops after phase 15. ``--decay-from FILE`` runs only
 the tDPD decay from the JAX package's starts in FILE, against the JAX
 rates stored beside them (see phase_decay_from).
 
-Launch counts are set to 0 just before each path (6, each model of 8, and
-each path of 13) is driven and read just after. The last three lines are the kernels' JSON
+Launch counts are set to 0 just before each path (6, each model of 8, each
+path of 13 and 16, and phase 17) is driven and read just after. The last three lines are the kernels' JSON
 record, the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Every number is also written to
 build/chip_smoke.json.
@@ -123,10 +140,12 @@ FULL_CADENCES = (3, 2)
 POLYMER_CHAINS, POLYMER_CHAIN_LEN = 3200, 16
 
 # The least time a kernel could take (bound_ms): the larger of its bytes
-# (each input read once, each output written once) over the card's memory
-# rate and its operations over the fp32 rate outside the tensor cores (the
-# NVIDIA H100 SXM data sheet). Integer
-# operations are counted at the same rate; the card's int32 rate is lower,
+# (each input read once, each output written once; for a pair kernel over
+# bucket rows, the per-particle inputs of the valid rows only, the mask and
+# the outputs of every row, and one scalar virial: row_bound) over the
+# card's memory rate and its operations over the fp32 rate outside the
+# tensor cores (the NVIDIA H100 SXM data sheet). Integer operations are
+# counted at the same rate; the card's int32 rate is lower,
 # so the bound stays a lower bound. Operations per in-range pair, counted
 # from the CUDA sources (arithmetic after the cutoff test; the candidate
 # tests are not counted): K1 33 fp32 + 11 integer (the hash mix); K2 74
@@ -135,6 +154,20 @@ POLYMER_CHAINS, POLYMER_CHAIN_LEN = 3200, 16
 # + 11 integer. The hash: ~20 integer operations per TEA round per row.
 # K1's general variant: 38 fp32 (K1's, with r2 summed again, rc^2 and
 # 1/rc per pair) + 12 integer per pair, and 2 integer per exclusion slot.
+# the pair kernel each selector runs, by model: force_path "pallas" with
+# pair_kernel "v3" (K1-K3) or "v2" (the fused K5), and "pallas_banded" (K6,
+# K7); K5, K6 and K7 are one CUDA kernel family, csrc/pair_brick.cu
+SELECTOR_KERNELS = {
+    "v3": {"dpd": "pair_dpd_v3", "edpd": "pair_edpd_v3",
+           "tdpd": "pair_tdpd_v3"},
+    "v2": {"dpd": "pair_fused_dpd", "edpd": "pair_fused_edpd",
+           "tdpd": "pair_fused_tdpd"},
+    "banded": {"dpd": "pair_banded_dpd", "edpd": "pair_banded_edpd",
+               "tdpd": "pair_banded_tdpd"}}
+# the brick kernels' operations per in-range pair, counted from
+# csrc/pair_brick.cu as for K1-K3 above: classic as K1's general variant
+# (r2 summed again, per-pair tables), eDPD as K2, tDPD as K3
+BRICK_OPS = {"dpd": 50, "edpd": 107}
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_PAIR = {"pair_dpd_v3": 44, "pair_edpd_v3": 107,
@@ -142,6 +175,35 @@ OPS_PER_PAIR = {"pair_dpd_v3": 44, "pair_edpd_v3": 107,
 OPS_PER_EXCL_SLOT = 2
 TDPD_OPS_PER_PAIR, TDPD_OPS_PER_RCC_PAIR, TDPD_OPS_PER_SPECIES = 56, 4, 21
 HASH_OPS_PER_ROUND = 20
+
+
+def kernel_modules():
+    """The modules whose LAUNCHES count kernel launches: K1-K3 and the
+    hash in pair_dpd_v3, the fused and banded selectors' brick kernel in
+    _brick."""
+    from meso_tpu_torch.kernels import _brick, pair_dpd_v3
+    return (pair_dpd_v3, _brick)
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    for mod in kernel_modules():
+        mod.reset_launch_counts()
+
+
+def read_launches():
+    """Every kernel's launch count since the last reset, by name."""
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+# the pair kernels among the launch counters (the hash and the
+# uniform_stream probe are not pair kernels)
+def pair_launches(launches):
+    return {k: n for k, n in launches.items()
+            if k not in ("particle_hash", "uniform_stream")}
 
 
 def run(cmd):
@@ -221,8 +283,29 @@ def compare_forces(f_k, vir_k, f_p, vir_p, mask, min_image, label):
 def bound(tensors_in, tensors_out, ops):
     """(bound_ms, bound_by) of a kernel from its inputs, outputs and
     operation count."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in list(tensors_in) + list(tensors_out))
+    return bytes_bound(sum(t.numel() * t.element_size()
+                           for t in list(tensors_in) + list(tensors_out)), ops)
+
+
+def row_bound(mask, per_particle, tensors_out, ops, virial=False):
+    """(bound_ms, bound_by) of a pair kernel over bucket rows: the mask of
+    every row read once and each per-particle input (x, v, tag, h, the
+    field, typ, the exclusion rows: tensors whose first axis runs over rows
+    or tags) read once for the valid rows only; each output written once
+    over every row (pad rows are written, as zeros), and one scalar virial
+    where the function returns one (its per-row partial sums are how the
+    kernel sums it, not its output)."""
+    nv = int(mask.sum())
+    nbytes = mask.numel() * mask.element_size() + (4 if virial else 0)
+    nbytes += nv * sum(t.numel() // t.shape[0] * t.element_size()
+                       for t in per_particle)
+    nbytes += sum(t.numel() * t.element_size() for t in tensors_out)
+    return bytes_bound(nbytes, ops)
+
+
+def bytes_bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of nbytes over the memory rate and
+    ops over the fp32 rate."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / FP32_OPS_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -280,20 +363,25 @@ def decay_fit(amps):
     return ok, float(-k), resid
 
 
-def transport_path(model):
+def transport_path(model, selector="v3"):
     """The 1M transport path through its builder, as transport-full runs it:
     edpd_slab or tdpd_diffusion at L=70 from the default start (with the
-    capacity fit_capacity gives that start), the sort rebuild. Returns
-    (system, params, state) at set-up."""
+    capacity fit_capacity gives that start), the sort rebuild, and the
+    selector's kernel: force_path "pallas" with pair_kernel "v3" (K2, K3)
+    or "v2" (K5), both on the builders' spill buckets, or "pallas_banded"
+    (K7), on the builders' strict buckets. Returns (system, params, state)
+    at set-up."""
     from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
+    force_path = "pallas_banded" if selector == "banded" else "pallas"
     if model == "edpd":
         system, params, state = edpd_slab(
             l=L_MAIN, kappa=2.0, cv=30.0, t_hot=1.3, t_cold=0.7,
-            force_path="pallas", skin=SKIN, device=DEVICE)
+            force_path=force_path, skin=SKIN, device=DEVICE,
+            pair_kernel="v2" if selector == "v2" else "v3")
     else:
         system, params, state = tdpd_diffusion(
-            l=L_MAIN, kappa_c=2.0, force_path="pallas", skin=SKIN,
-            device=DEVICE)
+            l=L_MAIN, kappa_c=2.0, force_path=force_path, skin=SKIN,
+            device=DEVICE, pair_kernel="v2" if selector == "v2" else "v3")
     return (system.replace(cells=system.cells.replace(rebuild="sort")),
             params, state)
 
@@ -388,6 +476,23 @@ def phase_env():
     return info
 
 
+def ptxas_report(log):
+    """One line per kernel instantiation from nvcc's -Xptxas -v output: its
+    mangled name (the template arguments show in it), its registers and
+    its spill stores and loads."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.split(",", 1)[1].strip()
+        elif "Used" in ln and "registers" in ln and name:
+            regs = ln.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}, {spill}")
+            name = None
+    return out
+
+
 def phase_build():
     from meso_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -395,8 +500,7 @@ def phase_build():
     _build.load_library()
     secs = time.perf_counter() - t0
     log = path.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+    ptxas = ptxas_report(log.read_text()) if log.exists() else []
     say("build", seconds=round(secs, 3), library=str(path.relative_to(ROOT)),
         ptxas=ptxas)
     return {"seconds": secs, "ptxas": ptxas}
@@ -494,10 +598,10 @@ def phase_kernels():
         "rebuild_sort_ms": timed_ms(lambda: rebuild_buckets(bst, cfg), 10),
     }
     n_rc, _ = pair_counts(bst, cfg)
-    # K1 as timed (need_virial off): x, v, tag, mask, h in, f out; the
-    # hash: tag in, h out
-    pair_bound = bound([bst.x, bst.v, bst.tag, bst.mask, bst.tag], [f_k],
-                       OPS_PER_PAIR["pair_dpd_v3"] * n_rc)
+    # K1 as timed (need_virial off): the mask, and x, v, tag and h of the
+    # valid rows in, f out; the hash: tag in, h out
+    pair_bound = row_bound(bst.mask, [bst.x, bst.v, bst.tag, bst.tag],
+                           [f_k], OPS_PER_PAIR["pair_dpd_v3"] * n_rc)
     hash_bound = bound([bst.tag], [bst.tag], bst.n * 8 * HASH_OPS_PER_ROUND)
     out["l70"] = {"n": n, "nr": bst.n, "ncell": list(cfg.ncell),
                   "capacity": cfg.capacity, "pairs_in_rc": n_rc,
@@ -599,8 +703,9 @@ def phase_transport_kernels():
         rec[model]["plain_ms"] = timed_ms(
             lambda: plain(bst.x, bst.v, fld, bst.tag, bst.mask, bst.box,
                           step, params[model], 0.01, cfg), 3)
-        # inputs x, v, the field, tag, mask and h (int32, the size of tag)
-        ins = [bst.x, bst.v, fld, bst.tag, bst.mask, bst.tag]
+        # inputs: the mask, and x, v, the field, tag and h (int32, the
+        # size of tag) of the valid rows
+        ins = [bst.x, bst.v, fld, bst.tag, bst.tag]
         if model == "edpd":
             ops = OPS_PER_PAIR["pair_edpd_v3"] * n_rc
         else:
@@ -608,9 +713,9 @@ def phase_transport_kernels():
             ops = (TDPD_OPS_PER_PAIR * n_rc
                    + (TDPD_OPS_PER_RCC_PAIR + TDPD_OPS_PER_SPECIES * ns)
                    * n_rcc[params[model].rcc])
-        # outputs: f, the flux and the per-row virial
-        outs = [got[0], got[1], got[1].new_empty(bst.n)]
-        rec[model]["bound_ms"], rec[model]["bound_by"] = bound(ins, outs, ops)
+        # outputs: f, the flux and the virial
+        rec[model]["bound_ms"], rec[model]["bound_by"] = row_bound(
+            bst.mask, ins, [got[0], got[1]], ops, virial=True)
     # each path's own inputs at set-up: its builder's state and capacity
     # and its coefficients, at the first step's counter; the kernels'
     # record reads these
@@ -633,9 +738,9 @@ def phase_transport_kernels():
         ops = (OPS_PER_PAIR["pair_edpd_v3"] * p_rc if model == "edpd" else
                (TDPD_OPS_PER_PAIR + TDPD_OPS_PER_RCC_PAIR
                 + TDPD_OPS_PER_SPECIES * sparams.pair.n_species) * p_rc)
-        prec["bound_ms"], prec["bound_by"] = bound(
-            [st.x, st.v, fld, st.tag, st.mask, st.tag],
-            [got[0], got[1], got[1].new_empty(st.n)], ops)
+        prec["bound_ms"], prec["bound_by"] = row_bound(
+            st.mask, [st.x, st.v, fld, st.tag, st.tag], [got[0], got[1]],
+            ops, virial=True)
         prec.update(nr=st.n, capacity=cfg_p.capacity, pairs_in_rc=p_rc)
         rec[f"{model}_path"] = prec
         del system, sparams, st, fld, got, want, args
@@ -669,6 +774,39 @@ def advance(system, params, state, steps, every=EVERY):
     return state, diags
 
 
+def edpd_slab_gate(kw, note):
+    """The eDPD Fourier slab of test_transport.py:40-67 at its deck size
+    (l=8, kappa 2, cv 30, T_hot 1.3, T_cold 0.7): 1200 steps, then the T
+    profile averaged over 10 samples 30 steps apart. Returns (record, the
+    JAX test's assertions hold)."""
+    import numpy as np
+    from meso_tpu_torch.models.transport import edpd_slab
+    from meso_tpu_torch.obs.profiles import field_profile
+    system, params, state = edpd_slab(l=8.0, cv=30.0, kappa=2.0, t_hot=1.3,
+                                      t_cold=0.7, **kw)
+    state, diags = advance(system, params, state, 1200)
+    note(diags)
+    nb = 16
+    acc = np.zeros(nb)
+    cnt_acc = np.zeros(nb)
+    for _ in range(10):
+        state, diags = advance(system, params, state, 30)
+        note(diags)
+        xc, tbar, cnt = field_profile(state, state.T[:, None], axis=0,
+                                      nbins=nb)
+        acc += tbar[:, 0].cpu().numpy() * cnt.cpu().numpy()
+        cnt_acc += cnt.cpu().numpy()
+    tprof = acc / np.maximum(cnt_acc, 1)
+    xc = xc.cpu().numpy()
+    grad = np.diff(tprof[(xc > 0.8) & (xc < 4.2)])
+    mid = float(tprof[(xc > 2.2) & (xc < 2.8)].mean())
+    rec = {"profile": tprof.tolist(), "t_first": tprof[0],
+           "t_cold_bin": tprof[8], "max_grad": float(grad.max()), "mid": mid,
+           "capacity": system.cells.capacity, "spill": system.cells.spill}
+    return rec, bool(tprof[0] > 1.2 and tprof[8] < 0.8
+                     and (grad < 0.05).all() and abs(mid - 1.0) < 0.08)
+
+
 def phase_transport_physics():
     """The deck-size physics gates of tests/physics/test_transport.py on the
     card, through K2 and K3 (force_path "pallas", skin 0.4)."""
@@ -676,7 +814,6 @@ def phase_transport_physics():
     import torch
     from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
     from meso_tpu_torch.obs import kinetic_energy, potential_energy_dense
-    from meso_tpu_torch.obs.profiles import field_profile
     kw = dict(force_path="pallas", skin=SKIN, device=DEVICE)
     res = {}
     overflow = 0
@@ -711,29 +848,7 @@ def phase_transport_physics():
                  and float(t.max()) < 3.0)
 
     # eDPD Fourier slab (test_transport.py:40-67)
-    system, params, state = edpd_slab(l=8.0, cv=30.0, kappa=2.0, t_hot=1.3,
-                                      t_cold=0.7, **kw)
-    state, diags = advance(system, params, state, 1200)
-    note(diags)
-    nb = 16
-    acc = np.zeros(nb)
-    cnt_acc = np.zeros(nb)
-    for _ in range(10):
-        state, diags = advance(system, params, state, 30)
-        note(diags)
-        xc, tbar, cnt = field_profile(state, state.T[:, None], axis=0,
-                                      nbins=nb)
-        acc += tbar[:, 0].cpu().numpy() * cnt.cpu().numpy()
-        cnt_acc += cnt.cpu().numpy()
-    tprof = acc / np.maximum(cnt_acc, 1)
-    xc = xc.cpu().numpy()
-    grad = np.diff(tprof[(xc > 0.8) & (xc < 4.2)])
-    mid = float(tprof[(xc > 2.2) & (xc < 2.8)].mean())
-    res["edpd_slab"] = {"profile": tprof.tolist(), "t_first": tprof[0],
-                        "t_cold_bin": tprof[8], "max_grad": float(grad.max()),
-                        "mid": mid}
-    ok_slab = (tprof[0] > 1.2 and tprof[8] < 0.8 and (grad < 0.05).all()
-               and abs(mid - 1.0) < 0.08)
+    res["edpd_slab"], ok_slab = edpd_slab_gate(kw, note)
 
     # tDPD mode decay and mass (test_transport.py:70-100), from each start
     # of TDPD_DECAY_SEEDS (the builder's default, 4, among them)
@@ -860,17 +975,15 @@ def phase_decay_from(path):
     return res
 
 
-def phase_transport_full(model):
+def phase_transport_full(model, selector="v3"):
     """One transport model at 1,029,000 particles through the normal entry
-    points, launch counts set to 0 just before it is built and read just
-    after its timed window."""
+    points and the selector's kernel, launch counts set to 0 just before it
+    is built and read just after its timed window."""
     import torch
-    from meso_tpu_torch.kernels.pair_dpd_v3 import (LAUNCHES,
-                                                    reset_launch_counts)
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
-    system, params, state = transport_path(model)
+    system, params, state = transport_path(model, selector)
     n = int(state.n_valid())
     c0 = float(torch.sum(state.C[state.mask])) if model == "tdpd" else None
     state, d_eq = advance(system, params, state,
@@ -883,7 +996,7 @@ def phase_transport_full(model):
                              TRANSPORT_EVERY)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     steps = (TRANSPORT_EQUIL_CHUNKS + TRANSPORT_TIMED_CHUNKS) \
         * TRANSPORT_EVERY
     force_evals = 1 + steps
@@ -894,10 +1007,12 @@ def phase_transport_full(model):
     fields = (state.x, state.v, state.f) + (
         (state.T, state.dTdt) if model == "edpd" else (state.C, state.dCdt))
     finite = all(bool(torch.isfinite(t).all()) for t in fields)
-    kernel = "pair_edpd_v3" if model == "edpd" else "pair_tdpd_v3"
-    res = {"model": model, "n_particles": n, "rows": state.n,
-           "capacity": system.cells.capacity,
-           "rebuild": system.cells.rebuild,
+    kernel = SELECTOR_KERNELS[selector][model]
+    res = {"model": model, "selector": selector,
+           "force_path": system.force_path,
+           "pair_kernel": system.pair_kernel, "n_particles": n,
+           "rows": state.n, "capacity": system.cells.capacity,
+           "spill": system.cells.spill, "rebuild": system.cells.rebuild,
            "steps_per_rebuild": TRANSPORT_EVERY, "steps": steps,
            "timed_steps": timed_steps, "wall_s": wall,
            "ms_per_step": 1e3 * wall / timed_steps,
@@ -907,8 +1022,10 @@ def phase_transport_full(model):
            "worst_skin_ratio_equil": skin_equil,
            "force_evals": force_evals, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-    checks = {f"{kernel} launches == force evaluations":
-              launches[kernel] == force_evals,
+    checks = {f"{kernel} launches == force evaluations, no other pair "
+              "kernel": pair_launches(launches) == {
+                  **{k: 0 for k in pair_launches(launches)},
+                  kernel: force_evals},
               "hash launches == force evaluations":
               launches["particle_hash"] == force_evals,
               "bucket_overflow == 0": overflow == 0,
@@ -922,28 +1039,43 @@ def phase_transport_full(model):
         c1 = float(torch.sum(state.C[state.mask]))
         res["c_rel_drift"] = abs(c1 - c0) / abs(c0)
         checks["sum C drift < 1e-4"] = res["c_rel_drift"] < 1e-4
-    say(f"transport-full-{model}", **res)
+    label = (f"transport-full-{model}" if selector == "v3"
+             else f"{selector}-{model}-full")
+    say(label, **res)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"transport-full {model} failed: {failed}")
+        raise AssertionError(f"{label} failed: {failed}")
     return res
 
 
-def phase_main_path():
+def classic_path(selector="v3"):
+    """The classic 1M path at set-up: config 1 as the main path runs it
+    (a 25, gamma 4.5, dt 0.01, lambda 0.65, fast RNG, skin 0.4, sort
+    rebuild every 3), with the selector's kernel: "v3" (K1) and "v2" (the
+    fused K5) on spill buckets under the deferred wrap, "banded" (K6) on
+    strict buckets with the box wrapped every step."""
+    from meso_tpu_torch.models.classic import classic_fluid
+    banded = selector == "banded"
+    system, params, state = classic_fluid(
+        l=L_MAIN, rng_mode="fast",
+        force_path="pallas_banded" if banded else "pallas",
+        pair_kernel="v2" if selector == "v2" else "v3", rebuild="sort",
+        wrap_mode="step" if banded else "rebuild", skin=SKIN,
+        rebuild_every=EVERY, device=DEVICE)
+    return system.replace(lam=LAM), params, state
+
+
+def phase_main_path(selector="v3"):
+    """The classic path at 1,029,000 particles (the main path with "v3"),
+    launch counts set to 0 just before it is built and read just after the
+    traced window."""
     import numpy as np
     import torch
     from meso_tpu_torch.core.system import run_bucket_chunked
-    from meso_tpu_torch.kernels.pair_dpd_v3 import (LAUNCHES,
-                                                    reset_launch_counts)
-    from meso_tpu_torch.models.classic import classic_fluid
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
-    system, params, state = classic_fluid(
-        l=L_MAIN, rng_mode="fast", force_path="pallas", pair_kernel="v3",
-        rebuild="sort", wrap_mode="rebuild", skin=SKIN, rebuild_every=EVERY,
-        device=DEVICE)
-    system = system.replace(lam=LAM)
+    system, params, state = classic_path(selector)
     n = int(state.n_valid())
     force_evals = 1
     diags = {"equil": [], "timed": [], "traced": []}
@@ -971,7 +1103,7 @@ def phase_main_path():
         if n_eff >= MIN_N_EFF:
             break
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = read_launches()
 
     timed_steps = TIMED_CHUNKS * EVERY
     overflow = max(int(d["bucket_overflow"])
@@ -981,7 +1113,11 @@ def phase_main_path():
     skin_ratio = skin["timed"]
     finite = all(bool(torch.isfinite(t).all())
                  for t in (state.x, state.v, state.f))
-    res = {"n_particles": n, "rows": state.n,
+    kernel = SELECTOR_KERNELS[selector]["dpd"]
+    res = {"selector": selector, "force_path": system.force_path,
+           "pair_kernel": system.pair_kernel,
+           "wrap_mode": system.wrap_mode, "spill": system.cells.spill,
+           "n_particles": n, "rows": state.n,
            "capacity": system.cells.capacity, "steps": force_evals - 1,
            "timed_steps": timed_steps, "wall_s": wall,
            "ms_per_step": 1e3 * wall / timed_steps,
@@ -994,10 +1130,13 @@ def phase_main_path():
            "worst_skin_ratio_traced": skin["traced"],
            "force_evals": force_evals, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-    say("main-path", **res)
+    label = "main-path" if selector == "v3" else f"{selector}-classic"
+    say(label, **res)
     checks = {
-        "pair launches == force evaluations":
-            launches["pair_dpd_v3"] == force_evals,
+        f"{kernel} launches == force evaluations, no other pair kernel":
+            pair_launches(launches) == {
+                **{k: 0 for k in pair_launches(launches)},
+                kernel: force_evals},
         "hash launches == force evaluations":
             launches["particle_hash"] == force_evals,
         "bucket_overflow == 0": overflow == 0,
@@ -1008,7 +1147,7 @@ def phase_main_path():
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"main path failed: {failed}")
+        raise AssertionError(f"{label} failed: {failed}")
     return res
 
 
@@ -1021,16 +1160,18 @@ def phase_profile(full_cadence):
     (``full_cadence``) and list their 20 costliest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from meso_tpu_torch.models.classic import classic_fluid
     paths = {
-        "classic": (lambda: classic_fluid(
-            l=L_MAIN, rng_mode="fast", force_path="pallas", pair_kernel="v3",
-            rebuild="sort", wrap_mode="rebuild", skin=SKIN,
-            rebuild_every=EVERY, device=DEVICE), EVERY),
+        "classic": (classic_path, EVERY),
         "edpd": (lambda: transport_path("edpd"), TRANSPORT_EVERY),
         "tdpd": (lambda: transport_path("tdpd"), TRANSPORT_EVERY),
         "walls": (walls_path, full_cadence["walls"]),
         "polymer": (polymer_path, full_cadence["polymer"])}
+    for sel in ("v2", "banded"):
+        paths[f"{sel}-classic"] = (lambda sel=sel: classic_path(sel), EVERY)
+        for model in ("edpd", "tdpd"):
+            paths[f"{sel}-{model}"] = (
+                lambda sel=sel, model=model: transport_path(model, sel),
+                TRANSPORT_EVERY)
     out = {}
     for name, (build, every) in paths.items():
         system, params, state = build()
@@ -1174,14 +1315,15 @@ def general_pair_count(st, cfg, params):
 
 def general_bound(st, f, params, n_pairs):
     """(bound_ms, bound_by) of K1's general variant as timed (no virial):
-    x, v, tag, typ, mask, h and the exclusion table in, f out."""
-    ins = [st.x, st.v, st.tag, st.typ, st.mask, st.tag]
+    the mask, and x, v, tag, typ, h and the exclusion row of the valid
+    rows in, f out."""
+    ins = [st.x, st.v, st.tag, st.typ, st.tag]
     e = 0
     if params.excl is not None:
         ins.append(params.excl)
         e = params.excl.shape[1]
-    return bound(ins, [f], (OPS_PER_PAIR["pair_dpd_v3_general"]
-                            + OPS_PER_EXCL_SLOT * e) * n_pairs)
+    return row_bound(st.mask, ins, [f], (OPS_PER_PAIR["pair_dpd_v3_general"]
+                                         + OPS_PER_EXCL_SLOT * e) * n_pairs)
 
 
 def phase_general_kernels(k1_ms, card):
@@ -1313,10 +1455,8 @@ def run_full_path(label, build):
     state at set-up, the final state, the per-block samples)."""
     import torch
     from meso_tpu_torch.core.system import run_bucket
-    from meso_tpu_torch.kernels.pair_dpd_v3 import (LAUNCHES,
-                                                    reset_launch_counts)
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     system, params, start = build()
     t_built = time.perf_counter()
@@ -1347,7 +1487,7 @@ def run_full_path(label, build):
         windows.append(win)
         if win["worst_skin_ratio"] < 1.0:
             break
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     n = int(start.n_valid())
     win = windows[-1]
     res = {"path": label, "n_particles": n, "rows": s.n,
@@ -1372,8 +1512,9 @@ def run_full_path(label, build):
     finite = all(bool(torch.isfinite(t).all()) for t in (s.x, s.v, s.f))
     checks = {
         "every force evaluation through pair_dpd_v3_general":
-            launches["pair_dpd_v3_general"] == force_evals
-            and launches["pair_dpd_v3"] == 0,
+            pair_launches(launches) == {
+                **{k: 0 for k in pair_launches(launches)},
+                "pair_dpd_v3_general": force_evals},
         "hash launches == force evaluations":
             launches["particle_hash"] == force_evals,
         "bucket_overflow == 0": res["bucket_overflow"] == 0,
@@ -1664,6 +1805,295 @@ def phase_bonded_physics():
     return res
 
 
+def selector_fn(name):
+    """The wrapper of a fused or banded entry point."""
+    from meso_tpu_torch.kernels import pair_dpd, pair_dpd_fused, \
+        pair_multiphysics
+    fu, mp = pair_dpd_fused, pair_multiphysics
+    return {"pair_fused_dpd": fu.bucket_forces_pallas_fused,
+            "pair_fused_edpd": fu.bucket_forces_pallas_edpd_fused,
+            "pair_fused_tdpd": fu.bucket_forces_pallas_tdpd_fused,
+            "pair_banded_dpd": pair_dpd.bucket_forces_pallas,
+            "pair_banded_edpd": mp.bucket_forces_pallas_edpd,
+            "pair_banded_tdpd": mp.bucket_forces_pallas_tdpd}[name]
+
+
+def run_entry(name, plain, st, fld, step, params, dt, cfg, rng_mode="fast"):
+    """One call of a fused or banded entry point in its own argument order,
+    or (``plain``) of the plain version of all six,
+    ``_brick.brick_forces_plain``, on the same inputs. Returns (f, virial)
+    or (f, flux, virial)."""
+    model = name.rsplit("_", 1)[1]
+    if plain:
+        from meso_tpu_torch.kernels._brick import brick_forces_plain
+        out = brick_forces_plain(model, st.x, st.v, fld, st.typ, st.tag,
+                                 st.mask, st.box, step, params, dt, cfg,
+                                 rng_mode)
+        return (out[0], out[2]) if model == "dpd" else out
+    args = (st.x, st.v) + ((fld,) if model != "dpd" else ()) + (
+        st.typ, st.tag, st.mask, st.box, step, params, dt, cfg)
+    kw = {"rng_mode": rng_mode}
+    if name == "pair_fused_dpd":
+        kw["s_exp"] = params.s_exp
+    return selector_fn(name)(*args, **kw)
+
+
+def compare_entry(name, got, want, mask, label):
+    """A fused or banded kernel against its plain version: the classic
+    bounds of compare_forces, the transport ones of compare_transport (both
+    with the minimum image, which these kernels always take)."""
+    if name.endswith("_dpd"):
+        err, rel, vrel = compare_forces(*got, *want, mask, True, label)
+        return {"max_abs_err": err, "rel": rel, "virial_rel": vrel}
+    return compare_transport(got, want, mask, True, label)
+
+
+TWO_TYPES = dict(a=[[25.0, 35.0], [30.0, 40.0]], rc=[[1.0, 0.8], [0.8, 1.0]],
+                 n_types=2)
+
+
+def tdpd_params(ns, two_types):
+    """tDPD with ``ns`` species (kappa_c 0.5-1.5, eps_c 0.05-0.2, rcc 0.8,
+    s1 2), one type or TWO_TYPES' tables."""
+    import numpy as np
+    from meso_tpu_torch.ops.tdpd import TDPDParams
+    kw = TWO_TYPES if two_types else dict(a=25.0, rc=1.0)
+    return TDPDParams.build(gamma=4.5, kt=1.0,
+                            kappa_c=list(np.linspace(0.5, 1.5, ns)),
+                            eps_c=list(np.linspace(0.05, 0.2, ns)), rcc=0.8,
+                            s1=2.0, seed=5, device=DEVICE, **kw)
+
+
+def selector_params():
+    """The selector checks' coefficients by model: (label, params, uses two
+    types, species) cases. Classic: one type, and K1's general case
+    (general_params: two types, s_exp 0.5, exclusions). eDPD: the transport
+    checks' one-type case and TWO_TYPES with an asymmetric kappa. tDPD:
+    one species (tdpd_diffusion's rcc = rc = 1), three with two types and
+    ten with one."""
+    from meso_tpu_torch.ops.dpd import DPDParams
+    from meso_tpu_torch.ops.edpd import EDPDParams
+    tp = transport_params()
+    return {"dpd": [("1type", DPDParams.build(a=25.0, gamma=4.5, rc=1.0,
+                                              kt=1.0, seed=77,
+                                              device=DEVICE), False, 0),
+                    ("general", general_params(1536), True, 0)],
+            "edpd": [("1type", tp["edpd"], False, 0),
+                     ("2types", EDPDParams.build(
+                         gamma=4.5, kappa=[[1.5, 1.0], [1.2, 0.5]], cv=10.0,
+                         seed=7, device=DEVICE, **TWO_TYPES), True, 0)],
+            "tdpd": [("S1", tp["tdpd_1species"], False, 1),
+                     ("S3-2types", tdpd_params(3, True), True, 3),
+                     ("S10", tdpd_params(10, False), False, 10)]}
+
+
+def with_species(bst, ns=10):
+    """T = 1 + 0.3 sin x and ``ns`` species C_s = 1 + 0.1 s + 0.5 cos(x +
+    s), zero on pad rows."""
+    import torch
+    m = bst.mask
+    t = torch.where(m, 1.0 + 0.3 * torch.sin(bst.x[:, 0]), 0.0)
+    s = torch.arange(ns, device=bst.x.device, dtype=torch.float32)
+    c = 1.0 + 0.1 * s + 0.5 * torch.cos(bst.x[:, :1] + s)
+    return bst.replace(T=t.contiguous(),
+                       C=torch.where(m[:, None], c, 0.0).contiguous())
+
+
+def phase_selector_kernels():
+    """8a at l=8: every fused (K5) and banded (K6, K7) entry point against
+    its plain version, in every covered case: fast and TEA, spill (K5 only)
+    and strict, one type and two (asymmetric tables), s_exp 0.5 and
+    exclusions (classic), one, three and ten species (tDPD); a row that
+    crossed the box mid-window (K5, K6); and K2/K3 with two types and ten
+    species (fast/TEA x spill/strict x min-image on/off)."""
+    import torch
+    from meso_tpu_torch.kernels import pair_dpd_v3 as v3
+    out = {"l8": [], "k23_l8": []}
+    cases = selector_params()
+    step = 42
+    for spill in (True, False):
+        bst0, cfg = bucket_case(8.0, 1536, spill, True)
+        bst0 = with_species(bst0)
+        bst2 = bst0.replace(typ=(bst0.tag % 2).to(torch.int32))
+        m = bst0.mask
+        for rng_mode in ("fast", "tea"):
+            for sel in ("v2", "banded"):
+                if sel == "banded" and spill:
+                    continue
+                for model, mcases in cases.items():
+                    name = SELECTOR_KERNELS[sel][model]
+                    for label, p, two, ns in mcases:
+                        st = bst2 if two else bst0
+                        fld = (None if model == "dpd" else st.T
+                               if model == "edpd" else
+                               st.C[:, :ns].contiguous())
+                        got = run_entry(name, False, st, fld, step, p, 0.01,
+                                        cfg, rng_mode)
+                        torch.cuda.synchronize()
+                        want = run_entry(name, True, st, fld, step, p, 0.01,
+                                         cfg, rng_mode)
+                        case = (f"{name} {label} {rng_mode} "
+                                f"spill={spill}")
+                        out["l8"].append({"case": case, **compare_entry(
+                            name, got, want, m, case)})
+    # a row whose x wrapped the box while its bucket is stale
+    bst, cfg = bucket_case(8.0, 1536, False, True)
+    r = int(torch.nonzero(bst.mask)[17])
+    x = bst.x.clone()
+    x[r, 0] += -8.0 if float(x[r, 0]) > 4.0 else 8.0
+    bst = bst.replace(x=x)
+    p = cases["dpd"][0][1]
+    for name in ("pair_fused_dpd", "pair_banded_dpd"):
+        got = run_entry(name, False, bst, None, 7, p, 0.01, cfg)
+        want = run_entry(name, True, bst, None, 7, p, 0.01, cfg)
+        case = f"{name} wrap-crosser"
+        out["l8"].append({"case": case, **compare_entry(name, got, want,
+                                                        bst.mask, case)})
+    say("kernels-selectors-l8", cases=len(out["l8"]),
+        worst_rel=max(c["rel"] for c in out["l8"]),
+        worst_flux_rel=max(c.get("flux_rel", 0.0) for c in out["l8"]),
+        worst_virial_rel=max(c["virial_rel"] for c in out["l8"]))
+
+    # K2 and K3 with two-type tables and ten species
+    k23 = {"edpd": cases["edpd"][1],
+           "tdpd": ("S10-2types", tdpd_params(10, True), True, 10)}
+    for spill in (True, False):
+        for min_image in (True, False):
+            bst, cfg = bucket_case(8.0, 1536, spill, min_image)
+            bst = with_species(bst)
+            bst = bst.replace(typ=(bst.tag % 2).to(torch.int32))
+            for model, (label, p, _, ns) in k23.items():
+                fn = (v3.bucket_forces_pallas_v3_edpd if model == "edpd"
+                      else v3.bucket_forces_pallas_v3_tdpd)
+                plain = (v3.bucket_forces_v3_edpd_plain if model == "edpd"
+                         else v3.bucket_forces_v3_tdpd_plain)
+                fld = bst.T if model == "edpd" else bst.C
+                for rng_mode in ("fast", "tea"):
+                    args = (bst.x, bst.v, fld, bst.typ, bst.tag, bst.mask,
+                            bst.box, 12, p, 0.01, cfg)
+                    got = fn(*args, rng_mode=rng_mode)
+                    torch.cuda.synchronize()
+                    want = plain(bst.x, bst.v, fld, bst.tag, bst.mask,
+                                 bst.box, 12, p, 0.01, cfg, rng_mode,
+                                 typ=bst.typ)
+                    case = (f"{model} {label} {rng_mode} spill={spill} "
+                            f"min_image={min_image}")
+                    out["k23_l8"].append({"case": case, **compare_transport(
+                        got, want, bst.mask, min_image, case)})
+    say("kernels-k23-multitype-l8", cases=len(out["k23_l8"]),
+        worst_rel=max(c["rel"] for c in out["k23_l8"]),
+        worst_flux_rel=max(c["flux_rel"] for c in out["k23_l8"]))
+    return out
+
+
+def selector_bound(model, st, fld, got, params, n_rc):
+    """(bound_ms, bound_by) of a brick kernel on these rows: the mask, and
+    x, v, the field, tag and h (and typ, and the exclusion rows where
+    present) of the valid rows read once; f and the flux written once over
+    every row, and the one virial; the in-range pairs' operations (n_rc
+    pairs inside rc; tDPD: rcc = rc on the paths)."""
+    ins = [st.x, st.v, st.tag, st.tag]
+    if fld is not None:
+        ins.append(fld)
+    if params.n_types > 1:
+        ins.append(st.typ)
+    excl = getattr(params, "excl", None)
+    e = 0
+    if excl is not None:
+        e = excl.shape[1]
+        ins.append(excl)
+    outs = [got[0]] + ([got[1]] if len(got) == 3 else [])
+    if model == "tdpd":
+        ops = (TDPD_OPS_PER_PAIR + TDPD_OPS_PER_RCC_PAIR
+               + TDPD_OPS_PER_SPECIES * params.n_species) * n_rc
+    else:
+        ops = (BRICK_OPS[model] + OPS_PER_EXCL_SLOT * e) * n_rc
+    return row_bound(st.mask, ins, outs, ops, virial=True)
+
+
+def phase_selector_kernels_l70():
+    """8a at the 1M shape: each fused and banded entry point on the inputs
+    of its own 1M path at set-up (the v2 paths on spill buckets, K=16-18;
+    the banded ones on strict buckets, K from fit_capacity), against its
+    plain version, with its time, the plain time and its bound; and the
+    fused classic kernel on the wall and polymer paths' inputs (two types;
+    exclusions)."""
+    import torch
+    out = {}
+    builds = [(f"{sel}-{model}", sel, model,
+               (lambda sel=sel: classic_path(sel)) if model == "dpd" else
+               (lambda sel=sel, model=model: transport_path(model, sel)))
+              for sel in ("v2", "banded") for model in ("dpd", "edpd", "tdpd")]
+    builds += [("v2-walls", "v2", "dpd", walls_path),
+               ("v2-polymer", "v2", "dpd", polymer_path)]
+    for label, sel, model, build in builds:
+        system, sparams, st = build()
+        cfg, p = system.cells, sparams.pair
+        name = SELECTOR_KERNELS[sel][model]
+        fld = (None if model == "dpd" else st.T if model == "edpd"
+               else st.C)
+        got = run_entry(name, False, st, fld, 1, p, system.dt, cfg)
+        want = run_entry(name, True, st, fld, 1, p, system.dt, cfg)
+        rec = compare_entry(name, got, want, st.mask, f"{label} path")
+        rec.update(
+            kernel=name, nr=st.n, capacity=cfg.capacity, spill=cfg.spill,
+            n_types=p.n_types,
+            ms=timed_ms(lambda: run_entry(name, False, st, fld, 1, p,
+                                          system.dt, cfg), 20),
+            plain_ms=timed_ms(lambda: run_entry(name, True, st, fld, 1, p,
+                                                system.dt, cfg), 3))
+        n_rc = (general_pair_count(st, cfg, p) if p.n_types > 1
+                else pair_counts(st, cfg)[0])
+        rec["pairs_in_rc"] = n_rc
+        rec["bound_ms"], rec["bound_by"] = selector_bound(
+            model, st, fld, got, p, n_rc)
+        out[label] = rec
+        say(f"kernels-selectors-l70-{label}", **rec)
+        del system, sparams, st, fld, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_banded_physics():
+    """8c: the eDPD slab gate and the tDPD cosine-mode decay from one
+    start (the builder's default, 4) at deck size through
+    force_path "pallas_banded" (strict buckets, K7), with the rate held
+    within TDPD_DECAY_RATE_TOL of the JAX dense path's mean."""
+    from meso_tpu_torch.models.transport import tdpd_diffusion
+    kw = dict(force_path="pallas_banded", skin=SKIN, device=DEVICE)
+    overflow = 0
+
+    def note(diags):
+        nonlocal overflow
+        overflow = max([overflow] + [int(d["bucket_overflow"])
+                                     for d in diags])
+
+    reset_launches()
+    res = {}
+    res["edpd_slab"], ok_slab = edpd_slab_gate(kw, note)
+    system, params, state = tdpd_diffusion(l=8.0, kappa_c=2.0, eps_c=0.0,
+                                           **kw)
+    res["tdpd_decay"] = tdpd_decay(system, params, state, note)
+    d = res["tdpd_decay"]
+    res["bucket_overflow"] = overflow
+    res["launches"] = read_launches()
+    say("banded-physics", **res)
+    checks = {
+        "Fourier slab profile": ok_slab,
+        "tDPD mode decay and mass": d["passes"] and d["c_min"] > -0.05
+        and d["c_rel_drift"] < 1e-4,
+        "tDPD decay rate within 5% of the JAX dense path's mean":
+            abs(d["rate"] / TDPD_DECAY_RATE_JAX - 1.0) < TDPD_DECAY_RATE_TOL,
+        "bucket_overflow == 0": overflow == 0,
+        "only the banded kernels ran": set(
+            k for k, n in pair_launches(res["launches"]).items() if n) == {
+                "pair_banded_edpd", "pair_banded_tdpd"}}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"banded physics failed: {failed}")
+    return res
+
+
 def kernel_records(record):
     """The kernels' JSON record: every kernel of the ported paths, with its
     launches on the path that runs it (K1 and the hash: the classic main
@@ -1713,6 +2143,25 @@ def kernel_records(record):
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": None})
+    # K5, K6 and K7: the numbers at their own 1M path's inputs, the
+    # launches of that path's run
+    sk = record["selector_kernels_l70"]
+    replaces = {"v2": "meso_tpu/kernels/pair_dpd_fused.py:63",
+                "banded-dpd": "meso_tpu/kernels/pair_dpd.py:60",
+                "banded": "meso_tpu/kernels/pair_multiphysics.py:40"}
+    for sel in ("v2", "banded"):
+        for model in ("dpd", "edpd", "tdpd"):
+            name = SELECTOR_KERNELS[sel][model]
+            rec = sk[f"{sel}-{model}"]
+            rows.append(
+                {"name": name, "route": "cuda",
+                 "source": "meso_tpu_torch/csrc/pair_brick.cu",
+                 "replaces": replaces.get(f"{sel}-{model}", replaces[sel]),
+                 "launches": record["selector_full"][f"{sel}-{model}"][
+                     "launches"][name],
+                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                 "bound_by": rec["bound_by"], "library_ms": None})
     return {"kernels": rows}
 
 
@@ -1728,6 +2177,8 @@ def main(argv):
         record["transport_kernels"] = phase_transport_kernels()
         record["general_kernels"] = phase_general_kernels(
             record["kernels"]["l70"]["pair_ms"], info["card"])
+        record["selector_kernels"] = phase_selector_kernels()
+        record["selector_kernels_l70"] = phase_selector_kernels_l70()
     if "--kernels-only" not in argv and "--decay-from" not in argv:
         record["main_path"] = phase_main_path()
         record["transport_physics"] = phase_transport_physics()
@@ -1737,6 +2188,13 @@ def main(argv):
         record["bonded_physics"] = phase_bonded_physics()
         record["walls_full"] = phase_walls_full()
         record["polymer_full"] = phase_polymer_full()
+        record["selector_full"] = {}
+        for sel in ("v2", "banded"):
+            record["selector_full"][f"{sel}-dpd"] = phase_main_path(sel)
+            for model in ("edpd", "tdpd"):
+                record["selector_full"][f"{sel}-{model}"] = \
+                    phase_transport_full(model, sel)
+        record["banded_physics"] = phase_banded_physics()
         record["profile"] = phase_profile(
             {p: record[f"{p}_full"]["steps_per_rebuild"]
              for p in ("walls", "polymer")})

@@ -7,11 +7,13 @@ fixes -> final_integrate -> end_of_step fixes. Where JAX runs steps under
 stays on the device and nothing synchronises inside the loop.
 
 Ported: the models "dpd", "edpd" and "tdpd", each with force_path "pallas"
-(the Hopper kernels K1, K2, K3) and "dense" (the O(N^2) oracles); the bond
-styles "fene", "harmonic" and "wlc_pow" with the membrane terms
-(``ops/bonded.py``); frozen types and the fixes of ``ops/fixes.py``; the
-loops ``run_bucket_chunked`` and ``run_bucket``. Every other force path
-raises ``NotImplementedError`` naming its ROADMAP item.
+(``pair_kernel`` "v3": the Hopper kernels K1, K2, K3; "v2": the fused-lane
+selector K5), "pallas_banded" (the banded selectors K6 and K7, strict
+buckets only) and "dense" (the O(N^2) oracles); the bond styles "fene",
+"harmonic" and "wlc_pow" with the membrane terms (``ops/bonded.py``);
+frozen types and the fixes of ``ops/fixes.py``; the loops
+``run_bucket_chunked`` and ``run_bucket``. The force paths "nlist" and
+"bucket" raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,13 +35,6 @@ _TODO = {
     "nlist": "force_path 'nlist' is not ported yet (ROADMAP Queue 1 item 13)",
     "bucket": "force_path 'bucket' is not ported yet (ROADMAP Queue 1 "
               "item 13)",
-    "pallas_banded": "force_path 'pallas_banded' is not ported yet (ROADMAP "
-                     "Queue 2, kernel K6)",
-    "v2": "pair_kernel 'v2' is not ported yet (ROADMAP Queue 2, kernel K5)",
-    # the eDPD/tDPD selectors whose kernel differs from the classic one
-    "transport_pallas_banded": "force_path 'pallas_banded' for eDPD/tDPD "
-                               "is not ported yet (ROADMAP Queue 2, kernel "
-                               "K7)",
 }
 
 
@@ -69,10 +64,12 @@ class SystemParams:
 class System:
     """Static simulation configuration, with the JAX package's fields.
 
-    ``z_chunks`` and the "v3"/"v3_dynroll" choice of ``pair_kernel`` are
-    TPU lowering knobs: both "v3" variants select the Hopper kernel and
-    ``z_chunks`` is ignored. ``dd_overlap`` belongs to the domain-decomposed
-    path (ROADMAP Queue 1 item 14) and is ignored too."""
+    ``pair_kernel`` picks the kernel of force_path "pallas": "v3" and
+    "v3_dynroll" (a TPU lowering choice) the Hopper kernels K1-K3, any
+    other value the fused selector K5, as the JAX package routes it.
+    ``z_chunks`` is a TPU lowering knob and is ignored. ``dd_overlap``
+    belongs to the domain-decomposed path (ROADMAP Queue 1 item 14) and is
+    ignored too."""
 
     dt: float = 0.01
     lam: float = 0.5
@@ -130,16 +127,27 @@ def _per_type(table: torch.Tensor, typ: torch.Tensor) -> torch.Tensor:
     return table[typ.long()]
 
 
-def _unported(system: System) -> NotImplementedError:
-    """The error for a force path or pair kernel that is not ported."""
-    key = system.force_path
-    if key == "pallas":
-        key = system.pair_kernel
-    elif key == "pallas_banded" and system.model != "dpd":
-        key = "transport_pallas_banded"
-    return NotImplementedError(_TODO.get(
-        key, f"force_path {system.force_path!r} with pair_kernel "
-             f"{system.pair_kernel!r}"))
+def _kernel_fn(system: System):
+    """The bucket kernel's entry point of this model and selector: pallas
+    with pair_kernel "v3*" (K1-K3), pallas with any other pair_kernel (the
+    fused selector K5, as the JAX package routes it) or pallas_banded (K6,
+    K7)."""
+    from meso_tpu_torch.kernels import (pair_dpd, pair_dpd_fused,
+                                        pair_dpd_v3, pair_multiphysics)
+    if system.force_path == "pallas_banded":
+        return {"dpd": pair_dpd.bucket_forces_pallas,
+                "edpd": pair_multiphysics.bucket_forces_pallas_edpd,
+                "tdpd": pair_multiphysics.bucket_forces_pallas_tdpd
+                }[system.model]
+    if system.pair_kernel.startswith("v3"):
+        return {"dpd": pair_dpd_v3.bucket_forces_pallas_v3,
+                "edpd": pair_dpd_v3.bucket_forces_pallas_v3_edpd,
+                "tdpd": pair_dpd_v3.bucket_forces_pallas_v3_tdpd
+                }[system.model]
+    return {"dpd": pair_dpd_fused.bucket_forces_pallas_fused,
+            "edpd": pair_dpd_fused.bucket_forces_pallas_edpd_fused,
+            "tdpd": pair_dpd_fused.bucket_forces_pallas_tdpd_fused
+            }[system.model]
 
 
 def compute_forces(system: System, params: SystemParams, state: State,
@@ -147,42 +155,40 @@ def compute_forces(system: System, params: SystemParams, state: State,
                    need_virial: bool = True):
     """Dispatch to the configured model and force path. Returns (f, aux);
     aux carries 'virial' and, per model, 'dTdt' / 'dCdt'. need_virial only
-    reaches the classic kernel; the transport kernels always sum it."""
+    reaches the classic v3 kernel; the others always sum it."""
     if system.model not in _MODELS:
         raise ValueError(f"unknown model {system.model!r}")
-    pallas = (system.force_path == "pallas"
-              and system.pair_kernel.startswith("v3"))
-    if system.force_path != "dense" and not pallas:
-        raise _unported(system)
+    if system.force_path in _TODO:
+        raise NotImplementedError(_TODO[system.force_path])
+    if system.force_path not in ("dense", "pallas", "pallas_banded"):
+        raise ValueError(f"unknown force_path {system.force_path!r}")
     args = (x, v, state.typ, state.tag, state.mask, state.box, step,
             params.pair, system.dt)
+    kw = dict(rng_mode=system.rng_mode, rng_rounds=system.rng_rounds)
+    dense = system.force_path == "dense"
+    if system.force_path == "pallas":
+        kw["z_chunks"] = system.z_chunks
     if system.model == "dpd":
-        if not pallas:
-            f, virial, _ = dense_forces(*args, rng_mode=system.rng_mode,
-                                        rng_rounds=system.rng_rounds)
+        if dense:
+            f, virial, _ = dense_forces(*args, **kw)
             return f, {"virial": virial}
-        from meso_tpu_torch.kernels.pair_dpd_v3 import bucket_forces_pallas_v3
-        f, virial = bucket_forces_pallas_v3(
-            *args, system.cells, rng_mode=system.rng_mode,
-            rng_rounds=system.rng_rounds, s_exp=system.s_exp,
-            z_chunks=system.z_chunks, need_virial=need_virial)
+        if system.force_path == "pallas":
+            kw["s_exp"] = system.s_exp
+            if system.pair_kernel.startswith("v3"):
+                kw["need_virial"] = need_virial
+        f, virial = _kernel_fn(system)(*args, system.cells, **kw)
         return f, {"virial": virial}
-    from meso_tpu_torch.kernels import pair_dpd_v3 as kern
     from meso_tpu_torch.ops import edpd, tdpd
     if system.model == "edpd":
         field, name = t, "dTdt"
-        fn = (kern.bucket_forces_pallas_v3_edpd if pallas
-              else edpd.dense_forces_edpd)
+        fn = edpd.dense_forces_edpd if dense else _kernel_fn(system)
     else:
         field, name = c, "dCdt"
-        fn = (kern.bucket_forces_pallas_v3_tdpd if pallas
-              else tdpd.dense_forces_tdpd)
-    extra = dict(rng_rounds=system.rng_rounds, rng_mode=system.rng_mode)
-    if pallas:
+        fn = tdpd.dense_forces_tdpd if dense else _kernel_fn(system)
+    if not dense:
         args = args + (system.cells,)
-        extra["z_chunks"] = system.z_chunks
     # the per-particle field (T or C) follows v, as in the JAX signatures
-    f, flux, virial = fn(x, v, field, *args[2:], **extra)
+    f, flux, virial = fn(x, v, field, *args[2:], **kw)
     return f, {"virial": virial, name: flux}
 
 
@@ -272,9 +278,8 @@ def setup(system: System, params: SystemParams, state: State) -> State:
     if system.force_path in _BUCKET_PATHS:
         from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
         state = to_bucket_state(state, system.cells)
-    elif system.force_path != "dense":
-        raise NotImplementedError(
-            _TODO.get(system.force_path, f"force_path {system.force_path!r}"))
+    elif system.force_path in _TODO:
+        raise NotImplementedError(_TODO[system.force_path])
     f0, _ = compute_forces(system, params, state, state.x, state.v,
                            state.step, t=state.T, c=state.C)
     f0 = _post_forces(system, params, state, state.x, state.v, f0)

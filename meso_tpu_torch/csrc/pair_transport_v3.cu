@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel meso_tpu/kernels/pair_dpd_v3.py::_v3_kernel
 // (line 75) with model="edpd" (K2, bucket_forces_pallas_v3_edpd, :871) and
-// model="tdpd" (K3, bucket_forces_pallas_v3_tdpd, :896), one particle type.
+// model="tdpd" (K3, bucket_forces_pallas_v3_tdpd, :896).
 //
 // Design: K1's (pair_dpd_v3.cu). One thread per target row walks the 27
 // (strict) or 45 (spill) slot-cell stencil with for_each_pair
@@ -26,9 +26,22 @@
 // w_dc = (1 - r/rcc)^s1,
 //   dC_i,s/dt = sum_j -kappa_s w_dc (C_i,s - C_j,s)
 //               + eps_s sqrt(w_dc) sign uniform_stream(hp, 2 + s) / sqrt(dt).
-// The species count S is a launch argument up to kMaxSpecies; the per-row
-// sums stay in registers (unrolled loops over kMaxSpecies, guarded by S).
-// rcc <= rc is required (the stencil covers rc); the wrapper checks it.
+// The species ride in blocks of kSpeciesBlock: the per-row sums of one
+// block stay in registers (unrolled loops guarded by S), grid.y walks the
+// blocks, and only block 0 writes f and the virial, so any S takes one
+// launch. Up to kSpeciesBlock species take an instantiation whose block
+// offset is the constant 0 (kBlocks false), so the species streams' salts
+// fold into constants as they did before the blocks. rcc <= rc_ij for
+// every type pair is required (the visitor sees a pair only inside its own
+// rc_ij; ROADMAP Queue 3, R9); the wrapper checks it.
+// Per-type-pair tables (T x T, row-major, typ_i * T + typ_j), as
+// pair_dpd_v3_general_kernel takes them: with T > 1 the walk tests the
+// table's largest rc^2 with a 1e-4 margin and the visitor the pair's own
+// rc_ij on r^2 summed without fused multiply-adds (the plain version's
+// order); a, gamma and kappa (eDPD) or sigma (tDPD) are read per pair. A
+// template flag (kTypes) keeps the one-type instantiations as they were,
+// coefficients in registers (a run-time test alone took K2 from 64 to 108
+// registers).
 //
 // What bounds it: at the 1M-particle shape (ncell 50^3, K = 16,
 // nr = 2,000,000, spill) a row sees 720 candidates, ~1.4e9 candidate tests
@@ -49,7 +62,7 @@ namespace {
 
 using namespace meso;
 
-constexpr int kMaxSpecies = 8;
+constexpr int kSpeciesBlock = 8;
 
 __global__ void uniform_stream_kernel(const uint32_t* __restrict__ h,
                                       float* __restrict__ out, int n,
@@ -58,17 +71,37 @@ __global__ void uniform_stream_kernel(const uint32_t* __restrict__ h,
   if (i < n) out[i] = uniform_stream(h[i], salt);
 }
 
-template <bool kMinImage, bool kTea>
+// The walk's cutoff: rc^2 for one type; the table's largest rc^2 with a
+// 1e-4 margin for several (the visitor then tests the pair's own rc_ij).
+__device__ __forceinline__ float walk_rc2(const float* __restrict__ rc_tab,
+                                          int n_types) {
+  if (n_types == 1) return rc_tab[0] * rc_tab[0];
+  float rc2 = 0.0f;
+  for (int p = 0; p < n_types * n_types; ++p) {
+    rc2 = fmaxf(rc2, rc_tab[p] * rc_tab[p]);
+  }
+  return rc2 * 1.0001f;
+}
+
+// r^2 summed in x, y, z order without fused multiply-adds, as the plain
+// versions sum it.
+__device__ __forceinline__ float unfused_r2(float drx, float dry, float drz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(drx, drx), __fmul_rn(dry, dry)),
+                   __fmul_rn(drz, drz));
+}
+
+template <bool kMinImage, bool kTea, bool kTypes>
 __global__ void __launch_bounds__(kThreads)
 pair_edpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
                     const float* __restrict__ temp,
                     const int32_t* __restrict__ tag,
+                    const int32_t* __restrict__ typ,
                     const uint8_t* __restrict__ valid,
                     const uint32_t* __restrict__ h,
                     const float* __restrict__ a_tab,
                     const float* __restrict__ gamma_tab,
                     const float* __restrict__ kappa_tab,
-                    const float* __restrict__ rc_tab,
+                    const float* __restrict__ rc_tab, int n_types,
                     const float* __restrict__ box_lo,
                     const float* __restrict__ box_hi,
                     float* __restrict__ f, float* __restrict__ dtdt,
@@ -81,19 +114,29 @@ pair_edpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
 
   float fx = 0.0f, fy = 0.0f, fz = 0.0f, q = 0.0f, vsum = 0.0f;
   if (valid[row]) {
-    const float a = a_tab[0];
-    const float gamma = gamma_tab[0];
-    const float kappa = kappa_tab[0];
-    const float rc = rc_tab[0];
-    const float inv_rc = 1.0f / rc;
+    // one type: the coefficients stay in registers
+    const float a0 = a_tab[0], gamma0 = gamma_tab[0], kappa0 = kappa_tab[0];
+    const float inv_rc0 = 1.0f / rc_tab[0];
+    const int t_row = kTypes ? typ[row] * n_types : 0;
     const float vxi = v[3 * row], vyi = v[3 * row + 1], vzi = v[3 * row + 2];
     const float ti = temp[row];
     const float inv_ti = 1.0f / fmaxf(ti, 1e-12f);
     const int32_t tag_i = tag[row];
     const uint32_t h_i = kTea ? 0u : h[row];
     for_each_pair<kMinImage>(
-        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr, rc * rc,
+        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr,
+        walk_rc2(rc_tab, n_types),
         [&](int j, float drx, float dry, float drz, float r2) {
+          float a = a0, gamma = gamma0, kappa = kappa0, inv_rc = inv_rc0;
+          if (kTypes) {
+            const int p = t_row + typ[j];
+            r2 = unfused_r2(drx, dry, drz);
+            if (!(r2 < rc_tab[p] * rc_tab[p])) return;
+            a = a_tab[p];
+            gamma = gamma_tab[p];
+            kappa = kappa_tab[p];
+            inv_rc = 1.0f / rc_tab[p];
+          }
           const float rinv = rsqrtf(r2);
           const float rr = r2 * rinv;
           const float w = 1.0f - rr * inv_rc;
@@ -135,17 +178,18 @@ pair_edpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
   vir[row] = vsum;
 }
 
-template <bool kMinImage, bool kTea>
+template <bool kMinImage, bool kTea, bool kTypes, bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
 pair_tdpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
                     const float* __restrict__ c,
                     const int32_t* __restrict__ tag,
+                    const int32_t* __restrict__ typ,
                     const uint8_t* __restrict__ valid,
                     const uint32_t* __restrict__ h,
                     const float* __restrict__ a_tab,
                     const float* __restrict__ gamma_tab,
                     const float* __restrict__ sigma_tab,
-                    const float* __restrict__ rc_tab,
+                    const float* __restrict__ rc_tab, int n_types,
                     const float* __restrict__ kappa_c,
                     const float* __restrict__ eps_c,
                     const float* __restrict__ box_lo,
@@ -157,31 +201,44 @@ pair_tdpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
   const int nr = nx * ny * nz * k;
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= nr) return;
+  const int s0 = kBlocks ? static_cast<int>(blockIdx.y) * kSpeciesBlock : 0;
 
   float fx = 0.0f, fy = 0.0f, fz = 0.0f, vsum = 0.0f;
-  float qs[kMaxSpecies];
+  float qs[kSpeciesBlock];
 #pragma unroll
-  for (int s = 0; s < kMaxSpecies; ++s) qs[s] = 0.0f;
+  for (int s = 0; s < kSpeciesBlock; ++s) qs[s] = 0.0f;
   if (valid[row]) {
-    const float a = a_tab[0];
-    const float gamma = gamma_tab[0];
-    const float sdt = sigma_tab[0] * dt_inv_sqrt;
-    const float rc = rc_tab[0];
-    const float inv_rc = 1.0f / rc;
+    // one type: the coefficients stay in registers
+    const float a0 = a_tab[0], gamma0 = gamma_tab[0];
+    const float sdt0 = sigma_tab[0] * dt_inv_sqrt;
+    const float inv_rc0 = 1.0f / rc_tab[0];
+    const int t_row = kTypes ? typ[row] * n_types : 0;
     const float rcc2 = rcc * rcc;
     const float vxi = v[3 * row], vyi = v[3 * row + 1], vzi = v[3 * row + 2];
     const int32_t tag_i = tag[row];
     const uint32_t h_i = kTea ? 0u : h[row];
-    float kap[kMaxSpecies], eps[kMaxSpecies], ci[kMaxSpecies];
+    float kap[kSpeciesBlock], eps[kSpeciesBlock], ci[kSpeciesBlock];
 #pragma unroll
-    for (int s = 0; s < kMaxSpecies; ++s) {
-      kap[s] = s < ns ? kappa_c[s] : 0.0f;
-      eps[s] = s < ns ? eps_c[s] : 0.0f;
-      ci[s] = s < ns ? c[row * ns + s] : 0.0f;
+    for (int s = 0; s < kSpeciesBlock; ++s) {
+      const bool on = s0 + s < ns;
+      kap[s] = on ? kappa_c[s0 + s] : 0.0f;
+      eps[s] = on ? eps_c[s0 + s] : 0.0f;
+      ci[s] = on ? c[row * ns + s0 + s] : 0.0f;
     }
     for_each_pair<kMinImage>(
-        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr, rc * rc,
+        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr,
+        walk_rc2(rc_tab, n_types),
         [&](int j, float drx, float dry, float drz, float r2) {
+          float a = a0, gamma = gamma0, sdt = sdt0, inv_rc = inv_rc0;
+          if (kTypes) {
+            const int p = t_row + typ[j];
+            r2 = unfused_r2(drx, dry, drz);
+            if (!(r2 < rc_tab[p] * rc_tab[p])) return;
+            a = a_tab[p];
+            gamma = gamma_tab[p];
+            sdt = sigma_tab[p] * dt_inv_sqrt;
+            inv_rc = 1.0f / rc_tab[p];
+          }
           const float rinv = rsqrtf(r2);
           const float rr = r2 * rinv;
           const float w = 1.0f - rr * inv_rc;
@@ -204,44 +261,50 @@ pair_tdpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
             // multiply-adds, then a correctly rounded root. Near rcc,
             // sqrt(w_dc) (s1 = 1) turns an ulp of r into a flux error of
             // ~1e-5 of the largest flux (measured at L=70 with r2 * rsqrtf)
-            const float r2n = __fadd_rn(
-                __fadd_rn(__fmul_rn(drx, drx), __fmul_rn(dry, dry)),
-                __fmul_rn(drz, drz));
+            const float r2n = unfused_r2(drx, dry, drz);
             const float base = fmaxf(1.0f - sqrtf(r2n) / rcc, 0.0f);
             const float wdc = s1 == 1.0f ? base : powf(base, s1);
             const float wrc = sqrtf(wdc);
             const float sign = tag_i < tag_j ? 1.0f : -1.0f;
 #pragma unroll
-            for (int s = 0; s < kMaxSpecies; ++s) {
-              if (s < ns) {
-                const float xi = sign * uniform_stream(hp, 2u + s);
-                qs[s] += -kap[s] * wdc * (ci[s] - c[j * ns + s]) +
+            for (int s = 0; s < kSpeciesBlock; ++s) {
+              if (s0 + s < ns) {
+                const float xi = sign * uniform_stream(
+                    hp, 2u + static_cast<uint32_t>(s0 + s));
+                qs[s] += -kap[s] * wdc * (ci[s] - c[j * ns + s0 + s]) +
                          eps[s] * wrc * xi * dt_inv_sqrt;
               }
             }
           }
         });
   }
-  f[3 * row] = fx;
-  f[3 * row + 1] = fy;
-  f[3 * row + 2] = fz;
-#pragma unroll
-  for (int s = 0; s < kMaxSpecies; ++s) {
-    if (s < ns) dcdt[row * ns + s] = qs[s];
+  if (s0 == 0) {
+    f[3 * row] = fx;
+    f[3 * row + 1] = fy;
+    f[3 * row + 2] = fz;
+    vir[row] = vsum;
   }
-  vir[row] = vsum;
+#pragma unroll
+  for (int s = 0; s < kSpeciesBlock; ++s) {
+    if (s0 + s < ns) dcdt[row * ns + s0 + s] = qs[s];
+  }
 }
 
-template <bool kMinImage, bool kTea, typename... Args>
+template <bool kMinImage, bool kTea, bool kTypes, typename... Args>
 void launch_edpd(dim3 grid, cudaStream_t stream, Args... args) {
-  pair_edpd_v3_kernel<kMinImage, kTea><<<grid, kThreads, 0, stream>>>(
-      args...);
+  pair_edpd_v3_kernel<kMinImage, kTea, kTypes>
+      <<<grid, kThreads, 0, stream>>>(args...);
 }
 
-template <bool kMinImage, bool kTea, typename... Args>
+template <bool kMinImage, bool kTea, bool kTypes, typename... Args>
 void launch_tdpd(dim3 grid, cudaStream_t stream, Args... args) {
-  pair_tdpd_v3_kernel<kMinImage, kTea><<<grid, kThreads, 0, stream>>>(
-      args...);
+  if (grid.y > 1) {
+    pair_tdpd_v3_kernel<kMinImage, kTea, kTypes, true>
+        <<<grid, kThreads, 0, stream>>>(args...);
+  } else {
+    pair_tdpd_v3_kernel<kMinImage, kTea, kTypes, false>
+        <<<grid, kThreads, 0, stream>>>(args...);
+  }
 }
 
 }  // namespace
@@ -258,12 +321,12 @@ extern "C" int meso_uniform_stream(const void* h, void* out, int n,
 
 extern "C" int meso_pair_edpd_v3(
     const void* x, const void* v, const void* t, const void* tag,
-    const void* valid, const void* h, const void* a_tab,
+    const void* typ, const void* valid, const void* h, const void* a_tab,
     const void* gamma_tab, const void* kappa_tab, const void* rc_tab,
-    const void* box_lo, const void* box_hi, void* f, void* dtdt, void* vir,
-    int nx, int ny, int nz, int k, int xr, int min_image, int tea,
-    float dt_inv_sqrt, float mass, float cv, uint32_t step, uint32_t seed,
-    int rounds, void* stream) {
+    int n_types, const void* box_lo, const void* box_hi, void* f,
+    void* dtdt, void* vir, int nx, int ny, int nz, int k, int xr,
+    int min_image, int tea, float dt_inv_sqrt, float mass, float cv,
+    uint32_t step, uint32_t seed, int rounds, void* stream) {
   const int nr = nx * ny * nz * k;
   if (nr <= 0) return static_cast<int>(cudaGetLastError());
   const dim3 grid((nr + kThreads - 1) / kThreads);
@@ -271,18 +334,24 @@ extern "C" int meso_pair_edpd_v3(
 #define MESO_EDPD_ARGS                                                       \
   grid, st, static_cast<const float*>(x), static_cast<const float*>(v),      \
       static_cast<const float*>(t), static_cast<const int32_t*>(tag),        \
+      static_cast<const int32_t*>(typ),                                      \
       static_cast<const uint8_t*>(valid), static_cast<const uint32_t*>(h),   \
       static_cast<const float*>(a_tab), static_cast<const float*>(gamma_tab), \
       static_cast<const float*>(kappa_tab),                                  \
-      static_cast<const float*>(rc_tab), static_cast<const float*>(box_lo),  \
+      static_cast<const float*>(rc_tab), n_types,                            \
+      static_cast<const float*>(box_lo),                                     \
       static_cast<const float*>(box_hi), static_cast<float*>(f),             \
       static_cast<float*>(dtdt), static_cast<float*>(vir), nx, ny, nz, k,    \
       xr, dt_inv_sqrt, mass, cv, step, seed, rounds
-  switch ((min_image ? 2 : 0) | (tea ? 1 : 0)) {
-    case 0: launch_edpd<false, false>(MESO_EDPD_ARGS); break;
-    case 1: launch_edpd<false, true>(MESO_EDPD_ARGS); break;
-    case 2: launch_edpd<true, false>(MESO_EDPD_ARGS); break;
-    default: launch_edpd<true, true>(MESO_EDPD_ARGS); break;
+  switch ((min_image ? 4 : 0) | (tea ? 2 : 0) | (n_types > 1 ? 1 : 0)) {
+    case 0: launch_edpd<false, false, false>(MESO_EDPD_ARGS); break;
+    case 1: launch_edpd<false, false, true>(MESO_EDPD_ARGS); break;
+    case 2: launch_edpd<false, true, false>(MESO_EDPD_ARGS); break;
+    case 3: launch_edpd<false, true, true>(MESO_EDPD_ARGS); break;
+    case 4: launch_edpd<true, false, false>(MESO_EDPD_ARGS); break;
+    case 5: launch_edpd<true, false, true>(MESO_EDPD_ARGS); break;
+    case 6: launch_edpd<true, true, false>(MESO_EDPD_ARGS); break;
+    default: launch_edpd<true, true, true>(MESO_EDPD_ARGS); break;
   }
 #undef MESO_EDPD_ARGS
   return static_cast<int>(cudaGetLastError());
@@ -290,36 +359,42 @@ extern "C" int meso_pair_edpd_v3(
 
 extern "C" int meso_pair_tdpd_v3(
     const void* x, const void* v, const void* c, const void* tag,
-    const void* valid, const void* h, const void* a_tab,
+    const void* typ, const void* valid, const void* h, const void* a_tab,
     const void* gamma_tab, const void* sigma_tab, const void* rc_tab,
-    const void* kappa_c, const void* eps_c, const void* box_lo,
-    const void* box_hi, void* f, void* dcdt, void* vir, int nx, int ny,
-    int nz, int k, int xr, int ns, int min_image, int tea, float dt_inv_sqrt,
+    int n_types, const void* kappa_c, const void* eps_c,
+    const void* box_lo, const void* box_hi, void* f, void* dcdt, void* vir,
+    int nx, int ny, int nz, int k, int xr, int ns, int min_image, int tea,
+    float dt_inv_sqrt,
     float rcc, float s1, uint32_t step, uint32_t seed, int rounds,
     void* stream) {
   const int nr = nx * ny * nz * k;
   if (nr <= 0) return static_cast<int>(cudaGetLastError());
-  if (ns < 1 || ns > kMaxSpecies) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((nr + kThreads - 1) / kThreads);
+  if (ns < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((nr + kThreads - 1) / kThreads,
+                  (ns + kSpeciesBlock - 1) / kSpeciesBlock);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MESO_TDPD_ARGS                                                       \
   grid, st, static_cast<const float*>(x), static_cast<const float*>(v),      \
       static_cast<const float*>(c), static_cast<const int32_t*>(tag),        \
+      static_cast<const int32_t*>(typ),                                      \
       static_cast<const uint8_t*>(valid), static_cast<const uint32_t*>(h),   \
       static_cast<const float*>(a_tab), static_cast<const float*>(gamma_tab), \
       static_cast<const float*>(sigma_tab),                                  \
-      static_cast<const float*>(rc_tab), static_cast<const float*>(kappa_c), \
+      static_cast<const float*>(rc_tab), n_types,                            \
+      static_cast<const float*>(kappa_c),                                    \
       static_cast<const float*>(eps_c), static_cast<const float*>(box_lo),   \
       static_cast<const float*>(box_hi), static_cast<float*>(f),             \
       static_cast<float*>(dcdt), static_cast<float*>(vir), nx, ny, nz, k,    \
       xr, ns, dt_inv_sqrt, rcc, s1, step, seed, rounds
-  switch ((min_image ? 2 : 0) | (tea ? 1 : 0)) {
-    case 0: launch_tdpd<false, false>(MESO_TDPD_ARGS); break;
-    case 1: launch_tdpd<false, true>(MESO_TDPD_ARGS); break;
-    case 2: launch_tdpd<true, false>(MESO_TDPD_ARGS); break;
-    default: launch_tdpd<true, true>(MESO_TDPD_ARGS); break;
+  switch ((min_image ? 4 : 0) | (tea ? 2 : 0) | (n_types > 1 ? 1 : 0)) {
+    case 0: launch_tdpd<false, false, false>(MESO_TDPD_ARGS); break;
+    case 1: launch_tdpd<false, false, true>(MESO_TDPD_ARGS); break;
+    case 2: launch_tdpd<false, true, false>(MESO_TDPD_ARGS); break;
+    case 3: launch_tdpd<false, true, true>(MESO_TDPD_ARGS); break;
+    case 4: launch_tdpd<true, false, false>(MESO_TDPD_ARGS); break;
+    case 5: launch_tdpd<true, false, true>(MESO_TDPD_ARGS); break;
+    case 6: launch_tdpd<true, true, false>(MESO_TDPD_ARGS); break;
+    default: launch_tdpd<true, true, true>(MESO_TDPD_ARGS); break;
   }
 #undef MESO_TDPD_ARGS
   return static_cast<int>(cudaGetLastError());

@@ -1,0 +1,355 @@
+"""The padded brick that the ``pair_brick`` CUDA kernels read, their launch,
+and the plain torch version of the function they compute
+(``brick_forces_plain``, the plain version of all six entry points below).
+
+One kernel family (``csrc/pair_brick.cu``) serves three TPU selectors: the
+fused-lane kernel K5 (``kernels/pair_dpd_fused.py``) and the banded kernels
+K6 (``kernels/pair_dpd.py``) and K7 (``kernels/pair_multiphysics.py``). All
+three compute classic, eDPD or tDPD pair terms over the full stencil of a
+bucket row, without Newton folding, with the minimum image on every axis.
+
+The brick: every per-row quantity as a channel plane (ny, nz, K, nx) of the
+bucket layout, padded by one cell on each side in y and z and by ``xr``
+cells on each side in x (2 for spill buckets, 1 for strict ones). On one
+card the pads are the periodic copy (``pad_brick``); a distributed caller
+can fill them with halo layers from its neighbours instead. Float channels
+(``fb``): x, y, z, vx, vy, vz, then T (eDPD) or the S species of C (tDPD).
+Integer channels (``ib``): tag, valid, then, where present, the
+per-particle hash (fast RNG tier), the type (more than one type) and the
+row's E exclusion tags (classic, special bonds).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from meso_tpu_torch.core import rng as rngmod
+from meso_tpu_torch.core.box import Box
+from meso_tpu_torch.kernels import _build
+from meso_tpu_torch.kernels import pair_dpd_v3 as v3
+from meso_tpu_torch.kernels.common import (check_cuda, half_window,
+                                           row_specs, tables, typ_spec)
+from meso_tpu_torch.neighbor.bucket_layout import grid_shape, n_rows
+from meso_tpu_torch.neighbor.cells import CellConfig
+from meso_tpu_torch.ops import edpd as edpdmod
+from meso_tpu_torch.ops import tdpd as tdpdmod
+from meso_tpu_torch.ops.dpd import pair_force
+
+MODELS = {"dpd": 0, "edpd": 1, "tdpd": 2}
+# the (T, T) tables each model reads: a, gamma, its third coefficient, rc
+TABLES = {"dpd": ("a", "gamma", "sigma", "rc"),
+          "edpd": ("a", "gamma", "kappa", "rc"),
+          "tdpd": ("a", "gamma", "sigma", "rc")}
+_TAG, _VALID = 0, 1
+
+# Launch counts of each entry point's kernel (K5: pair_fused_*, K6:
+# pair_banded_dpd, K7: pair_banded_edpd/tdpd), raised by one at each launch
+# and nowhere else; the fast tier's hash counts in pair_dpd_v3.LAUNCHES.
+LAUNCHES = {f"pair_{sel}_{model}": 0 for sel in ("fused", "banded")
+            for model in ("dpd", "edpd", "tdpd")}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+# candidates per group of stencil offsets in the plain version, as in
+# pair_dpd_v3's walk
+_PLAIN_GROUP_CANDIDATES = 1 << 24
+
+
+@dataclass(frozen=True)
+class Brick:
+    """The padded channel planes and where the optional channels sit
+    (-1: absent)."""
+
+    fb: torch.Tensor     # (nf, ny + 2, nz + 2, K, nx + 2 xr)
+    ib: torch.Tensor     # (ni, ny + 2, nz + 2, K, nx + 2 xr)
+    xr: int
+    ch_h: int = -1
+    ch_typ: int = -1
+    ch_ex: int = -1
+    n_excl: int = 0
+
+
+def pad_brick(planes: torch.Tensor, xr: int) -> torch.Tensor:
+    """(C, ny, nz, K, nx) planes -> (C, ny + 2, nz + 2, K, nx + 2 xr), the
+    pads being the periodic copy of the far side, values unshifted."""
+    p = torch.cat([planes[..., -xr:], planes, planes[..., :xr]], dim=4)
+    p = torch.cat([p[:, :, -1:], p, p[:, :, :1]], dim=2)
+    return torch.cat([p[:, -1:], p, p[:, :1]], dim=1).contiguous()
+
+
+def exclusion_rows(tag: torch.Tensor, params) -> torch.Tensor:
+    """(nr, E) exclusion tags of each row's particle (``params.excl[tag]``);
+    -1 for a tag outside the table, which excludes nothing."""
+    rows = params.excl.shape[0]
+    inside = (tag >= 0) & (tag < rows)
+    ex = params.excl[torch.clamp(tag, 0, rows - 1).long()]
+    return torch.where(inside[:, None], ex, -1)
+
+
+def build_brick(cfg: CellConfig, xr: int, x, v, tag, mask, field=None,
+                h=None, typ=None, ex=None, idtype=torch.int32) -> Brick:
+    """The brick of bucket rows: ``field`` is T (nr,) or C (nr, S), ``h``
+    the per-particle hash, ``typ`` the types, ``ex`` the (nr, E) exclusion
+    tags; each of the four is left out where None. Integer channels are
+    stored as ``idtype``."""
+    ny, nz, k, nx = grid_shape(cfg)
+    nr = x.shape[0]
+    fch = [x.t(), v.t()]
+    if field is not None:
+        fch.append(field.reshape(nr, -1).t())
+    fb = pad_brick(torch.cat(fch).reshape(-1, ny, nz, k, nx), xr)
+    ich = [tag.to(idtype), mask.to(idtype)]
+    ch = {}
+    for name, t in (("h", h), ("typ", typ)):
+        if t is not None:
+            ch[name] = len(ich)
+            ich.append(t.to(idtype))
+    n_excl = 0
+    if ex is not None:
+        ch["ex"] = len(ich)
+        n_excl = ex.shape[1]
+        ich += list(ex.t().to(idtype))
+    ib = pad_brick(torch.stack(ich).reshape(-1, ny, nz, k, nx), xr)
+    return Brick(fb=fb, ib=ib, xr=xr, ch_h=ch.get("h", -1),
+                 ch_typ=ch.get("typ", -1), ch_ex=ch.get("ex", -1),
+                 n_excl=n_excl)
+
+
+def _inputs(model: str, params, x, typ, tag, field):
+    """(field, typ, exclusion rows) as the brick takes them."""
+    nr = x.shape[0]
+    if model == "tdpd" and field.shape != (nr, params.n_species):
+        raise ValueError(f"C has shape {tuple(field.shape)}, expected "
+                         f"{(nr, params.n_species)}")
+    ex = None
+    if model == "dpd" and params.excl is not None:
+        ex = exclusion_rows(tag, params)
+    return (field, typ if params.n_types > 1 else None, ex)
+
+
+def launch(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
+           step: int, params, dt: float, cfg: CellConfig, rng_mode: str,
+           rng_rounds: int):
+    """One launch of the pair_brick kernel on CUDA tensors. Builds the hash
+    (fast tier, one launch of particle_hash) and the brick, launches, adds
+    one to ``LAUNCHES[name]``. Returns (f (nr, 3), the
+    field's rate (dT/dt, dC/dt) or None, virial)."""
+    lib = _build.load_library()
+    nr = n_rows(cfg)
+    specs = {**row_specs(nr, x, v, tag, mask, box),
+             **typ_spec(params, nr, typ), **tables(params, TABLES[model])}
+    if model == "edpd":
+        specs["t"] = (field, torch.float32, (nr,))
+    elif model == "tdpd":
+        ns = params.n_species
+        specs.update(c=(field, torch.float32, (nr, ns)),
+                     kappa_c=(params.kappa_c, torch.float32, (ns,)),
+                     eps_c=(params.eps_c, torch.float32, (ns,)))
+    elif params.excl is not None:
+        specs.update(excl=(params.excl, torch.int32, None),
+                     excl_w=(params.excl_w, torch.float32, ()))
+    check_cuda(specs)
+    step_u = step & 0xFFFFFFFF
+    tea = rng_mode == "tea"
+    h = None if tea else v3.launch_hash(lib, tag, step_u, params.seed,
+                                        rng_rounds)
+    fld, typ_b, ex = _inputs(model, params, x, typ, tag, field)
+    xr = half_window(cfg, rng_mode)
+    brick = build_brick(cfg, xr, x, v, tag, mask, field=fld, h=h, typ=typ_b,
+                        ex=ex)
+    dev = x.device
+    f = torch.empty((nr, 3), dtype=torch.float32, device=dev)
+    vir = torch.empty((nr,), dtype=torch.float32, device=dev)
+    extra = None
+    if model == "edpd":
+        extra = torch.empty((nr,), dtype=torch.float32, device=dev)
+    elif model == "tdpd":
+        extra = torch.empty((nr, params.n_species), dtype=torch.float32,
+                            device=dev)
+    a, gamma, x3, rc = (getattr(params, n) for n in TABLES[model])
+    nx, ny, nz = cfg.ncell
+    tdpd = model == "tdpd"
+    excl_w = params.excl_w if model == "dpd" and brick.n_excl else None
+    code = lib.meso_pair_brick(
+        MODELS[model], int(tea), brick.fb.data_ptr(), brick.ib.data_ptr(),
+        box.lo.data_ptr(), box.hi.data_ptr(), a.data_ptr(), gamma.data_ptr(),
+        x3.data_ptr(), rc.data_ptr(), params.n_types, brick.ch_h,
+        brick.ch_typ, brick.ch_ex, brick.n_excl,
+        None if excl_w is None else excl_w.data_ptr(),
+        params.n_species if tdpd else 0,
+        params.kappa_c.data_ptr() if tdpd else None,
+        params.eps_c.data_ptr() if tdpd else None, f.data_ptr(),
+        None if extra is None else extra.data_ptr(), vir.data_ptr(),
+        nx, ny, nz, cfg.capacity, xr, 1.0 / math.sqrt(dt),
+        getattr(params, "s_exp", 1.0),
+        params.mass if model == "edpd" else 1.0,
+        params.cv if model == "edpd" else 1.0,
+        params.rcc if tdpd else 0.0, params.s1 if tdpd else 1.0,
+        step_u, params.seed, rng_rounds,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "pair_brick")
+    LAUNCHES[name] += 1
+    return f, extra, torch.sum(vir)
+
+
+def forces(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
+           step: int, params, dt: float, cfg: CellConfig, rng_mode: str,
+           rng_rounds: int):
+    """An entry point's pair terms: ``brick_forces_plain`` on CPU tensors,
+    and only there; on any other, one ``launch`` counted under ``name``.
+    Returns (f, virial) for classic DPD, (f, dT/dt or dC/dt, virial) for
+    the transport models."""
+    if x.device.type == "cpu":
+        out = brick_forces_plain(model, x, v, field, typ, tag, mask, box,
+                                 step, params, dt, cfg, rng_mode, rng_rounds)
+    else:
+        out = launch(model, name, x, v, field, typ, tag, mask, box, step,
+                     params, dt, cfg, rng_mode, rng_rounds)
+    return (out[0], out[2]) if model == "dpd" else out
+
+
+def _brick_pairs(brick: Brick, cfg: CellConfig, box: Box, rc2):
+    """The candidate walk of the plain version over the brick. Per group of
+    stencil offsets it slices the source planes out of the brick (no index
+    wraps, as in the kernel), takes the minimum image on every axis, and
+    yields the in-range pairs (0 < r2 < rc2): (target row, target's brick
+    index, source's brick index, [dx, dy, dz], r2), dr = x_target -
+    x_source, r2 summed in x, y, z order."""
+    ny, nz, k, nx = grid_shape(cfg)
+    xr = brick.xr
+    pz, px = nz + 2, nx + 2 * xr
+    lens = box.lengths
+    inv_l = 1.0 / lens
+    dev = brick.fb.device
+
+    def interior(t):
+        return t[1:ny + 1, 1:nz + 1, :, xr:xr + nx]
+
+    def tgt(t):   # (1, ny, nz, K, 1, nx): target slot axis
+        return interior(t)[None, :, :, :, None, :]
+
+    valid = brick.ib[_VALID] != 0
+    offsets = [(dy, dz, dx) for dy in range(3) for dz in range(3)
+               for dx in range(2 * xr + 1)]
+    group = max(1, _PLAIN_GROUP_CANDIDATES // (ny * nz * k * k * nx))
+    for g0 in range(0, len(offsets), group):
+        offs = offsets[g0:g0 + group]
+
+        def src(t):   # (G, ny, nz, 1, K, nx): source slot axis
+            return torch.stack([t[dy:dy + ny, dz:dz + nz, :, dx:dx + nx]
+                                for dy, dz, dx in offs])[:, :, :, None]
+
+        dr = []
+        for c in range(3):
+            d = tgt(brick.fb[c]) - src(brick.fb[c])
+            dr.append(d - torch.round(d * inv_l[c]) * lens[c])
+        r2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+        ok = tgt(valid) & src(valid) & (r2 < rc2) & (r2 > 0.0)
+        g, cy, cz, kt, ks, cx = ok.nonzero(as_tuple=True)
+        o = torch.tensor(offs, dtype=torch.int64, device=dev)[g]
+        row = ((cy * nz + cz) * k + kt) * nx + cx
+        tb = (((cy + 1) * pz + cz + 1) * k + kt) * px + cx + xr
+        sb = (((cy + o[:, 0]) * pz + cz + o[:, 1]) * k + ks) * px \
+            + cx + o[:, 2]
+        yield (row, tb, sb, [d[g, cy, cz, kt, ks, cx] for d in dr],
+               r2[g, cy, cz, kt, ks, cx])
+
+
+def brick_forces_plain(model: str, x, v, field, typ, tag, mask, box: Box,
+                       step: int, params, dt: float, cfg: CellConfig,
+                       rng_mode: str = "fast", rng_rounds: int = 8):
+    """The pair_brick kernel's function in plain torch, from the same brick
+    (``build_brick``, integer channels in int64): the ``_brick_pairs`` walk
+    out to the table's largest rc, the pairs inside their own rc_ij, and
+    the model's pair terms (``ops.dpd``'s force with s_exp and the
+    special-bonds weight, ``ops.edpd.edpd_pair``, or ``ops.dpd.pair_force``
+    with ``ops.tdpd.tdpd_flux``), summed into their target rows. Returns
+    (f (nr, 3), dT/dt, dC/dt or None, virial)."""
+    nr = x.shape[0]
+    dev = x.device
+    fld, typ_b, ex = _inputs(model, params, x, typ, tag, field)
+    h = (rngmod.particle_hash(tag, step, params.seed, rounds=rng_rounds)
+         if rng_mode == "fast" else None)
+    brick = build_brick(cfg, half_window(cfg, rng_mode), x, v, tag, mask,
+                        field=fld, h=h, typ=typ_b, ex=ex, idtype=torch.int64)
+    fbf = brick.fb.reshape(brick.fb.shape[0], -1)
+    ibf = brick.ib.reshape(brick.ib.shape[0], -1)
+    nt = params.n_types
+    tabs = [getattr(params, n).reshape(-1) for n in TABLES[model]]
+    rc_t = tabs[3]
+    dt_inv_sqrt = 1.0 / math.sqrt(dt)
+    f = torch.zeros((nr, 3), dtype=torch.float32, device=dev)
+    vir = torch.zeros((nr,), dtype=torch.float32, device=dev)
+    extra = None
+    if model == "edpd":
+        extra = torch.zeros((nr,), dtype=torch.float32, device=dev)
+    elif model == "tdpd":
+        extra = torch.zeros((nr, params.n_species), dtype=torch.float32,
+                            device=dev)
+    for row, tb, sb, d, r2 in _brick_pairs(brick, cfg, box,
+                                           torch.max(rc_t) ** 2):
+        if nt > 1:
+            p = (ibf[brick.ch_typ, tb] * nt + ibf[brick.ch_typ, sb])
+            keep = r2 < rc_t[p] * rc_t[p]
+            row, tb, sb, p, r2 = (t[keep] for t in (row, tb, sb, p, r2))
+            d = [dc[keep] for dc in d]
+        else:
+            p = 0
+        coef = [tab[p] for tab in tabs]
+        tag_i, tag_j = ibf[_TAG, tb], ibf[_TAG, sb]
+        if rng_mode == "fast":
+            hp = rngmod.combine_symmetric(ibf[brick.ch_h, tb],
+                                          ibf[brick.ch_h, sb])
+        else:
+            hp = rngmod.pair_hash_tea(tag_i, tag_j, step, params.seed,
+                                      rounds=rng_rounds)
+        dr = torch.stack(d, -1)
+        vij = (fbf[3:6, tb] - fbf[3:6, sb]).t()
+        if model == "dpd":
+            f_p, vir_p = _classic_pair(params, brick, ibf, tb, tag_j, hp, dr,
+                                       vij, r2, coef, dt_inv_sqrt)
+        elif model == "edpd":
+            theta, zeta = edpdmod.noises_from_hash(hp, tag_i, tag_j)
+            f_p, q_p, vir_p = edpdmod.edpd_pair(
+                dr, vij, fbf[6, tb], fbf[6, sb], theta, zeta, coef[0],
+                coef[1], coef[3], coef[2], params.mass, dt_inv_sqrt)
+            extra.index_add_(0, row, q_p)
+        else:
+            theta, xi = tdpdmod.noises_from_hash(hp, tag_i, tag_j,
+                                                 params.n_species)
+            f_p, vir_p = pair_force(dr, vij, theta, *coef, dt_inv_sqrt,
+                                    params.s_exp)
+            c = fbf[6:]
+            q_p = tdpdmod.tdpd_flux(dr, c[:, tb].t(), c[:, sb].t(), xi,
+                                    params.kappa_c, params.eps_c, params.rcc,
+                                    params.s1, dt_inv_sqrt, True)
+            extra.index_add_(0, row, q_p)
+        f.index_add_(0, row, f_p)
+        vir.index_add_(0, row, vir_p)
+    if model == "edpd":
+        extra = extra / params.cv
+    return f, extra, torch.sum(vir)
+
+
+def _classic_pair(params, brick: Brick, ibf, tb, tag_j, hp, dr, vij, r2,
+                  coef, dt_inv_sqrt: float):
+    """Classic force and half virial of in-range pairs, with s_exp and the
+    special-bonds weight read from the brick's exclusion channels."""
+    a, gamma, sigma, rc = coef
+    rinv = torch.rsqrt(r2)
+    rr = r2 * rinv
+    w = 1.0 - rr * (1.0 / rc)
+    ev = torch.sum(dr * vij, dim=-1) * rinv
+    fmag = v3.classic_fmag(w, ev, rngmod._u32_to_symmetric_uniform(hp), a,
+                           gamma, sigma * dt_inv_sqrt, params.s_exp)
+    if brick.n_excl:
+        ex_i = ibf[brick.ch_ex:brick.ch_ex + brick.n_excl, tb]
+        hit = torch.any(ex_i == tag_j[None, :], dim=0)
+        fmag = torch.where(hit, fmag * params.excl_w, fmag)
+    return (fmag * rinv)[:, None] * dr, 0.5 * fmag * rr

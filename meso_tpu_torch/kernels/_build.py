@@ -48,16 +48,22 @@ SIGNATURES = {
     + (_I,) * 9 + (_F, _F, _U, _U, _I, _P),
     # h, out, n, salt, stream
     "meso_uniform_stream": (_P, _P, _I, _U, _P),
-    # x, v, t, tag, valid, h, a, gamma, kappa, rc, box_lo, box_hi, f, dtdt,
-    # vir, nx, ny, nz, k, xr, min_image, tea, dt_inv_sqrt, mass, cv,
-    # step, seed, rounds, stream
-    "meso_pair_edpd_v3": (_P,) * 15 + (_I,) * 7 + (_F,) * 3
-    + (_U, _U, _I, _P),
-    # x, v, c, tag, valid, h, a, gamma, sigma, rc, kappa_c, eps_c, box_lo,
-    # box_hi, f, dcdt, vir, nx, ny, nz, k, xr, ns, min_image, tea,
-    # dt_inv_sqrt, rcc, s1, step, seed, rounds, stream
-    "meso_pair_tdpd_v3": (_P,) * 17 + (_I,) * 8 + (_F,) * 3
-    + (_U, _U, _I, _P),
+    # x, v, t, tag, typ, valid, h, a, gamma, kappa, rc, n_types, box_lo,
+    # box_hi, f, dtdt, vir, nx, ny, nz, k, xr, min_image, tea, dt_inv_sqrt,
+    # mass, cv, step, seed, rounds, stream
+    "meso_pair_edpd_v3": (_P,) * 11 + (_I,) + (_P,) * 5 + (_I,) * 7
+    + (_F,) * 3 + (_U, _U, _I, _P),
+    # x, v, c, tag, typ, valid, h, a, gamma, sigma, rc, n_types, kappa_c,
+    # eps_c, box_lo, box_hi, f, dcdt, vir, nx, ny, nz, k, xr, ns, min_image,
+    # tea, dt_inv_sqrt, rcc, s1, step, seed, rounds, stream
+    "meso_pair_tdpd_v3": (_P,) * 11 + (_I,) + (_P,) * 7 + (_I,) * 8
+    + (_F,) * 3 + (_U, _U, _I, _P),
+    # model, tea, fb, ib, box_lo, box_hi, a, gamma, x3, rc, n_types, ch_h,
+    # ch_typ, ch_ex, n_excl, excl_w, ns, kappa_c, eps_c, f, extra, vir, nx,
+    # ny, nz, k, xr, dt_inv_sqrt, s_exp, mass, cv, rcc, s1, step, seed,
+    # rounds, stream
+    "meso_pair_brick": (_I, _I) + (_P,) * 8 + (_I,) * 5 + (_P, _I)
+    + (_P,) * 5 + (_I,) * 5 + (_F,) * 6 + (_U, _U, _I, _P),
 }
 
 

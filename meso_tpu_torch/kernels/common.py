@@ -1,0 +1,121 @@
+"""What the pair-kernel wrappers share: the checks of what each kernel
+takes, and the specs of the CUDA inputs each launch validates.
+
+Used by ``kernels/pair_dpd_v3.py`` (K1-K3), ``kernels/_brick.py`` and the
+fused and banded selectors built on it (K5-K7). The refusals name their
+entry in ROADMAP Queue 3 where the JAX package's kernels and its dense
+oracles disagree (R7, R8, R9): the port refuses such a case rather than
+copy either side.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from meso_tpu_torch.core.box import Box
+from meso_tpu_torch.neighbor.cells import CellConfig
+
+
+def half_window(cfg: CellConfig, rng_mode: str) -> int:
+    """Raise for what no pair kernel covers; return the x half-window: 2
+    for spill buckets (a slot-cell may sit one column right of its true
+    cell), 1 for strict ones."""
+    if rng_mode not in ("fast", "tea"):
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
+    nx, ny, nz = cfg.ncell
+    xr = 2 if cfg.spill else 1
+    if nx < 2 * xr + 1 or ny < 3 or nz < 3:
+        raise ValueError(f"ncell={cfg.ncell} too small for the +-{xr} "
+                         "x-window and +-1 y/z windows")
+    return xr
+
+
+def check_classic(params, cfg: CellConfig, rng_mode: str, s_exp: float,
+                  debug_pairs: bool) -> tuple[int, bool]:
+    """Returns the x half-window and whether the case needs K1's general
+    variant (more than one type, s_exp != 1, exclusions, debug_pairs)."""
+    if s_exp != params.s_exp:
+        raise ValueError(f"System.s_exp={s_exp} differs from the pair "
+                         f"parameters' s_exp={params.s_exp}")
+    if (params.excl is None) != (params.excl_w is None):
+        raise ValueError("excl and excl_w come together")
+    general = (params.n_types != 1 or s_exp != 1.0
+               or params.excl is not None or debug_pairs)
+    return half_window(cfg, rng_mode), general
+
+
+def check_tdpd(params, cfg: CellConfig, rng_mode: str) -> int:
+    """Raise for what no tDPD pair kernel takes; return the x half-window.
+
+    Refused: s_exp != 1 (R8); rcc above the largest rc, which the stencil
+    would not cover; and rcc above the smallest rc_ij (R9), where the JAX
+    package's tDPD kernels gate the flux on rc_ij as well as rcc, and its
+    dense oracle on rcc alone."""
+    xr = half_window(cfg, rng_mode)
+    if params.s_exp != 1.0:
+        raise ValueError(
+            f"tDPD with s_exp={params.s_exp} is refused (ROADMAP Queue 3, "
+            "R8): the JAX package's tDPD kernels take s_exp = 1 whatever "
+            "params.s_exp says, and its dense oracle applies it")
+    if params.rcc > params.rc_max:
+        raise ValueError(
+            "bucket tDPD path requires rcc <= rc (rc-based stencil): "
+            f"rcc={params.rcc}, rc={params.rc_max}")
+    if params.n_types > 1 and params.rcc > params.rc_min:
+        raise ValueError(
+            f"tDPD with rcc={params.rcc} above the smallest rc_ij="
+            f"{params.rc_min} is refused (ROADMAP Queue 3, R9): the JAX "
+            "package's tDPD kernels drop the flux of pairs with "
+            "rc_ij <= r < rcc, and its dense oracle keeps it")
+    return xr
+
+
+def check_strict(cfg: CellConfig) -> None:
+    """The banded kernels take strict buckets only (R7)."""
+    if cfg.spill:
+        raise ValueError(
+            "force_path 'pallas_banded' takes strict buckets only: the "
+            "banded TPU kernels walk a +-1 x-window and drop the pairs of "
+            "a spill layout (ROADMAP Queue 3, R7); build the CellConfig "
+            "with spill=False or use force_path 'pallas'")
+
+
+def check_cuda(specs: dict) -> None:
+    """specs: name -> (tensor, dtype, shape or None). Every tensor must be
+    a contiguous CUDA tensor on the first one's device."""
+    dev = next(iter(specs.values()))[0].device
+    for name, (t, dtype, shape) in specs.items():
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the CUDA kernel "
+                             f"needs every input on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def row_specs(nr: int, x, v, tag, mask, box: Box) -> dict:
+    """Specs of the per-row inputs every pair kernel reads."""
+    f32 = torch.float32
+    return {"x": (x, f32, (nr, 3)), "v": (v, f32, (nr, 3)),
+            "tag": (tag, torch.int32, (nr,)), "mask": (mask, torch.bool, (nr,)),
+            "box.lo": (box.lo, f32, (3,)), "box.hi": (box.hi, f32, (3,))}
+
+
+def typ_spec(params, nr: int, typ) -> dict:
+    """The per-row types the kernels read with more than one type."""
+    if params.n_types == 1:
+        return {}
+    if typ is None:
+        raise ValueError("a multi-type table needs typ")
+    return {"typ": (typ, torch.int32, (nr,))}
+
+
+def tables(params, names) -> dict:
+    """Specs of the (T, T) coefficient tables ``names``."""
+    nt = params.n_types
+    return {name: (getattr(params, name), torch.float32, (nt, nt))
+            for name in names}

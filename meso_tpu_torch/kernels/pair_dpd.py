@@ -1,0 +1,41 @@
+"""The banded classic selector (port of ``meso_tpu/kernels/pair_dpd.py``,
+K6: ``bucket_forces_pallas``, reached with ``force_path="pallas_banded"``).
+
+The same full-stencil classic forces as the fused selector
+(``kernels/pair_dpd_fused.py``), on the same hand-written Hopper kernel
+(``csrc/pair_brick.cu``, counted in ``_brick.LAUNCHES``): multi-type
+tables, ``params.s_exp`` and special-bonds exclusions, both RNG tiers, the
+minimum image on every axis. On a CPU tensor, and only there, it runs the
+plain torch version ``_brick.brick_forces_plain``.
+
+Strict buckets only. The TPU kernel walks a +-1 x-window and has no spill
+handling, so under a spill layout it silently drops the pairs whose
+slot-cells are two columns apart (ROADMAP Queue 3, R7); this entry point
+raises ``ValueError`` for a spill ``CellConfig`` instead
+(``kernels.common.check_strict``).
+
+``interpret`` and ``rows_per_step`` are TPU lowering knobs, accepted and
+ignored. The 1-D halo entry point ``halo_forces_pallas_1d`` (K6-halo) waits
+for the distributed path (ROADMAP Queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+from meso_tpu_torch.core.box import Box
+from meso_tpu_torch.kernels import _brick
+from meso_tpu_torch.kernels.common import check_classic, check_strict
+from meso_tpu_torch.neighbor.cells import CellConfig
+from meso_tpu_torch.ops.dpd import DPDParams
+
+
+def bucket_forces_pallas(x, v, typ, tag, mask, box: Box, step: int,
+                         params: DPDParams, dt: float, cfg: CellConfig,
+                         rng_mode: str = "fast", rng_rounds: int = 8,
+                         interpret: bool = False, rows_per_step: int = 0):
+    """Classic-DPD forces on strict bucket rows. Returns (f (nr, 3),
+    virial)."""
+    check_strict(cfg)
+    check_classic(params, cfg, rng_mode, params.s_exp, False)
+    return _brick.forces("dpd", "pair_banded_dpd", x, v, None, typ, tag,
+                         mask, box, step, params, dt, cfg, rng_mode,
+                         rng_rounds)

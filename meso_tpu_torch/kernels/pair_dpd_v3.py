@@ -11,16 +11,20 @@ raises. On a CPU tensor, and only there, it runs its plain torch version
 ``bucket_forces_v3_tdpd_plain``), which computes the same function. There
 is no fallback from one to the other.
 
-Covered: the fast and TEA RNG tiers, spill and strict layouts, and the
-min-image and no-min-image (``cfg.wrap_at_rebuild``) modes; for K3 up to
-``MAX_SPECIES`` species. K1 covers every case of the TPU kernel:
+Covered: the fast and TEA RNG tiers, spill and strict layouts, the
+min-image and no-min-image (``cfg.wrap_at_rebuild``) modes, and
+per-type-pair tables. K1 covers every case of the TPU kernel:
 ``need_virial``, and, through its general variant
 (``pair_dpd_v3_general``), multi-type tables, ``s_exp != 1``,
 special-bonds exclusions and ``debug_pairs``; the one-type, s_exp = 1,
-no-exclusion case keeps the main path's kernel. For K2 and K3 multi-type
-tables, K3's ``s_exp != 1`` and more species raise ``NotImplementedError``
-(ROADMAP Queue 2, the K2-K3 cases left), and ``rcc > rc`` raises
-``ValueError`` (the stencil covers rc only).
+no-exclusion case keeps the main path's kernel. K2 and K3 take multi-type
+tables and K3 any number of species. K3 raises ``ValueError`` for
+``rcc > rc`` (the stencil covers rc only), for ``s_exp != 1`` (every JAX
+tDPD kernel takes s_exp = 1 whatever the parameters say, where the JAX
+dense oracle applies it; ROADMAP Queue 3, R8) and for rcc above the
+smallest rc_ij (the JAX kernels drop the flux of pairs beyond rc_ij, the
+oracle keeps it; R9): the port refuses rather than copy either side
+(``kernels.common.check_tdpd``).
 ``interpret``, ``z_chunks``, ``dyn_roll``, ``lane_pad`` and ``w_pad`` are
 TPU lowering knobs: they are accepted and ignored.
 """
@@ -34,6 +38,9 @@ import torch
 from meso_tpu_torch.core import rng as rngmod
 from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.kernels import _build
+from meso_tpu_torch.kernels.common import (check_classic, check_cuda,
+                                           check_tdpd, half_window,
+                                           row_specs, tables, typ_spec)
 from meso_tpu_torch.neighbor.bucket_layout import grid_shape, n_rows
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops import edpd as edpdmod
@@ -45,66 +52,18 @@ from meso_tpu_torch.ops.dpd import DPDParams, pair_force, special_weight
 LAUNCHES = {"pair_dpd_v3": 0, "pair_dpd_v3_general": 0, "particle_hash": 0,
             "pair_edpd_v3": 0, "pair_tdpd_v3": 0, "uniform_stream": 0}
 
-# species the tDPD kernel keeps in registers (kMaxSpecies in the source)
-MAX_SPECIES = 8
-
-_TODO = "is not ported yet (ROADMAP Queue 2, the K2-K3 cases left)"
-
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
-def _half_window(cfg: CellConfig, rng_mode: str) -> int:
-    """Raise for what no pair kernel covers; return the x half-window."""
-    if rng_mode not in ("fast", "tea"):
-        raise ValueError(f"unknown rng_mode {rng_mode!r}")
-    nx, ny, nz = cfg.ncell
-    xr = 2 if cfg.spill else 1
-    if nx < 2 * xr + 1 or ny < 3 or nz < 3:
-        raise ValueError(f"ncell={cfg.ncell} too small for the +-{xr} "
-                         "x-window and +-1 y/z windows")
-    return xr
+def _typ_ptr(params, typ):
+    return None if params.n_types == 1 else typ.data_ptr()
 
 
-def _check_classic(params: DPDParams, cfg: CellConfig, rng_mode: str,
-                   s_exp: float, debug_pairs: bool) -> tuple[int, bool]:
-    """Returns the x half-window and whether the case needs K1's general
-    variant (more than one type, s_exp != 1, exclusions, debug_pairs)."""
-    if s_exp != params.s_exp:
-        raise ValueError(f"System.s_exp={s_exp} differs from the pair "
-                         f"parameters' s_exp={params.s_exp}")
-    if (params.excl is None) != (params.excl_w is None):
-        raise ValueError("excl and excl_w come together")
-    general = (params.n_types != 1 or s_exp != 1.0
-               or params.excl is not None or debug_pairs)
-    return _half_window(cfg, rng_mode), general
-
-
-def _one_type(params) -> None:
-    if params.n_types != 1:
-        raise NotImplementedError(f"multi-type pair tables {_TODO}")
-
-
-def _check_tdpd(params, cfg: CellConfig, rng_mode: str) -> int:
-    _one_type(params)
-    xr = _half_window(cfg, rng_mode)
-    if params.s_exp != 1.0:
-        # the kernel's force takes w = 1 - r/rc, as K3's does
-        raise NotImplementedError(f"s_exp != 1 {_TODO}")
-    if params.n_species > MAX_SPECIES:
-        raise NotImplementedError(
-            f"more than {MAX_SPECIES} tDPD species {_TODO}")
-    if params.rcc > params.rc_max:
-        raise ValueError(
-            "bucket tDPD path requires rcc <= rc (rc-based stencil): "
-            f"rcc={params.rcc}, rc={params.rc_max}")
-    return xr
-
-
-def _launch_hash(lib, tag: torch.Tensor, step: int, seed: int,
-                 rounds: int) -> torch.Tensor:
+def launch_hash(lib, tag: torch.Tensor, step: int, seed: int,
+                rounds: int) -> torch.Tensor:
     """uint32 bits of the per-particle hash, in an int32 tensor."""
     h = torch.empty_like(tag, dtype=torch.int32)
     code = lib.meso_particle_hash(
@@ -115,43 +74,13 @@ def _launch_hash(lib, tag: torch.Tensor, step: int, seed: int,
     return h
 
 
-def _check_cuda(specs: dict) -> None:
-    """specs: name -> (tensor, dtype, shape or None). Every tensor must be
-    a contiguous CUDA tensor on the first one's device."""
-    dev = next(iter(specs.values()))[0].device
-    for name, (t, dtype, shape) in specs.items():
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the CUDA kernel "
-                             f"needs every input on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _row_specs(nr: int, x, v, tag, mask, box: Box) -> dict:
-    f32 = torch.float32
-    return {"x": (x, f32, (nr, 3)), "v": (v, f32, (nr, 3)),
-            "tag": (tag, torch.int32, (nr,)), "mask": (mask, torch.bool, (nr,)),
-            "box.lo": (box.lo, f32, (3,)), "box.hi": (box.hi, f32, (3,))}
-
-
-def _tables(params, names) -> dict:
-    nt = params.n_types
-    return {name: (getattr(params, name), torch.float32, (nt, nt))
-            for name in names}
-
-
 def _hash_or_tag(lib, tag, step_u: int, seed: int, rng_mode: str,
                  rounds: int):
     """The kernels' h input: the per-particle hash (fast tier, one launch)
     or the tags themselves (TEA tier, read as tags and never as h)."""
     if rng_mode == "tea":
         return tag
-    return _launch_hash(lib, tag, step_u, seed, rounds)
+    return launch_hash(lib, tag, step_u, seed, rounds)
 
 
 def particle_hash_v3(tag: torch.Tensor, step: int, seed: int,
@@ -165,7 +94,7 @@ def particle_hash_v3(tag: torch.Tensor, step: int, seed: int,
             or not tag.is_contiguous():
         raise ValueError("particle_hash_v3 takes a contiguous int32 CUDA "
                          "tensor")
-    return _launch_hash(lib, tag, step, seed, rounds).to(torch.int64) \
+    return launch_hash(lib, tag, step, seed, rounds).to(torch.int64) \
         & 0xFFFFFFFF
 
 
@@ -204,15 +133,15 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
     With ``debug_pairs`` each row's f holds (its in-range partners, the sum
     of their 14-bit hash keys, 0) and the virial is 0. ``typ`` is read by
     the general variant only."""
-    xr, general = _check_classic(params, cfg, rng_mode, s_exp, debug_pairs)
+    xr, general = check_classic(params, cfg, rng_mode, s_exp, debug_pairs)
     if x.device.type == "cpu":
         return bucket_forces_v3_plain(x, v, tag, mask, box, step, params, dt,
                                       cfg, rng_mode, rng_rounds, need_virial,
                                       typ=typ, debug_pairs=debug_pairs)
     lib = _build.load_library()
     nr = n_rows(cfg)
-    _check_cuda({**_row_specs(nr, x, v, tag, mask, box),
-                 **_tables(params, ("a", "gamma", "sigma", "rc"))})
+    check_cuda({**row_specs(nr, x, v, tag, mask, box),
+                 **tables(params, ("a", "gamma", "sigma", "rc"))})
     if general:
         return _launch_general(lib, x, v, typ, tag, mask, box, step, params,
                                dt, cfg, xr, rng_mode, rng_rounds,
@@ -253,7 +182,7 @@ def _launch_general(lib, x, v, typ, tag, mask, box: Box, step: int,
         excl_rows, n_excl = params.excl.shape
         specs["excl"] = (params.excl, torch.int32, None)
         specs["excl_w"] = (params.excl_w, torch.float32, ())
-    _check_cuda(specs)
+    check_cuda(specs)
     step_u = step & 0xFFFFFFFF
     # debug_pairs reads the per-particle hash's keys in both RNG tiers
     h = _hash_or_tag(lib, tag, step_u, params.seed,
@@ -290,18 +219,18 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
                                  z_chunks: int = 0, lane_pad: int = 0,
                                  w_pad: int = 0):
     """eDPD forces and heat on bucket rows (K2). Returns (f (nr, 3),
-    dTdt (nr,), virial). ``typ`` is unused (one particle type)."""
-    _one_type(params)
-    xr = _half_window(cfg, rng_mode)
+    dTdt (nr,), virial). ``typ`` is read with more than one type."""
+    xr = half_window(cfg, rng_mode)
     if x.device.type == "cpu":
         return bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box, step,
                                            params, dt, cfg, rng_mode,
-                                           rng_rounds)
+                                           rng_rounds, typ=typ)
     lib = _build.load_library()
     nr = n_rows(cfg)
-    _check_cuda({**_row_specs(nr, x, v, tag, mask, box),
+    check_cuda({**row_specs(nr, x, v, tag, mask, box),
                  "t": (t, torch.float32, (nr,)),
-                 **_tables(params, ("a", "gamma", "kappa", "rc"))})
+                 **typ_spec(params, nr, typ),
+                 **tables(params, ("a", "gamma", "kappa", "rc"))})
     step_u = step & 0xFFFFFFFF
     h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
@@ -310,9 +239,10 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
     nx, ny, nz = cfg.ncell
     code = lib.meso_pair_edpd_v3(
         x.data_ptr(), v.data_ptr(), t.data_ptr(), tag.data_ptr(),
-        mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
-        params.gamma.data_ptr(), params.kappa.data_ptr(),
-        params.rc.data_ptr(), box.lo.data_ptr(), box.hi.data_ptr(),
+        _typ_ptr(params, typ), mask.data_ptr(), h.data_ptr(),
+        params.a.data_ptr(), params.gamma.data_ptr(),
+        params.kappa.data_ptr(), params.rc.data_ptr(), params.n_types,
+        box.lo.data_ptr(), box.hi.data_ptr(),
         f.data_ptr(), dtdt.data_ptr(), vir_rows.data_ptr(),
         nx, ny, nz, cfg.capacity, xr, int(not cfg.wrap_at_rebuild),
         int(rng_mode == "tea"), 1.0 / math.sqrt(dt), params.mass, params.cv,
@@ -330,18 +260,20 @@ def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
                                  z_chunks: int = 0, lane_pad: int = 0,
                                  w_pad: int = 0):
     """tDPD forces and per-species fluxes on bucket rows (K3). Returns
-    (f (nr, 3), dCdt (nr, S), virial). ``typ`` is unused (one type)."""
-    xr = _check_tdpd(params, cfg, rng_mode)
+    (f (nr, 3), dCdt (nr, S), virial). ``typ`` is read with more than one
+    type."""
+    xr = check_tdpd(params, cfg, rng_mode)
     if x.device.type == "cpu":
         return bucket_forces_v3_tdpd_plain(x, v, c, tag, mask, box, step,
                                            params, dt, cfg, rng_mode,
-                                           rng_rounds)
+                                           rng_rounds, typ=typ)
     lib = _build.load_library()
     nr = n_rows(cfg)
     ns = params.n_species
-    _check_cuda({**_row_specs(nr, x, v, tag, mask, box),
+    check_cuda({**row_specs(nr, x, v, tag, mask, box),
                  "c": (c, torch.float32, (nr, ns)),
-                 **_tables(params, ("a", "gamma", "sigma", "rc")),
+                 **typ_spec(params, nr, typ),
+                 **tables(params, ("a", "gamma", "sigma", "rc")),
                  "kappa_c": (params.kappa_c, torch.float32, (ns,)),
                  "eps_c": (params.eps_c, torch.float32, (ns,))})
     step_u = step & 0xFFFFFFFF
@@ -352,9 +284,10 @@ def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
     nx, ny, nz = cfg.ncell
     code = lib.meso_pair_tdpd_v3(
         x.data_ptr(), v.data_ptr(), c.data_ptr(), tag.data_ptr(),
-        mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
-        params.gamma.data_ptr(), params.sigma.data_ptr(),
-        params.rc.data_ptr(), params.kappa_c.data_ptr(),
+        _typ_ptr(params, typ), mask.data_ptr(), h.data_ptr(),
+        params.a.data_ptr(), params.gamma.data_ptr(),
+        params.sigma.data_ptr(), params.rc.data_ptr(), params.n_types,
+        params.kappa_c.data_ptr(),
         params.eps_c.data_ptr(), box.lo.data_ptr(), box.hi.data_ptr(),
         f.data_ptr(), dcdt.data_ptr(), vir_rows.data_ptr(),
         nx, ny, nz, cfg.capacity, xr, ns, int(not cfg.wrap_at_rebuild),
@@ -461,6 +394,16 @@ def _pair_hashes(tag, step: int, seed: int, rng_mode: str, rounds: int):
                                              rounds=rounds)
 
 
+def classic_fmag(w, ev, theta, a, gamma, s, s_exp: float):
+    """The classic kernels' force magnitude of in-range pairs: w = 1 - r/rc,
+    ev = e.v, s = sigma / sqrt(dt); with s_exp != 1 the dissipative and
+    random weights take w^s_exp, the conservative one keeps w."""
+    if s_exp == 1.0:
+        return w * (a - (gamma * w) * ev + s * theta)
+    wr = torch.pow(torch.clamp(w, min=0.0), s_exp)
+    return a * w - gamma * (wr * wr) * ev + s * wr * theta
+
+
 def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
                            params: DPDParams, dt: float, cfg: CellConfig,
                            rng_mode: str = "fast", rng_rounds: int = 8,
@@ -509,11 +452,7 @@ def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
         else:
             theta = rngmod.pair_uniform_tea(ident[row], ident[src], step,
                                             params.seed, rounds=rng_rounds)
-        if s_exp == 1.0:
-            fmag = w * (a - (gamma * w) * ev + s * theta)
-        else:
-            wr = torch.pow(torch.clamp(w, min=0.0), s_exp)
-            fmag = a * w - gamma * (wr * wr) * ev + s * wr * theta
+        fmag = classic_fmag(w, ev, theta, a, gamma, s, s_exp)
         if params.excl is not None:
             fmag = fmag * special_weight(tag[row], tag[src], params)
         fr = fmag * rinv
@@ -525,26 +464,47 @@ def bucket_forces_v3_plain(x, v, tag, mask, box: Box, step: int,
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _type_pairs(params, typ, row, src, d, r2):
+    """With more than one type: the pairs inside their own rc_ij, and the
+    table index of each (typ_i * T + typ_j). With one type: everything, and
+    index 0."""
+    nt = params.n_types
+    if nt == 1:
+        return row, src, d, r2, 0
+    if typ is None:
+        raise ValueError("a multi-type table needs typ")
+    p = typ[row].long() * nt + typ[src].long()
+    rc = params.rc.reshape(-1)[p]
+    keep = r2 < rc * rc
+    return (row[keep], src[keep], [dc[keep] for dc in d], r2[keep],
+            p[keep])
+
+
 def bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box: Box, step: int,
                                 params, dt: float, cfg: CellConfig,
-                                rng_mode: str = "fast", rng_rounds: int = 8):
+                                rng_mode: str = "fast", rng_rounds: int = 8,
+                                typ=None):
     """The same function as the eDPD CUDA kernel, in plain torch: the
-    ``_stencil_pairs`` walk, then ``ops.edpd.edpd_pair`` on the in-range
-    pairs. Returns (f, dTdt, virial)."""
+    ``_stencil_pairs`` walk out to the largest rc, then
+    ``ops.edpd.edpd_pair`` on the pairs inside their own rc_ij, with the
+    pair's coefficients. Returns (f, dTdt, virial). ``typ`` is needed with
+    more than one type."""
     nr = x.shape[0]
     dev = x.device
     pair_hash = _pair_hashes(tag, step, params.seed, rng_mode, rng_rounds)
-    rc = params.rc[0, 0]
+    tabs = [getattr(params, n).reshape(-1) for n in ("a", "gamma", "rc",
+                                                     "kappa")]
     f = torch.zeros((nr, 3), dtype=torch.float32, device=dev)
     q = torch.zeros((nr,), dtype=torch.float32, device=dev)
     vir = torch.zeros((nr,), dtype=torch.float32, device=dev)
-    for row, src, d, _ in _stencil_pairs(x, mask, box, cfg, rc * rc):
+    for pair in _stencil_pairs(x, mask, box, cfg, torch.max(tabs[2]) ** 2):
+        row, src, d, _, p = _type_pairs(params, typ, *pair)
         theta, zeta = edpdmod.noises_from_hash(pair_hash(row, src),
                                                tag[row], tag[src])
         f_p, q_p, vir_p = edpdmod.edpd_pair(
             torch.stack(d, -1), v[row] - v[src], t[row], t[src], theta,
-            zeta, params.a[0, 0], params.gamma[0, 0], rc,
-            params.kappa[0, 0], params.mass, 1.0 / math.sqrt(dt))
+            zeta, *(tab[p] for tab in tabs), params.mass,
+            1.0 / math.sqrt(dt))
         f.index_add_(0, row, f_p)
         q.index_add_(0, row, q_p)
         vir.index_add_(0, row, vir_p)
@@ -553,27 +513,31 @@ def bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box: Box, step: int,
 
 def bucket_forces_v3_tdpd_plain(x, v, c, tag, mask, box: Box, step: int,
                                 params, dt: float, cfg: CellConfig,
-                                rng_mode: str = "fast", rng_rounds: int = 8):
+                                rng_mode: str = "fast", rng_rounds: int = 8,
+                                typ=None):
     """The same function as the tDPD CUDA kernel, in plain torch: the
-    ``_stencil_pairs`` walk, then ``ops.dpd.pair_force`` and
-    ``ops.tdpd.tdpd_flux`` on the in-range pairs. Returns
-    (f, dCdt (nr, S), virial)."""
+    ``_stencil_pairs`` walk out to the largest rc, then
+    ``ops.dpd.pair_force`` and ``ops.tdpd.tdpd_flux`` on the pairs inside
+    their own rc_ij, with the pair's coefficients. Returns
+    (f, dCdt (nr, S), virial). ``typ`` is needed with more than one type."""
     nr = x.shape[0]
     dev = x.device
     ns = params.n_species
     pair_hash = _pair_hashes(tag, step, params.seed, rng_mode, rng_rounds)
-    rc = params.rc[0, 0]
+    tabs = [getattr(params, n).reshape(-1) for n in ("a", "gamma", "sigma",
+                                                     "rc")]
     dt_inv_sqrt = 1.0 / math.sqrt(dt)
     f = torch.zeros((nr, 3), dtype=torch.float32, device=dev)
     q = torch.zeros((nr, ns), dtype=torch.float32, device=dev)
     vir = torch.zeros((nr,), dtype=torch.float32, device=dev)
-    for row, src, d, _ in _stencil_pairs(x, mask, box, cfg, rc * rc):
+    for pair in _stencil_pairs(x, mask, box, cfg, torch.max(tabs[3]) ** 2):
+        row, src, d, _, p = _type_pairs(params, typ, *pair)
         dr = torch.stack(d, -1)
         theta, xi = tdpdmod.noises_from_hash(pair_hash(row, src), tag[row],
                                              tag[src], ns)
-        f_p, vir_p = pair_force(dr, v[row] - v[src], theta, params.a[0, 0],
-                                params.gamma[0, 0], params.sigma[0, 0], rc,
-                                dt_inv_sqrt, params.s_exp)
+        f_p, vir_p = pair_force(dr, v[row] - v[src], theta,
+                                *(tab[p] for tab in tabs), dt_inv_sqrt,
+                                params.s_exp)
         q_p = tdpdmod.tdpd_flux(dr, c[row], c[src], xi, params.kappa_c,
                                 params.eps_c, params.rcc, params.s1,
                                 dt_inv_sqrt, True)

@@ -10,7 +10,11 @@ along x; the fundamental mode decays exponentially and the total
 concentration is conserved exactly.
 
 Both builders size the bucket capacity from the density and raise it where
-their random start needs more (``core.system.fit_capacity``).
+their random start needs more (``core.system.fit_capacity``). Spill buckets
+come with force_path "pallas" only, as in the JAX package; ``pair_kernel``
+(a port-only argument; the JAX builders leave it at "v3") picks the
+"pallas" kernel before the set-up force evaluation: "v3" (K2, K3) or "v2"
+(the fused selector K5).
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ def edpd_slab(l: float = 8.0, density: float = 3.0, kt: float = 1.0,
               t_cold: float = 0.8, slab_w: float = 1.0, dt: float = 0.01,
               seed: int = 331, init_seed: int = 3,
               force_path: str = "dense", skin: float = 0.3,
-              device="cuda") -> tuple[System, SystemParams, State]:
+              device="cuda", pair_kernel: str = "v3"
+              ) -> tuple[System, SystemParams, State]:
     """Hot slab at x in [0, w), cold slab at [L/2, L/2 + w): two
     half-channels by periodicity. Returns (system, params, state), forces
     set, on ``device`` (the card unless the caller asks for another)."""
@@ -85,7 +90,8 @@ def edpd_slab(l: float = 8.0, density: float = 3.0, kt: float = 1.0,
     system = System.for_fluid([l] * 3, rc=rc, density=density, dt=dt,
                               spill=force_path == "pallas",
                               skin=skin, rng_mode="fast")
-    system = system.replace(model="edpd", force_path=force_path, fixes=(fix,))
+    system = system.replace(model="edpd", force_path=force_path, fixes=(fix,),
+                            pair_kernel=pair_kernel)
     system = fit_capacity(system, state)
     return system, params, setup(system, params, state)
 
@@ -96,7 +102,8 @@ def tdpd_diffusion(l: float = 8.0, density: float = 3.0, kt: float = 1.0,
                    rcc: float = 1.0, dt: float = 0.01, seed: int = 441,
                    init_seed: int = 4, force_path: str = "dense",
                    skin: float = 0.3, profile: str = "cosine",
-                   device="cuda") -> tuple[System, SystemParams, State]:
+                   device="cuda", pair_kernel: str = "v3"
+                   ) -> tuple[System, SystemParams, State]:
     """Single-species tDPD with an initial cosine concentration mode along
     x (``profile="step"``: 1.5 below L/2, 0.5 above). Returns (system,
     params, state), forces set, on ``device`` (the card by default)."""
@@ -114,6 +121,7 @@ def tdpd_diffusion(l: float = 8.0, density: float = 3.0, kt: float = 1.0,
     system = System.for_fluid([l] * 3, rc=rc, density=density, dt=dt,
                               spill=force_path == "pallas",
                               skin=skin, rng_mode="fast")
-    system = system.replace(model="tdpd", force_path=force_path)
+    system = system.replace(model="tdpd", force_path=force_path,
+                            pair_kernel=pair_kernel)
     system = fit_capacity(system, state)
     return system, params, setup(system, params, state)

@@ -81,6 +81,12 @@ class TDPDParams:
         object (the bucket kernel checks rcc against it at every call)."""
         return float(self.rc.max())
 
+    @functools.cached_property
+    def rc_min(self) -> float:
+        """Smallest momentum cutoff, read once per params object (the
+        bucket kernels refuse rcc above it with more than one type)."""
+        return float(self.rc.min())
+
     def to(self, device) -> "TDPDParams":
         return dataclasses.replace(
             self, **{name: getattr(self, name).to(device) for name in

@@ -15,7 +15,8 @@ from meso_tpu_torch import bridge
 from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.core.state import create_random
 from meso_tpu_torch.core.system import System, SystemParams, make_step, setup
-from meso_tpu_torch.kernels import _build
+from meso_tpu_torch.kernels import (_brick, _build, pair_dpd,
+                                    pair_dpd_fused, pair_multiphysics)
 from meso_tpu_torch.kernels.pair_dpd_v3 import (
     LAUNCHES, bucket_forces_pallas_v3, bucket_forces_pallas_v3_edpd,
     bucket_forces_pallas_v3_tdpd, particle_hash_v3, uniform_stream_v3)
@@ -32,7 +33,11 @@ REPO = Path(__file__).resolve().parents[1]
 MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.core.system", "meso_tpu_torch.core.rng",
            "meso_tpu_torch.kernels.pair_dpd_v3",
-           "meso_tpu_torch.kernels._build",
+           "meso_tpu_torch.kernels._build", "meso_tpu_torch.kernels._brick",
+           "meso_tpu_torch.kernels.common",
+           "meso_tpu_torch.kernels.pair_dpd_fused",
+           "meso_tpu_torch.kernels.pair_dpd",
+           "meso_tpu_torch.kernels.pair_multiphysics",
            "meso_tpu_torch.neighbor.bucket_layout",
            "meso_tpu_torch.neighbor.nlist", "meso_tpu_torch.models.classic",
            "meso_tpu_torch.models.transport", "meso_tpu_torch.obs.thermo",
@@ -135,7 +140,8 @@ def test_wall_and_bonded_builders_default_to_the_card(builder, kw):
 
 def test_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "meso_tpu_torch"
-    assert [p.name for p in _build.sources()] == ["pair_dpd_v3.cu",
+    assert [p.name for p in _build.sources()] == ["pair_brick.cu",
+                                                  "pair_dpd_v3.cu",
                                                   "pair_transport_v3.cu"]
     assert [p.name for p in _build.headers()] == ["dpd_common.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -154,16 +160,8 @@ def test_build_hash_covers_headers(monkeypatch, tmp_path):
     assert _build.library_path("nvcc") != before
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(model="edpd", force_path="bucket"), "Queue 1 item 13"),
-    (dict(model="tdpd", force_path="pallas_banded"), "K7"),
-    (dict(force_path="nlist", wrap_mode="step"), "Queue 1 item 13"),
-    (dict(force_path="bucket"), "Queue 1 item 13"),
-    (dict(force_path="pallas_banded"), "K6"),
-    (dict(pair_kernel="v2"), "K5"),
-    (dict(model="edpd", pair_kernel="v2"), "K5"),
-])
-def test_unported_paths_raise(change, match):
+def _system_case(change):
+    """A 648-particle CPU start and a system of ``change`` on it."""
     cfg = CellConfig.for_box([6.0] * 3, 1.0, 3.0, skin=0.4, rebuild_every=3,
                              wrap_at_rebuild=True)
     system = System(rng_mode="fast", force_path="pallas", wrap_mode="rebuild",
@@ -180,8 +178,93 @@ def test_unported_paths_raise(change, match):
     state = create_random(torch.Generator().manual_seed(0), 648, box,
                           n_species=int(system.model == "tdpd"),
                           with_energy=system.model == "edpd")
+    return system, params, state
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(model="edpd", force_path="bucket"), "Queue 1 item 13"),
+    (dict(force_path="nlist", wrap_mode="step"), "Queue 1 item 13"),
+    (dict(force_path="bucket"), "Queue 1 item 13"),
+])
+def test_unported_paths_raise(change, match):
+    system, params, state = _system_case(change)
     with pytest.raises(NotImplementedError, match=match):
         setup(system, params, state)
+
+
+SELECTORS = {
+    "v2-dpd": (dict(pair_kernel="v2"), pair_dpd_fused,
+               "bucket_forces_pallas_fused", "pair_fused_dpd"),
+    "v2-edpd": (dict(model="edpd", pair_kernel="v2"), pair_dpd_fused,
+                "bucket_forces_pallas_edpd_fused", "pair_fused_edpd"),
+    "v2-tdpd": (dict(model="tdpd", pair_kernel="v2"), pair_dpd_fused,
+                "bucket_forces_pallas_tdpd_fused", "pair_fused_tdpd"),
+    "banded-dpd": (dict(force_path="pallas_banded"), pair_dpd,
+                   "bucket_forces_pallas", "pair_banded_dpd"),
+    "banded-edpd": (dict(model="edpd", force_path="pallas_banded"),
+                    pair_multiphysics, "bucket_forces_pallas_edpd",
+                    "pair_banded_edpd"),
+    "banded-tdpd": (dict(model="tdpd", force_path="pallas_banded"),
+                    pair_multiphysics, "bucket_forces_pallas_tdpd",
+                    "pair_banded_tdpd"),
+}
+
+
+@pytest.mark.parametrize("selector", list(SELECTORS))
+def test_selectors_reach_their_entry_points(monkeypatch, selector):
+    """setup and a step of each ported selector call its own entry point
+    (the CPU runs its plain version, so the launch count stays 0)."""
+    change, module, entry, name = SELECTORS[selector]
+    system, params, state = _system_case(change)
+    if system.force_path == "pallas_banded":
+        system = system.replace(wrap_mode="step", cells=system.cells.replace(
+            wrap_at_rebuild=False))
+    calls = []
+    real = getattr(module, entry)
+
+    def spy(*a, **kw):
+        calls.append(entry)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(module, entry, spy)
+    state = setup(system, params, state)
+    state = make_step(system)(params, state)
+    assert calls == [entry, entry] and _brick.LAUNCHES[name] == 0
+    assert bool(torch.isfinite(state.f).all())
+
+
+@pytest.mark.parametrize("selector", list(SELECTORS))
+def test_selector_wrappers_without_nvcc_raise(monkeypatch, selector):
+    """The new entry points on a non-CPU tensor with no kernel library and
+    no compiler raise; none falls back to its plain version."""
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("CUDA_PATH", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setattr(torch.utils.cpp_extension, "CUDA_HOME", None)
+    _build.load_library.cache_clear()
+    change, module, entry, name = SELECTORS[selector]
+    system, _, st = _meta_case()
+    cells = system.cells.replace(spill=False, wrap_at_rebuild=False)
+    n = st.n
+    model = change.get("model", "dpd")
+    if model == "dpd":
+        pair, field = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                                      seed=1).to("meta"), ()
+    elif model == "edpd":
+        pair = EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.0,
+                                cv=10.0, seed=1).to("meta")
+        field = (torch.ones(n, device="meta"),)
+    else:
+        pair = TDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                                kappa_c=[1.0], eps_c=[0.1], rcc=1.0,
+                                seed=1).to("meta")
+        pair.__dict__["rc_max"] = 1.0   # a meta table cannot be read
+        field = (torch.ones((n, 1), device="meta"),)
+    before = dict(_brick.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(module, entry)(st.x, st.v, *field, st.typ, st.tag, st.mask,
+                               st.box, 1, pair, 0.01, cells)
+    assert _brick.LAUNCHES == before
 
 
 def test_wrap_mode_rebuild_needs_bucket_path():

@@ -174,23 +174,13 @@ def test_rcc_above_rc_raises():
         _port_forces("tdpd", bst, cfg, "fast", params)
 
 
-@pytest.mark.parametrize("case", ["edpd-multitype", "tdpd-multitype",
-                                  "tdpd-species", "tdpd-s_exp"])
+@pytest.mark.parametrize("case", ["tdpd-s_exp"])
 def test_unported_transport_cases_raise(case):
+    """K3 refuses s_exp != 1 (ROADMAP Queue 3, R8): every JAX tDPD kernel
+    takes s_exp = 1 whatever the parameters say, its dense oracle applies
+    them. Multi-type tables and more than eight species are ported
+    (tests/test_torch_transport_multitype.py)."""
     bst, cfg = _bucket_case(True, True)
-    model = case.split("-")[0]
-    if case == "edpd-multitype":
-        params = EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.5,
-                                  cv=10.0, seed=7, n_types=2)
-    elif case == "tdpd-multitype":
-        params = TDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
-                                  kappa_c=[1.0, 0.5], eps_c=[0.1, 0.05],
-                                  rcc=0.8, seed=5, n_types=2)
-    elif case == "tdpd-species":
-        params = TDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
-                                  kappa_c=[1.0] * 9, eps_c=[0.1] * 9,
-                                  rcc=0.8, seed=5)
-    else:
-        params = bridge.tdpd_params_from(J_TDPD).replace(s_exp=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_forces(model, bst, cfg, "fast", params)
+    params = bridge.tdpd_params_from(J_TDPD).replace(s_exp=0.5)
+    with pytest.raises(ValueError, match="R8"):
+        _port_forces("tdpd", bst, cfg, "fast", params)
