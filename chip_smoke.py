@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of meso_tpu_torch on one NVIDIA card (built for the H100).
 
-    python3 chip_smoke.py [--kernels-only | --decay-from FILE]
+    python3 chip_smoke.py [--kernels-only | --dd-only | --decay-from FILE]
 
 Phases, one line of output each (any failure raises and exits non-zero):
 
@@ -81,15 +81,37 @@ Phases, one line of output each (any failure raises and exits non-zero):
 17. banded-physics: the eDPD slab gate and the tDPD decay from one start
    at deck size through force_path "pallas_banded";
 18. profile: torch.profiler over 10 chunks of each 1M path (the six new
-   ones included), device time per kernel and the card's busy share.
+   ones included), device time per kernel and the card's busy share;
+19. dd-kernels-l8: the halo kernels of the 1-D domain decomposition, K4
+   (pair_halo_dpd/_edpd/_tdpd) and K6-halo (pair_halo_banded_dpd), all on
+   csrc/pair_brick.cu, against their plain versions at l=8 on
+   halo-extended bricks: fast and TEA, spill (K4) and strict, ext ("x",),
+   ("x", "y") and ("x", "y", "z"), the edge and interior calls of the border/inner
+   split, K5-K7's type, s_exp, exclusion and species cases;
+20. dd-ring-of-one: the classic 1M start as one rank in-process, halos
+   from its own far side: one force evaluation against the single-card
+   K5, and 15 steps by tag against the single-card path;
+21. dd-paths: two ranks sharing the card (gloo, halos staged through host
+   memory), 25 of the 50 cell columns each, five paths at 1,029,000
+   particles from their builders' starts after the single-card
+   equilibration: classic through K4 with the border/inner split, classic
+   through K6-halo on strict buckets, eDPD and tDPD through K4, and the
+   FENE polymer with special bonds and bonded ghost rows; each path's
+   kernel first on rank 0's extended planes against its plain version
+   (dd-kernels-l70), then the run with its gates, the ranks' launch counts
+   summed, and torch.profiler on rank 0 (its busy share and its idle time
+   inside the host-staged exchanges). Two ranks on one card give no
+   scaling figure.
 
 Phases 9, 10, 14 and 15 run after phase 5, phases 11-13 and 16-17 after
-phase 8. ``--kernels-only`` stops after phase 15. ``--decay-from FILE`` runs only
+phase 8, phases 20-21 after 17. ``--kernels-only`` stops after phase 19;
+``--dd-only`` runs phases 1, 2 and 19-21. ``--decay-from FILE`` runs only
 the tDPD decay from the JAX package's starts in FILE, against the JAX
 rates stored beside them (see phase_decay_from).
 
 Launch counts are set to 0 just before each path (6, each model of 8, each
-path of 13 and 16, and phase 17) is driven and read just after. The last three lines are the kernels' JSON
+path of 13 and 16, phase 17, and each rank of each path of 21) is driven
+and read just after. The last three lines are the kernels' JSON
 record, the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Every number is also written to
 build/chip_smoke.json.
@@ -420,11 +442,12 @@ def transport_fns(model):
             else (lambda bst: bst.C[:, :1].contiguous()))
 
 
-def compare_transport(got, want, mask, min_image, label):
+def compare_transport(got, want, mask, min_image, label, species_sum=True):
     """K2/K3 against a reference (f, flux, virial) with the JAX transport
     tests' bounds: f 2e-5 (5e-5 without min-image), flux 5e-5, virial 1e-4
     (1e-3), pad rows exactly 0, and per-species sum of dC/dt over max
-    |dC/dt| below 5e-5 (tDPD)."""
+    |dC/dt| below 5e-5 (tDPD, where ``species_sum``: not on a halo brick,
+    whose fluxes to halo rows belong to other ranks)."""
     import torch
     (f_k, q_k, vir_k), (f_p, q_p, vir_p) = got, want
     rel = ((f_k - f_p)[mask].abs().max() / f_p[mask].abs().max()).item()
@@ -435,7 +458,7 @@ def compare_transport(got, want, mask, min_image, label):
            if bool((~mask).any()) else 0.0)
     vrel = abs(vir_k.item() - vir_p.item()) / abs(vir_p.item())
     qsum = (q_k[mask].sum(0).abs().max().item() / q_scale
-            if q_k.ndim == 2 else 0.0)
+            if q_k.ndim == 2 and species_sum else 0.0)
     tol, vtol = (2e-5, 1e-4) if min_image else (5e-5, 1e-3)
     finite = bool(torch.isfinite(f_k).all() and torch.isfinite(q_k).all())
     if not (finite and rel < tol and qrel < 5e-5 and pad == 0.0
@@ -1274,10 +1297,10 @@ def polymer_path():
     return deferred_wrap(system), params, state
 
 
-def general_params(n, two_types=True, s_exp=0.5, excl=True):
+def general_params(n, two_types=True, s_exp=0.5, excl=True, weight=0.25):
     """K1's general case as kernels-general-l8 checks it: two types with an
     asymmetric a table and rc_01 = 0.8 < rc = 1, s_exp, and exclusions
-    (E = 2, weight 0.25) along random chains of 8 tags among 1..n."""
+    (E = 2, ``weight``) along random chains of 8 tags among 1..n."""
     import numpy as np
     import torch
     from meso_tpu_torch.ops.dpd import DPDParams, build_exclusions
@@ -1292,7 +1315,7 @@ def general_params(n, two_types=True, s_exp=0.5, excl=True):
         perm = np.random.RandomState(0).permutation(n) + 1
         bonds = np.asarray([(perm[i], perm[i + 1]) for i in range(n - 1)
                             if (i + 1) % 8], np.int32)
-        ex, w = build_exclusions(bonds, n, weight=0.25, max_excl=2,
+        ex, w = build_exclusions(bonds, n, weight=weight, max_excl=2,
                                  device=DEVICE)
         p = p.replace(excl=ex, excl_w=w)
     return p
@@ -2094,6 +2117,745 @@ def phase_banded_physics():
     return res
 
 
+# ---------------------------------------------------------------------------
+# the 1-D domain decomposition (parallel/domain.py): K4, K6-halo, the ring of
+# one and two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# the halo entry points by launch counter: (module, function, model)
+HALO_KERNELS = {
+    "pair_halo_dpd": ("pair_dpd_fused", "halo_forces_pallas_fused", "dpd"),
+    "pair_halo_edpd": ("pair_dpd_fused", "halo_forces_pallas_model_fused",
+                       "edpd"),
+    "pair_halo_tdpd": ("pair_dpd_fused", "halo_forces_pallas_model_fused",
+                       "tdpd"),
+    "pair_halo_banded_dpd": ("pair_dpd", "halo_forces_pallas_1d", "dpd")}
+HALO_REPLACES = {"pair_halo_dpd": "meso_tpu/kernels/pair_dpd_fused.py:457",
+                 "pair_halo_edpd": "meso_tpu/kernels/pair_dpd_fused.py:457",
+                 "pair_halo_tdpd": "meso_tpu/kernels/pair_dpd_fused.py:457",
+                 "pair_halo_banded_dpd": "meso_tpu/kernels/pair_dpd.py:370"}
+DD_RANKS = 2
+# The two-rank paths start from their builder's state after the steps of
+# DD_PRE_STEPS on one card (the single-card paths' equilibration: the
+# random start's Poisson occupancy would otherwise ask the slabs for K=22
+# to 26, and its heat would leave kT 1% high for 1,000 steps), then run
+# 50 equilibration steps, 100 timed ones and rounds of 200 traced ones
+# (kT and momentum after each chunk; the classic and banded paths repeat
+# rounds until their kT average has 10 effective samples, which took the
+# single-card classic path 4,800 steps), rebuilding every 2 steps (the
+# transport paths' cadence; the classic single-card path's 3 leaves a skin
+# ratio near 1), and a profiled window on rank 0
+DD_EVERY = 2
+DD_PRE_STEPS = {"classic": 400, "banded": 400, "edpd": 300, "tdpd": 300,
+                "polymer": 300}
+DD_EQUIL_CHUNKS, DD_TIMED_CHUNKS, DD_TRACE_CHUNKS = 25, 50, 100
+DD_MAX_TRACE_ROUNDS, DD_PROFILE_CHUNKS = 30, 10
+DD_RING1_STEPS = 15
+# slots the spill slabs take beyond the least capacity that places the
+# start: their last column has no right neighbour to spill into
+DD_EXTRA_SLOTS = 2
+DD_SPAWN_TIMEOUT_S, DD_OP_TIMEOUT_S = 600.0, 120.0
+
+
+def halo_planes(bst, cfg, ext, targets):
+    """Halo-extended channel planes cut from a global bucket state, as the
+    ring exchange hands them to the halo kernels: ``targets`` cells from
+    cell 0 on each axis in ``ext`` with their halo layers (x: the
+    half-window; y, z: one) taken across the periodic boundary, their
+    coordinates shifted by -L there; the other axes whole. Returns (planes
+    with typ, T and C0.. of the state where present, the target
+    CellConfig, the valid target rows)."""
+    import torch
+    from meso_tpu_torch.ops.sweep import make_channels
+    nx, ny, nz = cfg.ncell
+    extra = {}
+    if bst.T is not None:
+        extra["T"] = bst.T
+    if bst.C is not None:
+        extra.update({f"C{s}": bst.C[:, s] for s in range(bst.C.shape[1])})
+    ch = make_channels(bst.x, bst.v, bst.tag, bst.mask, None, extra,
+                       cfg.ncell, cfg.capacity)
+    ch["typ"] = bst.typ.reshape(ch["tag"].shape)
+    xr = 2 if cfg.spill else 1
+    lens = bst.box.lengths
+    cuts = {}
+    for axis, dim, name, wide in ((0, 1, "y", 1), (1, 2, "z", 1),
+                                  (3, 0, "x", xr)):
+        if name in ext:
+            idx = torch.arange(-wide, targets[dim] + wide, device=bst.device)
+            cuts[axis] = (idx % cfg.ncell[dim], idx < 0, dim, name)
+    planes = {}
+    for key, p in ch.items():
+        for axis, (idx, wrapped, dim, name) in cuts.items():
+            p = p.index_select(axis, idx)
+            if key == name:
+                shape = [1] * 4
+                shape[axis] = -1
+                p = p - lens[dim] * wrapped.reshape(shape).to(p.dtype)
+        planes[key] = p.contiguous()
+    tcells = tuple(targets[d] if "xyz"[d] in ext else cfg.ncell[d]
+                   for d in range(3))
+    oy, oz = int("y" in ext), int("z" in ext)
+    ox = xr if "x" in ext else 0
+    valid = planes["valid"][oy:oy + tcells[1], oz:oz + tcells[2], :,
+                            ox:ox + tcells[0]] > 0
+    return planes, cfg.replace(ncell=tcells), valid.reshape(-1)
+
+
+def run_halo(name, plain, planes, box, step, params, dt, cfg, ext=("x",),
+             rng_mode="fast"):
+    """One call of a halo entry point (``name``: its launch counter) in its
+    own argument order, or (``plain``) of its plain version,
+    ``_brick.halo_forces_plain``, on the same planes. Returns (f, virial)
+    or (f, flux, virial)."""
+    import importlib
+    from meso_tpu_torch.kernels._brick import halo_forces_plain
+    mod, fn, model = HALO_KERNELS[name]
+    ns = params.n_species if model == "tdpd" else 0
+    n_excl = 0 if getattr(params, "excl", None) is None \
+        else params.excl.shape[1]
+    if plain:
+        fields = (("T",) if model == "edpd" else
+                  tuple(f"C{s}" for s in range(ns)))
+        out = halo_forces_plain(
+            model, planes, box, step, params, dt, cfg, ext, rng_mode, 8,
+            fields=fields if model != "dpd" else (), n_excl=n_excl)
+        return (out[0], out[2]) if model == "dpd" else out
+    entry = getattr(importlib.import_module(
+        f"meso_tpu_torch.kernels.{mod}"), fn)
+    kw = dict(rng_mode=rng_mode, n_types=params.n_types)
+    if name == "pair_halo_dpd":
+        kw.update(ext=ext, s_exp=params.s_exp, n_excl=n_excl)
+    elif model != "dpd":
+        kw.update(ext=ext, model=model, ns=ns)
+    return entry(planes, box, step, params, dt, cfg, **kw)
+
+
+def compare_halo(name, got, want, valid, label):
+    """A halo kernel against its plain version: the kernel gate (forces
+    2e-5 of max |f|, virial 1e-4, pad rows 0) and, for eDPD and tDPD, the
+    flux bound (5e-5). Per-species sums are not held: the fluxes to halo
+    rows belong to the neighbouring ranks."""
+    if HALO_KERNELS[name][2] == "dpd":
+        err, rel, vrel = compare_forces(*got, *want, valid, True, label)
+        return {"max_abs_err": err, "rel": rel, "virial_rel": vrel}
+    return compare_transport(got, want, valid, True, label,
+                             species_sum=False)
+
+
+def with_excl(planes, params):
+    """The planes with the exclusion tags of each row's particle."""
+    from meso_tpu_torch.kernels._brick import exclusion_rows
+    if getattr(params, "excl", None) is None:
+        return planes
+    tag = planes["tag"]
+    ex = exclusion_rows(tag.reshape(-1), params)
+    return {**planes, **{f"EX{e}": ex[:, e].reshape(tag.shape).contiguous()
+                         for e in range(ex.shape[1])}}
+
+
+def with_hash(planes, step, seed):
+    """The planes with the per-particle hash "h" that the halo kernels read
+    in the fast RNG tier (the distributed path ships it through the
+    halo)."""
+    from meso_tpu_torch.kernels.pair_dpd_v3 import particle_hash_v3
+    tag = planes["tag"]
+    return {**planes, "h": particle_hash_v3(tag.reshape(-1).contiguous(),
+                                            step, seed).reshape(tag.shape)}
+
+
+def phase_dd_kernels():
+    """K4 (pair_halo_dpd/_edpd/_tdpd) and K6-halo (pair_halo_banded_dpd)
+    against their plain versions at l=8 on halo-extended bricks cut from a
+    moved bucket state: fast and TEA, spill (K4) and strict, ext ("x",)
+    with 3 target columns, with the edge calls' xr columns and the
+    interior call's whole local planes, ext ("x", "y") with 3 x 3 target
+    cells and ext ("x", "y", "z") with 3 x 3 x 3; classic with one type,
+    with K1's general case (two types, s_exp 0.5, exclusions; K6-halo
+    without exclusions) and in the polymer path's form (one type, two
+    exclusions a tag at weight 0.5), eDPD with one and two types, tDPD
+    with one, three (two types) and ten species."""
+    import torch
+    cases = selector_params()
+    cases["dpd"] = cases["dpd"] + [("1type-excl", general_params(
+        1536, two_types=False, s_exp=1.0, weight=0.5), False, 0)]
+    out = []
+    step = 42
+    for spill in (True, False):
+        bst0, cfg = bucket_case(8.0, 1536, spill, True)
+        bst0 = with_species(bst0)
+        bst2 = bst0.replace(typ=(bst0.tag % 2).to(torch.int32))
+        xr = 2 if spill else 1
+        nx = cfg.ncell[0]
+        cuts = [(("x",), (3, 0, 0)), (("x",), (xr, 0, 0)),
+                (("x", "y"), (3, 3, 0)), (("x", "y", "z"), (3, 3, 3))]
+        for rng_mode in ("fast", "tea"):
+            for ext, targets in cuts:
+                for model, mcases in cases.items():
+                    name = f"pair_halo_{model}"
+                    for label, p, two, ns in mcases:
+                        st = bst2 if two else bst0
+                        if ns:
+                            st = st.replace(C=st.C[:, :ns].contiguous())
+                        planes, tcfg, valid = halo_planes(st, cfg, ext,
+                                                          targets)
+                        planes = with_hash(with_excl(planes, p), step,
+                                           p.seed)
+                        args = (planes, st.box, step, p, 0.01, tcfg, ext,
+                                rng_mode)
+                        got = run_halo(name, False, *args)
+                        torch.cuda.synchronize()
+                        want = run_halo(name, True, *args)
+                        case = (f"{name} {label} {rng_mode} spill={spill} "
+                                f"ext={''.join(ext)} targets={targets}")
+                        out.append({"case": case, **compare_halo(
+                            name, got, want, valid, case)})
+            # the interior call of the border/inner split: the local
+            # planes alone, nx - 2 xr target columns
+            p = cases["dpd"][0][1]
+            planes, _, _ = halo_planes(bst0, cfg, (), (0, 0, 0))
+            planes = with_hash(planes, step, p.seed)
+            icfg = cfg.replace(ncell=(nx - 2 * xr,) + cfg.ncell[1:])
+            valid = planes["valid"][..., xr:nx - xr].reshape(-1) > 0
+            args = (planes, bst0.box, step, p, 0.01, icfg, ("x",), rng_mode)
+            got = run_halo("pair_halo_dpd", False, *args)
+            want = run_halo("pair_halo_dpd", True, *args)
+            case = f"pair_halo_dpd interior {rng_mode} spill={spill}"
+            out.append({"case": case, **compare_halo(
+                "pair_halo_dpd", got, want, valid, case)})
+            if spill:
+                continue
+            p_types = general_params(1536, excl=False)
+            for label, p, st in (("1type", p, bst0),
+                                 ("2types-s_exp", p_types, bst2)):
+                planes, tcfg, valid = halo_planes(st, cfg, ("x",),
+                                                  (3, 0, 0))
+                planes = with_hash(planes, step, p.seed)
+                args = (planes, st.box, step, p, 0.01, tcfg, ("x",),
+                        rng_mode)
+                got = run_halo("pair_halo_banded_dpd", False, *args)
+                want = run_halo("pair_halo_banded_dpd", True, *args)
+                case = f"pair_halo_banded_dpd {label} {rng_mode}"
+                out.append({"case": case, **compare_halo(
+                    "pair_halo_banded_dpd", got, want, valid, case)})
+    say("dd-kernels-l8", cases=len(out),
+        worst_rel=max(c["rel"] for c in out),
+        worst_flux_rel=max(c.get("flux_rel", 0.0) for c in out),
+        worst_virial_rel=max(c["virial_rel"] for c in out))
+    return {"l8": out}
+
+
+def dd_path(label):
+    """A two-rank path's global start on the card, at set-up, built as its
+    single-card path is but with the box wrapped every step (migration
+    reads wrapped positions; K4 takes the minimum image) and a rebuild
+    every DD_EVERY steps: classic (config 1, spill K=16, K4 with the
+    border/inner split), banded (strict buckets, K6-halo), eDPD and tDPD
+    (their builders' spill buckets, K4's model form) and polymer (3,200
+    FENE chains of 16 with special bonds, K4 with exclusions and the
+    bonded ghost rows). The start is the builder's after DD_PRE_STEPS of
+    its single-card path. Returns (system, params, state); ``dd_domain``
+    fits the slabs' capacity."""
+    from meso_tpu_torch.models.classic import classic_fluid
+    from meso_tpu_torch.models.polymer import polymer_melt
+    kw = dict(skin=SKIN, device=DEVICE)
+    if label in ("classic", "banded"):
+        system, params, state = classic_fluid(
+            l=L_MAIN, rng_mode="fast", rebuild="sort", wrap_mode="step",
+            force_path="pallas_banded" if label == "banded" else "pallas",
+            pair_kernel="v2", rebuild_every=DD_EVERY, **kw)
+        system = system.replace(lam=LAM)
+    elif label == "polymer":
+        system, params, state = polymer_melt(
+            l=L_MAIN, n_chains=POLYMER_CHAINS, chain_len=POLYMER_CHAIN_LEN,
+            special_weight=0.5, force_path="pallas", rng_mode="fast",
+            dt=0.01, **kw)
+    else:
+        system, params, state = transport_path(label, "v2")
+    state, _ = advance(system, params, state, DD_PRE_STEPS[label], DD_EVERY)
+    return system.replace(dd_overlap=True), params, state
+
+
+def dd_domain(system, state, n_dev):
+    """(system, DomainConfig) of ``n_dev`` slabs for this start, with the
+    least capacity from the builder's own up that places it
+    (``fit_slab_capacity``), and on spill buckets DD_EXTRA_SLOTS more: a
+    spill slab's last column cannot spill into its first."""
+    from meso_tpu_torch.parallel import build_domain
+    from meso_tpu_torch.parallel.domain import fit_slab_capacity
+    cells = fit_slab_capacity(system, state, n_dev, L_MAIN).cells
+    if cells.spill:
+        cells = cells.replace(capacity=cells.capacity + DD_EXTRA_SLOTS)
+    system = system.replace(cells=cells)
+    return system, build_domain(system, n_dev, lx_global=L_MAIN,
+                                rebuild_every=DD_EVERY)
+
+
+def dd_kernel_of(label):
+    return {"classic": "pair_halo_dpd", "banded": "pair_halo_banded_dpd",
+            "edpd": "pair_halo_edpd", "tdpd": "pair_halo_tdpd",
+            "polymer": "pair_halo_dpd"}[label]
+
+
+def rank0_planes(system, params, slabs, dcfg, step):
+    """Rank 0's extended planes at P = 2, as the ring hands them over:
+    [rank 1's last xr columns (x shifted by -L) | rank 0's slab | rank 1's
+    first xr columns], with the fields, types, exclusion tags and the hash
+    that the path's kernel reads."""
+    import torch
+    from meso_tpu_torch.ops.sweep import make_channels
+    cfg = dcfg.cells
+    xr = 2 if cfg.spill else 1
+
+    def chans(st):
+        extra = {}
+        if st.T is not None:
+            extra["T"] = st.T
+        if st.C is not None:
+            extra.update({f"C{s}": st.C[:, s] for s in range(st.C.shape[1])})
+        ch = make_channels(st.x, st.v, st.tag, st.mask, None, extra,
+                           cfg.ncell, cfg.capacity)
+        if params.pair.n_types > 1:
+            ch["typ"] = st.typ.reshape(ch["tag"].shape)
+        return ch
+
+    c0, c1 = chans(slabs[0]), chans(slabs[1])
+    planes = {}
+    for nm in c0:
+        hl = c1[nm][..., -xr:]
+        if nm == "x":
+            hl = hl - dcfg.lx_global
+        planes[nm] = torch.cat([hl, c0[nm], c1[nm][..., :xr]],
+                               dim=-1).contiguous()
+    planes = with_excl(planes, params.pair)
+    if system.rng_mode == "fast":
+        planes = with_hash(planes, step, params.pair.seed)
+    valid = c0["valid"].reshape(-1) > 0
+    return planes, valid
+
+
+def halo_bound(name, planes, got, params, n_rc):
+    """(bound_ms, bound_by) of a halo kernel on these planes (row_bound):
+    the valid plane of every row of the extended brick, and the per-row
+    inputs (x, v, tag, and the hash, the field, typ and exclusion tags
+    where the call reads them) of its valid rows, read once; f and the
+    flux written once over every target row, and the one virial; the
+    in-range pairs' operations."""
+    import torch
+    model = HALO_KERNELS[name][2]
+    valid = planes["valid"].reshape(-1) > 0
+    per_row = [torch.stack([planes[c].reshape(-1) for c in
+                            ("x", "y", "z", "vx", "vy", "vz")], -1),
+               planes["tag"].reshape(-1)]
+    for c in sorted(planes):
+        if c == "h" or c == "typ" or c == "T" or c.startswith("C") \
+                or c.startswith("EX"):
+            per_row.append(planes[c].reshape(-1))
+    outs = [got[0]] + ([got[1]] if len(got) == 3 else [])
+    if model == "tdpd":
+        ops = (TDPD_OPS_PER_PAIR + TDPD_OPS_PER_RCC_PAIR
+               + TDPD_OPS_PER_SPECIES * params.n_species) * n_rc
+    else:
+        e = 0 if getattr(params, "excl", None) is None \
+            else params.excl.shape[1]
+        ops = (BRICK_OPS[model] + OPS_PER_EXCL_SLOT * e) * n_rc
+    return row_bound(valid, per_row, outs, ops, virial=True)
+
+
+def halo_pair_count(planes, params, box, cfg, ext):
+    """Ordered pairs inside rc_ij that these planes give the halo kernel:
+    the plain version's own walk over the same brick."""
+    import torch
+    from meso_tpu_torch.kernels import _brick
+    xr = 2 if cfg.spill else 1
+    brick = _brick.halo_brick(planes, cfg, xr, ext, (), None,
+                              params.n_types > 1, 0, idtype=torch.int64)
+    ib = brick.ib.reshape(brick.ib.shape[0], -1)
+    rc = params.rc.reshape(-1)
+    n = 0
+    for _, tb, sb, _, r2 in _brick._brick_pairs(brick, cfg, box,
+                                                torch.max(rc) ** 2):
+        if params.n_types > 1:
+            p = ib[brick.ch_typ, tb] * params.n_types + ib[brick.ch_typ, sb]
+            n += int((r2 < rc[p] * rc[p]).sum())
+        else:
+            n += int(r2.numel())
+    return n
+
+
+def dd_kernel_check(label, system, params, state, slabs, dcfg):
+    """The path's kernel (K4 or K6-halo) on its own inputs: rank 0's
+    extended planes (``rank0_planes``: exclusion tags and hash included)
+    of the two-rank split of its start, in one call over the slab (25 of
+    50 columns), against the plain version, with its time through the
+    wrapper, the plain time and the bound. On a K4 path also the
+    border/inner split that the path runs (``domain._split_calls``: the
+    interior call and both edge calls, stitched along x), held against the
+    plain version's same three calls and against the one call, and
+    timed."""
+    import torch
+    from meso_tpu_torch.parallel.comm import Pending
+    from meso_tpu_torch.parallel.domain import _split_calls
+    planes, valid = rank0_planes(system, params, slabs, dcfg, 1)
+    name = dd_kernel_of(label)
+    p, cfg, box = params.pair, dcfg.cells, state.box
+    args = (planes, box, 1, p, system.dt, cfg)
+    got = run_halo(name, False, *args)
+    torch.cuda.synchronize()
+    want = run_halo(name, True, *args)
+    rec = compare_halo(name, got, want, valid, f"{label} rank 0")
+    n_rc = halo_pair_count(planes, p, box, cfg, ("x",))
+    rec.update(
+        kernel=name, path=label, rows=int(valid.numel()),
+        valid_rows=int(valid.sum()), capacity=cfg.capacity,
+        spill=cfg.spill, n_excl=0 if getattr(p, "excl", None) is None
+        else p.excl.shape[1],
+        pairs_in_rc=n_rc,
+        ms=timed_ms(lambda: run_halo(name, False, *args), 20),
+        plain_ms=timed_ms(lambda: run_halo(name, True, *args), 3))
+    rec["bound_ms"], rec["bound_by"] = halo_bound(name, planes, got, p, n_rc)
+    if name != "pair_halo_banded_dpd":
+        xr = 2 if cfg.spill else 1
+        nx = cfg.ncell[0]
+        local = {k: t[..., xr:xr + nx] for k, t in planes.items()}
+        halos = ({k: t[..., :xr] for k, t in planes.items()},
+                 {k: t[..., xr + nx:] for k, t in planes.items()})
+
+        def split(plain):
+            return _split_calls(
+                lambda ch, c_cfg: run_halo(name, plain, ch, box, 1, p,
+                                           system.dt, c_cfg),
+                local, cfg, xr, Pending(lambda: halos), True)
+
+        got_s = split(False)
+        torch.cuda.synchronize()
+        want_s = split(True)
+        vs_plain = compare_halo(name, got_s, want_s, valid,
+                                f"{label} rank 0 split")
+        vs_one = compare_halo(name, got_s, got, valid,
+                              f"{label} rank 0 split against one call")
+        rec.update(split={"vs_plain": vs_plain, "vs_one_call": vs_one,
+                          "ms": timed_ms(lambda: split(False), 20)})
+    say(f"dd-kernels-l70-{label}", **rec)
+    return rec
+
+
+def phase_dd_ring_of_one():
+    """The classic 1M start as one rank, in-process (``Ring.single()``),
+    halos from its own far side: one force evaluation through K4 (the
+    border/inner split) against the single-card K5 on the same positions,
+    within the kernel gate, by tag; then DD_RING1_STEPS steps, a rebuild
+    every step (so the comparison misses no pair), by tag against the
+    single-card path through K5 at the same cadence: x < 2e-4, v < 2e-3."""
+    import torch
+    from meso_tpu_torch.core.system import run_bucket_chunked
+    from meso_tpu_torch.kernels.pair_dpd_fused import \
+        bucket_forces_pallas_fused
+    from meso_tpu_torch.parallel import (Ring, distribute_state,
+                                         run_distributed)
+    from meso_tpu_torch.parallel.domain import _halo_forces_pallas
+    single, params, state = dd_path("classic")
+    system, dcfg = dd_domain(single, state, 1)
+    dcfg = dcfg.__class__(**{**dcfg.__dict__, "rebuild_every": 1})
+    (slab,) = distribute_state(state, dcfg, device=DEVICE)
+    ring = Ring.single()
+    reset_launches()
+    f_dd, vir_dd = _halo_forces_pallas(slab, system, params, dcfg, ring, 1,
+                                       slab.x, slab.v)
+    launches_force = read_launches()
+    f_k5, vir_k5 = bucket_forces_pallas_fused(
+        state.x, state.v, state.typ, state.tag, state.mask, state.box, 1,
+        params.pair, single.dt, single.cells, rng_mode="fast",
+        s_exp=single.s_exp)
+    f_a, f_b = by_tag(slab, f_dd), by_tag(state, f_k5)
+    err = float((f_a - f_b).abs().max())
+    rel = err / float(f_b.abs().max())
+    vrel = abs(float(vir_dd) - float(vir_k5)) / abs(float(vir_k5))
+    pad = float(f_dd[~slab.mask].abs().max())
+    reset_launches()
+    out, diag = run_distributed(system, params, slab, DD_RING1_STEPS, ring,
+                                dcfg)
+    launches_dd = read_launches()
+    ref, d_ref = run_bucket_chunked(single, params, state, DD_RING1_STEPS, 1,
+                                    thermo_trace=False)
+    dx = float((by_tag(out, out.x) - by_tag(ref, ref.x)).abs().max())
+    dv = float((by_tag(out, out.v) - by_tag(ref, ref.v)).abs().max())
+    res = {"n_particles": int(state.n_valid()), "rows": slab.n,
+           "ncx_local": dcfg.ncx_local, "capacity": dcfg.cells.capacity,
+           "force_max_abs_err": err, "force_rel": rel, "virial_rel": vrel,
+           "pad_max": pad, "launches_one_evaluation":
+               {k: n for k, n in launches_force.items() if n},
+           "steps": DD_RING1_STEPS, "x_max_diff": dx, "v_max_diff": dv,
+           "overflow": int(diag["overflow"]),
+           "worst_skin_ratio": float(diag["worst_skin_ratio"]),
+           "single_worst_skin_ratio": float(d_ref["worst_skin_ratio"]),
+           "launches": {k: n for k, n in launches_dd.items() if n}}
+    say("dd-ring-of-one", **res)
+    checks = {
+        "one evaluation within the kernel gate":
+            rel < 2e-5 and vrel < 1e-4 and pad == 0.0,
+        "three K4 launches (interior and two edges)":
+            launches_force["pair_halo_dpd"] == 3
+            and sum(pair_launches(launches_force).values()) == 3,
+        "x within 2e-4, v within 2e-3 by tag": dx < 2e-4 and dv < 2e-3,
+        "overflow == 0": res["overflow"] == 0,
+        "worst_skin_ratio < 1": res["worst_skin_ratio"] < 1.0,
+        "every step's forces through K4":
+            launches_dd["pair_halo_dpd"] == 3 * DD_RING1_STEPS and sum(
+                pair_launches(launches_dd).values())
+            == 3 * DD_RING1_STEPS}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dd-ring-of-one failed: {failed}")
+    return res
+
+
+def dd_observe(ring, system, params, state, dcfg, label, chunks):
+    """What a two-rank path runs after ``launch.slab_run``'s warm-up and
+    timed chunks: rounds of ``chunks["trace"]`` traced chunks (kT and total
+    momentum summed over the ring after each; the classic and banded
+    paths repeat rounds, at most ``chunks["rounds"]``, until their kT
+    average has MIN_N_EFF effective samples), then ``chunks["profile"]``
+    chunks under torch.profiler on rank 0. Returns (the state, the traces,
+    the traced chunks' worst diag, the chunks run here and the profile's
+    numbers)."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch.parallel import run_distributed
+    res = {"kts": [], "moms": []}
+    traced = []
+    for _ in range(chunks["rounds"]):
+        for _ in range(chunks["trace"]):
+            state, d = run_distributed(system, params, state, 1, ring, dcfg)
+            traced.append(d)
+            m = state.mask
+            mass = params.mass[state.typ.long()]
+            mv = torch.where(m[:, None], mass[:, None] * state.v, 0.0)
+            tot = ring.all_sum(torch.stack([
+                torch.sum(mv * state.v), torch.sum(m.to(torch.float32)),
+                *torch.sum(mv, 0)]).to(torch.float64))
+            res["kts"].append(float(tot[0] / (3.0 * (tot[1] - 1.0))))
+            res["moms"].append([float(t) for t in tot[2:5]])
+        if label not in ("classic", "banded") or kt_stats(
+                np.asarray(res["kts"]))[2] >= MIN_N_EFF:
+            break
+    res["traced_diag"] = {k: max(float(d[k]) for d in traced)
+                          for k in traced[0]}
+    res["observed_chunks"] = len(traced) + chunks["profile"]
+    if chunks["profile"]:
+        res["profile"] = dd_profiled_chunks(
+            ring, system, params, state, dcfg, chunks["profile"],
+            state.device.type == "cuda")
+        state = res["profile"].pop("state")
+    return state, res
+
+
+def dd_profiled_chunks(ring, system, params, state, dcfg, nchunks, cuda):
+    """``nchunks`` chunks, under torch.profiler on rank 0 (rank 1 runs
+    them unprofiled): the card's busy share of the window's wall time as
+    rank 0's kernels fill it (rank 1's kernels run in their own process
+    and are not seen), the pair kernel's device time and launches, and the
+    host time spent in the ring exchanges ("ring_exchange" spans) with
+    the part of it in which none of rank 0's kernels ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from meso_tpu_torch.parallel import run_distributed
+    steps = nchunks * dcfg.rebuild_every
+    if ring.rank != 0:
+        state, _ = run_distributed(system, params, state, nchunks, ring,
+                                   dcfg)
+        return {"state": state}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = run_distributed(system, params, state, nchunks, ring,
+                                   dcfg)
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # the "ring_exchange" annotation shows on the device's timeline too;
+    # it is no kernel
+    kernels = {k: v for k, v in device_times(prof, steps).items()
+               if k != "ring_exchange"}
+    busy = sum(ms for ms, _ in kernels.values())
+    pair = [(ms, c) for k, (ms, c) in kernels.items() if "pair_brick" in k]
+    spans, intervals = [], []
+    cuda_t = torch.autograd.DeviceType.CUDA
+    for e in prof.events():
+        if e.name == "ring_exchange":
+            if e.device_type != cuda_t:
+                spans.append((e.time_range.start, e.time_range.end))
+        elif e.device_type == cuda_t:
+            intervals.append((e.time_range.start, e.time_range.end))
+    intervals.sort()
+    union = []
+    for s, t in intervals:
+        if union and s <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], t)
+        else:
+            union.append([s, t])
+    in_span = idle = 0.0
+    for s, t in spans:
+        covered = sum(max(0.0, min(t, b) - max(s, a)) for a, b in union)
+        in_span += t - s
+        idle += t - s - covered
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"state": state, "steps": steps,
+            "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": busy,
+            "busy_share": busy * steps / wall_ms,
+            "pair_kernel_ms_per_step": sum(ms for ms, _ in pair),
+            "pair_kernel_launches_per_step":
+                sum(c for _, c in pair) / steps,
+            "exchanges_per_step": len(spans) / steps,
+            "exchange_host_ms_per_step": in_span / 1e3 / steps,
+            "idle_in_exchange_ms_per_step": idle / 1e3 / steps,
+            "top": [{"kernel": k, "ms_per_step": ms, "calls": c}
+                    for k, (ms, c) in top]}
+
+
+def phase_dd_paths():
+    """Two ranks sharing one card (gloo, host-staged halos), each holding
+    25 of the 50 cell columns: classic (K4 with the border/inner split),
+    banded (K6-halo, strict buckets), eDPD and tDPD (K4's model form) and
+    polymer (K4 with exclusions, bonded ghost rows). The parent builds the
+    kernel library and each path's start, distributes it, checks the
+    path's kernel on rank 0's inputs (``dd_kernel_check``), and spawns the
+    two ranks once for all paths (``launch.slab_runs``: warm-up, timed
+    chunks, then ``dd_observe``); the ranks only load the library. Gates
+    on each path: overflow 0, bonded_missing 0, N conserved and tags
+    unique, the state finite, the worst skin ratio (over both ranks) below
+    1 after equilibration, every force evaluation through K4 or K6-halo by
+    the ranks' launch counts summed here, and the single-card path's
+    physics gates. Times are of two ranks sharing one card: not a scaling
+    figure."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch.kernels import _build
+    from meso_tpu_torch.obs import total_momentum
+    from meso_tpu_torch.parallel import (collect_state, distribute_state,
+                                         launch)
+    _build.build()
+    labels = ("classic", "banded", "edpd", "tdpd", "polymer")
+    jobs, starts = [], {}
+    kernels = {}
+    for label in labels:
+        system, params, state = dd_path(label)
+        system, dcfg = dd_domain(system, state, DD_RANKS)
+        slabs = distribute_state(state, dcfg, device=DEVICE)
+        kernels[label] = dd_kernel_check(label, system, params, state, slabs,
+                                         dcfg)
+        mass = params.mass[state.typ.long()]
+        starts[label] = {
+            "n": int(state.n_valid()),
+            "c_sum": float(torch.sum(state.C[state.mask]))
+            if state.C is not None else None,
+            "momentum": total_momentum(state.v, mass, state.mask).cpu()}
+        jobs.append(dict(
+            system=system, params=launch.params_on(params, "cpu"),
+            states=[launch.on_device(s, "cpu") for s in slabs], dcfg=dcfg,
+            nchunks=DD_TIMED_CHUNKS, warmup=DD_EQUIL_CHUNKS,
+            then=dd_observe, then_args=(label, dict(
+                trace=DD_TRACE_CHUNKS, rounds=DD_MAX_TRACE_ROUNDS,
+                profile=DD_PROFILE_CHUNKS))))
+        del system, params, state, slabs
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(launch.slab_runs, DD_RANKS,
+                         ROOT / "build" / "dd_ranks",
+                         args=(jobs,), device=DEVICE,
+                         timeout_s=DD_SPAWN_TIMEOUT_S,
+                         op_timeout_s=DD_OP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    out, failures = {}, {}
+    for j, job in enumerate(jobs):
+        label, system, dcfg = labels[j], job["system"], job["dcfg"]
+        per = [r[j] for r in ranks]
+        final = collect_state([p["state"] for p in per])
+        launches = {k: sum(p["launches"][k] for p in per)
+                    for k in per[0]["launches"]}
+        steps = DD_EVERY * (job["warmup"] + job["nchunks"]
+                            + per[0]["observed_chunks"])
+        evals = DD_RANKS * steps
+        kernel = dd_kernel_of(label)
+        calls = 1 if kernel == "pair_halo_banded_dpd" else 3
+        timed_steps = job["nchunks"] * DD_EVERY
+        timed_s = max(p["seconds"] for p in per)
+        m = final.mask
+        tags = final.tag[m]
+        n = int(m.sum())
+        kts = np.asarray(per[0]["kts"])
+        diags = {"equil": per[0]["warmup_diag"], "timed": per[0]["diag"],
+                 "traced": per[0]["traced_diag"]}
+        res = {"path": label, "ranks": DD_RANKS, "n_particles": n,
+               "rows_per_rank": job["states"][0].n,
+               "ncx_local": dcfg.ncx_local, "capacity": dcfg.cells.capacity,
+               "spill": dcfg.cells.spill, "steps_per_rebuild": DD_EVERY,
+               "steps": steps, "timed_steps": timed_steps,
+               "ms_per_step_two_ranks_sharing_one_card":
+                   1e3 * timed_s / timed_steps,
+               "particle_steps_per_s": n * timed_steps / timed_s,
+               "diags": diags, "launches": launches,
+               "force_evaluations": evals, "kT_mean": float(kts.mean())}
+        checks = {
+            f"{kernel} launches == {calls} x force evaluations, no other "
+            "pair kernel": pair_launches(launches) == {
+                **{k: 0 for k in pair_launches(launches)},
+                kernel: calls * evals},
+            "one hash launch per force evaluation":
+                launches["particle_hash"] == evals,
+            "overflow == 0": all(d["overflow"] == 0 for d in diags.values()),
+            "bonded_missing == 0":
+                all(d["bonded_missing"] == 0 for d in diags.values()),
+            "worst_skin_ratio < 1 after equilibration": max(
+                diags[w]["worst_skin_ratio"] for w in ("timed", "traced"))
+            < 1.0,
+            "N conserved, tags unique": n == starts[label]["n"] and int(
+                torch.unique(tags).numel()) == n,
+            "state finite": all(bool(torch.isfinite(t).all())
+                                for t in (final.x, final.v, final.f))}
+        if label in ("classic", "banded"):
+            kt_mean, kt_sem, n_eff = kt_stats(kts)
+            res.update(kT_sem=kt_sem, kT_n_eff=n_eff)
+            checks["kT_n_eff >= 10"] = n_eff >= MIN_N_EFF
+            checks["|kT - 1| + 3 sigma <= 0.01"] = \
+                abs(kt_mean - 1.0) + 3 * kt_sem <= 0.01
+        elif label == "edpd":
+            t = final.T[m]
+            res["t_min"], res["t_max"] = float(t.min()), float(t.max())
+            checks["0.3 < T < 3"] = res["t_min"] > 0.3 and res["t_max"] < 3
+        elif label == "tdpd":
+            c0 = starts[label]["c_sum"]
+            res["c_rel_drift"] = abs(float(final.C[m].sum()) - c0) / abs(c0)
+            checks["sum C drift < 1e-4"] = res["c_rel_drift"] < 1e-4
+        else:
+            bl = bond_lengths(final, job["params"].bonded.bond_tags,
+                              system.n_tags)
+            p0 = starts[label]["momentum"].numpy()
+            drift = max(float(np.abs(np.asarray(p) - p0).max())
+                        for p in per[0]["moms"])
+            res.update(bond_max=float(bl.max()), bond_mean=float(bl.mean()),
+                       momentum_drift=drift)
+            checks.update({
+                "bond max < 1.45": res["bond_max"] < 1.45,
+                "0.30 < bond mean < 0.75": 0.30 < res["bond_mean"] < 0.75,
+                "momentum drift < 5e-2": drift < 5e-2,
+                "kT within 2% of 1": abs(res["kT_mean"] - 1.0) < 0.02})
+        if "profile" in per[0]:
+            res["profile_rank0"] = per[0]["profile"]
+        out[label] = res
+        say(f"dd-{label}", **res)
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            failures[label] = failed
+    if failures:
+        raise AssertionError(f"dd paths failed: {failures}")
+    out["spawn_s"] = spawn_s
+    return out, kernels
+
+
 def kernel_records(record):
     """The kernels' JSON record: every kernel of the ported paths, with its
     launches on the path that runs it (K1 and the hash: the classic main
@@ -2162,6 +2924,22 @@ def kernel_records(record):
                  "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                  "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                  "bound_by": rec["bound_by"], "library_ms": None})
+    # K4 and K6-halo, one row for each two-rank path: the numbers on its
+    # rank-0 inputs, the launches of both ranks on that path (K4 runs the
+    # classic path and, with exclusions, the polymer one: "pair_halo_dpd"
+    # and "pair_halo_dpd/polymer")
+    dk, dp = record["dd_kernels_l70"], record["dd_paths"]
+    for label in ("classic", "polymer", "banded", "edpd", "tdpd"):
+        name, rec = dd_kernel_of(label), dk[label]
+        rows.append(
+            {"name": name + ("/polymer" if label == "polymer" else ""),
+             "path": label, "route": "cuda",
+             "source": "meso_tpu_torch/csrc/pair_brick.cu",
+             "replaces": HALO_REPLACES[name],
+             "launches": dp[label]["launches"][name],
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": None})
     return {"kernels": rows}
 
 
@@ -2172,14 +2950,19 @@ def main(argv):
     if "--decay-from" in argv:
         record["decay_from"] = phase_decay_from(
             argv[argv.index("--decay-from") + 1])
-    else:
+    elif "--dd-only" not in argv:
         record["kernels"] = phase_kernels()
         record["transport_kernels"] = phase_transport_kernels()
         record["general_kernels"] = phase_general_kernels(
             record["kernels"]["l70"]["pair_ms"], info["card"])
         record["selector_kernels"] = phase_selector_kernels()
         record["selector_kernels_l70"] = phase_selector_kernels_l70()
-    if "--kernels-only" not in argv and "--decay-from" not in argv:
+    if "--decay-from" not in argv:
+        record["dd_kernels"] = phase_dd_kernels()
+    if "--dd-only" in argv:
+        record["dd_ring_of_one"] = phase_dd_ring_of_one()
+        record["dd_paths"], record["dd_kernels_l70"] = phase_dd_paths()
+    elif "--kernels-only" not in argv and "--decay-from" not in argv:
         record["main_path"] = phase_main_path()
         record["transport_physics"] = phase_transport_physics()
         record["transport_full"] = {m: phase_transport_full(m)
@@ -2195,13 +2978,15 @@ def main(argv):
                 record["selector_full"][f"{sel}-{model}"] = \
                     phase_transport_full(model, sel)
         record["banded_physics"] = phase_banded_physics()
+        record["dd_ring_of_one"] = phase_dd_ring_of_one()
+        record["dd_paths"], record["dd_kernels_l70"] = phase_dd_paths()
         record["profile"] = phase_profile(
             {p: record[f"{p}_full"]["steps_per_rebuild"]
              for p in ("walls", "polymer")})
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    if "--kernels-only" in argv or "--decay-from" in argv:
+    if set(argv) & {"--kernels-only", "--decay-from", "--dd-only"}:
         return 0
     print(json.dumps(kernel_records(record)), flush=True)
     print(info["card"], flush=True)

@@ -9,10 +9,11 @@ runs. This package never imports JAX.
 Ported so far: the classic-DPD main path — box, state, counter RNG, dense
 oracle, cell config, bucket layout and sort rebuild, the classic pair
 kernel (K1), the integrator, thermo observables, the step and the chunked
-run loop, and ``models.classic.classic_fluid`` — and the eDPD/tDPD
-transport path: their params and dense oracles, the T/C step updates, the
-transport fixes, ``models.transport.edpd_slab``/``tdpd_diffusion`` and the
-transport pair kernels (K2, K3). See ROADMAP.md for the rest.
+run loop, and ``models.classic.classic_fluid`` — the eDPD/tDPD transport
+path (K2, K3), the wall and bonded paths, the fused and banded kernel
+selectors (K5-K7), and the 1-D domain decomposition over
+torch.distributed (``parallel``, with the halo kernels K4 and K6-halo).
+See ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

@@ -74,6 +74,28 @@ def state_to_numpy(state: State) -> dict:
     return out
 
 
+def states_from_distributed(src, device=None) -> list[State]:
+    """The per-rank States of a JAX distributed state (the output of
+    ``meso_tpu.parallel.domain.distribute_state``: every array, the box's
+    and the step's included, carries a leading device axis)."""
+    box = _get_opt(src, "box")
+    box = src if box is None else box
+    lo, hi = np.asarray(_get(box, "lo")), np.asarray(_get(box, "hi"))
+    step = np.asarray(_get(src, "step"))
+    arrays = {name: np.asarray(a) for name in PER_PARTICLE
+              if (a := _get_opt(src, name)) is not None}
+    return [state_from({**{k: a[r] for k, a in arrays.items()},
+                        "lo": lo[r], "hi": hi[r], "step": step[r]}, device)
+            for r in range(lo.shape[0])]
+
+
+def states_to_numpy(states: list[State]) -> dict:
+    """Per-rank States as arrays with a leading device axis, as the JAX
+    package's distributed state holds them."""
+    per = [state_to_numpy(s) for s in states]
+    return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+
 def _opt_tensor(src, name, dtype, device):
     a = _get_opt(src, name)
     return None if a is None else _tensor(a, dtype, device)

@@ -68,8 +68,9 @@ class System:
     "v3_dynroll" (a TPU lowering choice) the Hopper kernels K1-K3, any
     other value the fused selector K5, as the JAX package routes it.
     ``z_chunks`` is a TPU lowering knob and is ignored. ``dd_overlap``
-    belongs to the domain-decomposed path (ROADMAP Queue 1 item 14) and is
-    ignored too."""
+    selects the border/inner split of the 1-D domain-decomposed step
+    (``parallel/domain.py``): the interior force launch is queued on the
+    card before the host waits on the halo exchange."""
 
     dt: float = 0.01
     lam: float = 0.5
@@ -193,11 +194,13 @@ def compute_forces(system: System, params: SystemParams, state: State,
 
 
 def _post_forces(system: System, params: SystemParams, state: State,
-                 x, v_tilde, f, image=None):
+                 x, v_tilde, f, skip_bonded: bool = False, image=None):
     """Bonded terms, then the post_force fix hooks. ``image`` must be the
     flags that go with ``x`` (the post-drift image1 in the step): the
-    membrane volume unwraps x with them."""
-    if system.bond_style is not None:
+    membrane volume unwraps x with them. ``skip_bonded``: the distributed
+    step computes the bonded terms itself over halo-extended rows
+    (``parallel/domain.py``) and needs only the fix hooks."""
+    if system.bond_style is not None and not skip_bonded:
         from meso_tpu_torch.ops.bonded import bonded_forces
         f = f + bonded_forces(x, state.tag, state.mask, state.box,
                               params.bonded, system.bond_style,

@@ -10,11 +10,15 @@
 //   bucket_forces_pallas (:233);
 // - K7, meso_tpu/kernels/pair_multiphysics.py::_kernel (line 40) through
 //   _call (:274), which backs bucket_forces_pallas_edpd (:213) and _tdpd
-//   (:241).
-// The three compute one function (the per-pair math of ops/dpd.pair_force,
+//   (:241);
+// and their halo forms on the 1-D domain decomposition:
+// - K4, pair_dpd_fused.py::_fused_kernel through _halo_call (:457), which
+//   backs halo_forces_pallas_fused (:567) and _model_fused (:628);
+// - K6-halo, pair_dpd.py::_kernel through halo_forces_pallas_1d (:370).
+// All compute one function (the per-pair math of ops/dpd.pair_force,
 // ops/edpd.py and ops/tdpd.py, min-image on every axis, per-type-pair
-// tables); K5 alone takes the spill layout's +-2 x-window, and K6 and K7 are
-// strict only (the wrappers refuse spill for them).
+// tables); K5 and K4 take the spill layout's +-2 x-window, and K6, K6-halo
+// and K7 are strict only (the wrappers refuse spill for them).
 //
 // Input: the brick. Every per-row quantity rides as a channel plane
 // (ny, nz, K, nx) of the bucket layout, padded by one cell on each side in
@@ -28,9 +32,13 @@
 // (cy + 1, cz + 1, slot, cx + xr); its stencil is the brick box
 // [cy, cy + 2] x [cz, cz + 2] x [cx, cx + 2 xr] with all K slots, so the
 // kernel never wraps an index. On one card the wrapper builds the pads as
-// the periodic copy (kernels/_brick.py); the distributed path (K4,
-// _halo_call, pair_dpd_fused.py:457) can hand in planes whose pads are halo
-// layers received from neighbouring ranks. Pad coordinates may be raw or
+// the periodic copy (kernels/_brick.py); on the distributed path (K4,
+// K6-halo) the pads of the decomposed axes are the halo layers received
+// from the neighbouring ranks (_brick.halo_brick), and nx counts the target
+// columns only: the interior call of the border/inner split passes the
+// local planes with nx - 2 xr targets, the edge calls xr, so nx may be
+// smaller than the 2 xr + 1 columns of the window. Nothing in the kernel
+// changed for that. Pad coordinates may be raw or
 // pre-shifted by a box length: the minimum image on every axis gives the
 // same dr either way, as in all three TPU kernels
 // (pair_dpd_fused.py:163-171, pair_dpd.py:158-166,

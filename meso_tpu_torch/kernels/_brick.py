@@ -1,18 +1,23 @@
 """The padded brick that the ``pair_brick`` CUDA kernels read, their launch,
-and the plain torch version of the function they compute
-(``brick_forces_plain``, the plain version of all six entry points below).
+and the plain torch version of the function they compute (``plain_brick``,
+under ``brick_forces_plain`` and ``halo_forces_plain``, the plain versions
+of all ten entry points).
 
-One kernel family (``csrc/pair_brick.cu``) serves three TPU selectors: the
-fused-lane kernel K5 (``kernels/pair_dpd_fused.py``) and the banded kernels
-K6 (``kernels/pair_dpd.py``) and K7 (``kernels/pair_multiphysics.py``). All
-three compute classic, eDPD or tDPD pair terms over the full stencil of a
+One kernel family (``csrc/pair_brick.cu``) serves five TPU kernels: the
+fused-lane kernel K5 (``kernels/pair_dpd_fused.py``), the banded kernels
+K6 (``kernels/pair_dpd.py``) and K7 (``kernels/pair_multiphysics.py``), and
+their halo forms on the distributed path, K4 (the fused kernel over a
+halo-extended brick) and K6-halo (the banded one over an x-extended slab).
+All compute classic, eDPD or tDPD pair terms over the full stencil of a
 bucket row, without Newton folding, with the minimum image on every axis.
 
 The brick: every per-row quantity as a channel plane (ny, nz, K, nx) of the
 bucket layout, padded by one cell on each side in y and z and by ``xr``
 cells on each side in x (2 for spill buckets, 1 for strict ones). On one
-card the pads are the periodic copy (``pad_brick``); a distributed caller
-can fill them with halo layers from its neighbours instead. Float channels
+card the pads are the periodic copy (``pad_brick``); on the distributed
+path the axes named in ``ext`` arrive extended by halo layers received
+from the neighbouring ranks and only the others take the periodic copy
+(``halo_brick``, as the JAX package's ``_halo_call``). Float channels
 (``fb``): x, y, z, vx, vy, vz, then T (eDPD) or the S species of C (tDPD).
 Integer channels (``ib``): tag, valid, then, where present, the
 per-particle hash (fast RNG tier), the type (more than one type) and the
@@ -31,12 +36,14 @@ from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.kernels import pair_dpd_v3 as v3
 from meso_tpu_torch.kernels.common import (check_cuda, half_window,
-                                           row_specs, tables, typ_spec)
+                                           halo_window, row_specs, tables,
+                                           typ_spec)
 from meso_tpu_torch.neighbor.bucket_layout import grid_shape, n_rows
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops import edpd as edpdmod
 from meso_tpu_torch.ops import tdpd as tdpdmod
 from meso_tpu_torch.ops.dpd import pair_force
+from meso_tpu_torch.ops.sweep import make_channels
 
 MODELS = {"dpd": 0, "edpd": 1, "tdpd": 2}
 # the (T, T) tables each model reads: a, gamma, its third coefficient, rc
@@ -46,10 +53,12 @@ TABLES = {"dpd": ("a", "gamma", "sigma", "rc"),
 _TAG, _VALID = 0, 1
 
 # Launch counts of each entry point's kernel (K5: pair_fused_*, K6:
-# pair_banded_dpd, K7: pair_banded_edpd/tdpd), raised by one at each launch
-# and nowhere else; the fast tier's hash counts in pair_dpd_v3.LAUNCHES.
-LAUNCHES = {f"pair_{sel}_{model}": 0 for sel in ("fused", "banded")
+# pair_banded_dpd, K7: pair_banded_edpd/tdpd, K4: pair_halo_*, K6-halo:
+# pair_halo_banded_dpd), raised by one at each launch and nowhere else; the
+# fast tier's hash counts in pair_dpd_v3.LAUNCHES.
+LAUNCHES = {f"pair_{sel}_{model}": 0 for sel in ("fused", "banded", "halo")
             for model in ("dpd", "edpd", "tdpd")}
+LAUNCHES["pair_halo_banded_dpd"] = 0
 
 
 def reset_launch_counts() -> None:
@@ -75,12 +84,18 @@ class Brick:
     n_excl: int = 0
 
 
-def pad_brick(planes: torch.Tensor, xr: int) -> torch.Tensor:
-    """(C, ny, nz, K, nx) planes -> (C, ny + 2, nz + 2, K, nx + 2 xr), the
-    pads being the periodic copy of the far side, values unshifted."""
-    p = torch.cat([planes[..., -xr:], planes, planes[..., :xr]], dim=4)
-    p = torch.cat([p[:, :, -1:], p, p[:, :, :1]], dim=2)
-    return torch.cat([p[:, -1:], p, p[:, :1]], dim=1).contiguous()
+def pad_brick(planes: torch.Tensor, xr: int, ext: tuple = ()) -> torch.Tensor:
+    """(C, ny_e, nz_e, K, nx_e) planes -> (C, ny + 2, nz + 2, K, nx + 2 xr):
+    each axis not named in ``ext`` takes the periodic copy of its far side
+    as pads (values unshifted); the axes in ``ext`` arrive padded."""
+    p = planes
+    if "x" not in ext:
+        p = torch.cat([p[..., -xr:], p, p[..., :xr]], dim=4)
+    if "z" not in ext:
+        p = torch.cat([p[:, :, -1:], p, p[:, :, :1]], dim=2)
+    if "y" not in ext:
+        p = torch.cat([p[:, -1:], p, p[:, :1]], dim=1)
+    return p.contiguous()
 
 
 def exclusion_rows(tag: torch.Tensor, params) -> torch.Tensor:
@@ -94,31 +109,111 @@ def exclusion_rows(tag: torch.Tensor, params) -> torch.Tensor:
 
 def build_brick(cfg: CellConfig, xr: int, x, v, tag, mask, field=None,
                 h=None, typ=None, ex=None, idtype=torch.int32) -> Brick:
-    """The brick of bucket rows: ``field`` is T (nr,) or C (nr, S), ``h``
-    the per-particle hash, ``typ`` the types, ``ex`` the (nr, E) exclusion
-    tags; each of the four is left out where None. Integer channels are
-    stored as ``idtype``."""
-    ny, nz, k, nx = grid_shape(cfg)
-    nr = x.shape[0]
-    fch = [x.t(), v.t()]
+    """The brick of bucket rows, every pad the periodic copy: ``halo_brick``
+    of their channel planes with no axis extended. ``field`` is T (nr,) or
+    C (nr, S), ``h`` the per-particle hash, ``typ`` the types, ``ex`` the
+    (nr, E) exclusion tags; each of the four is left out where None."""
+    extra = {}
     if field is not None:
-        fch.append(field.reshape(nr, -1).t())
-    fb = pad_brick(torch.cat(fch).reshape(-1, ny, nz, k, nx), xr)
-    ich = [tag.to(idtype), mask.to(idtype)]
-    ch = {}
-    for name, t in (("h", h), ("typ", typ)):
-        if t is not None:
-            ch[name] = len(ich)
-            ich.append(t.to(idtype))
-    n_excl = 0
+        extra.update({f"F{i}": c for i, c in
+                      enumerate(field.reshape(x.shape[0], -1).t())})
+    fields = tuple(extra)
+    if typ is not None:
+        extra["typ"] = typ
     if ex is not None:
-        ch["ex"] = len(ich)
-        n_excl = ex.shape[1]
-        ich += list(ex.t().to(idtype))
-    ib = pad_brick(torch.stack(ich).reshape(-1, ny, nz, k, nx), xr)
-    return Brick(fb=fb, ib=ib, xr=xr, ch_h=ch.get("h", -1),
-                 ch_typ=ch.get("typ", -1), ch_ex=ch.get("ex", -1),
-                 n_excl=n_excl)
+        extra.update({f"EX{e}": c for e, c in enumerate(ex.t())})
+    ch = make_channels(x, v, tag, mask, h, extra, cfg.ncell, cfg.capacity)
+    return halo_brick(ch, cfg, xr, (), fields, ch.get("h"), typ is not None,
+                      0 if ex is None else ex.shape[1], idtype)
+
+
+def halo_brick(channels: dict, cfg: CellConfig, xr: int, ext: tuple,
+               fields: tuple, h, typ: bool, n_excl: int,
+               idtype=torch.int32) -> Brick:
+    """The brick of halo-extended channel planes. ``channels`` maps names
+    to (ny_e, nz_e, K, nx_e) planes whose axes named in ``ext`` carry the
+    halo layers (x: ``xr`` columns a side, y and z: one layer); the other
+    axes take the periodic copy here. Float channels: x, y, z, vx, vy, vz
+    and ``fields`` (T, or C0 .. C{S-1}); integer ones: tag, valid (1 or 0
+    in any dtype), the hash ``h`` where given, typ where ``typ``, and
+    EX0 .. EX{n_excl-1}, each converted to ``idtype``."""
+    nx, ny, nz = cfg.ncell
+    shape = (ny + 2 * ("y" in ext), nz + 2 * ("z" in ext), cfg.capacity,
+             nx + 2 * xr * ("x" in ext))
+    fnames = ("x", "y", "z", "vx", "vy", "vz") + tuple(fields)
+    inames = ("tag", "valid") + (("typ",) if typ else ()) + tuple(
+        f"EX{e}" for e in range(n_excl))
+    planes = {n: channels[n] for n in fnames + inames}
+    if h is not None:
+        planes["h"] = h
+    for name, t in planes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"channel {name} has shape {tuple(t.shape)}; "
+                             f"ncell={cfg.ncell}, K={cfg.capacity} and "
+                             f"ext={ext} need {shape}")
+    fb = pad_brick(torch.stack([planes[n].to(torch.float32)
+                                for n in fnames]), xr, ext)
+    order = ["tag", "valid"] + (["h"] if h is not None else []) + list(
+        inames[2:])
+    ib = pad_brick(torch.stack([planes[n].to(idtype) for n in order]), xr,
+                   ext)
+    return Brick(fb=fb, ib=ib, xr=xr, ch_h=2 if h is not None else -1,
+                 ch_typ=order.index("typ") if typ else -1,
+                 ch_ex=order.index("EX0") if n_excl else -1, n_excl=n_excl)
+
+
+def halo_forces(model: str, name: str, channels: dict, box: Box, step: int,
+                params, dt: float, cfg: CellConfig, ext: tuple,
+                rng_mode: str, rng_rounds: int, fields: tuple = (),
+                n_excl: int = 0):
+    """A halo entry point's pair terms over the brick of halo-extended
+    planes (``halo_brick``), whose target cells are ``cfg.ncell``: on CPU
+    planes, and only there, ``halo_forces_plain``; on CUDA planes one
+    ``launch_brick`` counted under ``name``; on any other device it
+    raises. The fast tier reads the per-particle hash plane "h" of the
+    channels (the distributed step hashes its local rows once a step and
+    ships "h" with the halo, as the TPU's K6-halo does).
+    Returns (f (nr, 3), dT/dt, dC/dt or None, virial)."""
+    tag = channels["tag"]
+    if tag.device.type == "cpu":
+        return halo_forces_plain(model, channels, box, step, params, dt, cfg,
+                                 ext, rng_mode, rng_rounds, fields, n_excl)
+    xr = halo_window(cfg, ext, rng_mode)
+    lib = _build.load_library()
+    if tag.device.type != "cuda":
+        raise ValueError(f"channel tag is on {tag.device}; the halo "
+                         "kernels take CPU (plain version) or CUDA planes")
+    brick = _check_hash(halo_brick(channels, cfg, xr, ext, fields,
+                                 channels.get("h") if rng_mode == "fast"
+                                 else None, params.n_types > 1, n_excl),
+                      rng_mode)
+    return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
+                        rng_mode, rng_rounds)
+
+
+def halo_forces_plain(model: str, channels: dict, box: Box, step: int,
+                      params, dt: float, cfg: CellConfig, ext: tuple,
+                      rng_mode: str, rng_rounds: int, fields: tuple = (),
+                      n_excl: int = 0):
+    """The plain version of ``halo_forces``, on planes of any device: the
+    same brick with int64 integer channels, walked by ``plain_brick``."""
+    xr = halo_window(cfg, ext, rng_mode)
+    brick = _check_hash(halo_brick(channels, cfg, xr, ext, fields,
+                                 channels.get("h") if rng_mode == "fast"
+                                 else None, params.n_types > 1, n_excl,
+                                 idtype=torch.int64), rng_mode)
+    return plain_brick(model, brick, box, step, params, dt, cfg, rng_mode,
+                       rng_rounds)
+
+
+def _check_hash(brick: Brick, rng_mode: str) -> Brick:
+    """The brick, refused where the fast tier finds no hash plane "h" in
+    the halo channels (``rng.particle_hash`` of each row's tag at the
+    step, held as uint32 values)."""
+    if rng_mode == "fast" and brick.ch_h < 0:
+        raise ValueError("the fast RNG tier reads the per-particle hash "
+                         "plane 'h' among the halo channels")
+    return brick
 
 
 def _inputs(model: str, params, x, typ, tag, field):
@@ -143,41 +238,58 @@ def launch(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
     lib = _build.load_library()
     nr = n_rows(cfg)
     specs = {**row_specs(nr, x, v, tag, mask, box),
-             **typ_spec(params, nr, typ), **tables(params, TABLES[model])}
+             **typ_spec(params, nr, typ)}
     if model == "edpd":
         specs["t"] = (field, torch.float32, (nr,))
     elif model == "tdpd":
-        ns = params.n_species
-        specs.update(c=(field, torch.float32, (nr, ns)),
-                     kappa_c=(params.kappa_c, torch.float32, (ns,)),
-                     eps_c=(params.eps_c, torch.float32, (ns,)))
+        specs["c"] = (field, torch.float32, (nr, params.n_species))
     elif params.excl is not None:
-        specs.update(excl=(params.excl, torch.int32, None),
-                     excl_w=(params.excl_w, torch.float32, ()))
+        specs["excl"] = (params.excl, torch.int32, None)
     check_cuda(specs)
-    step_u = step & 0xFFFFFFFF
-    tea = rng_mode == "tea"
-    h = None if tea else v3.launch_hash(lib, tag, step_u, params.seed,
-                                        rng_rounds)
+    h = None if rng_mode == "tea" else v3.launch_hash(
+        lib, tag, step & 0xFFFFFFFF, params.seed, rng_rounds)
     fld, typ_b, ex = _inputs(model, params, x, typ, tag, field)
-    xr = half_window(cfg, rng_mode)
-    brick = build_brick(cfg, xr, x, v, tag, mask, field=fld, h=h, typ=typ_b,
-                        ex=ex)
-    dev = x.device
+    brick = build_brick(cfg, half_window(cfg, rng_mode), x, v, tag, mask,
+                        field=fld, h=h, typ=typ_b, ex=ex)
+    return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
+                        rng_mode, rng_rounds)
+
+
+def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
+                 step: int, params, dt: float, cfg: CellConfig,
+                 rng_mode: str, rng_rounds: int):
+    """One launch of pair_brick_kernel over a built brick on the card,
+    whose target cells are ``cfg.ncell``; adds one to ``LAUNCHES[name]``.
+    Returns (f (nr, 3), dT/dt, dC/dt or None, virial)."""
+    specs = {"fb": (brick.fb, torch.float32, None),
+             "ib": (brick.ib, torch.int32, None),
+             "box.lo": (box.lo, torch.float32, (3,)),
+             "box.hi": (box.hi, torch.float32, (3,)),
+             **tables(params, TABLES[model])}
+    tdpd = model == "tdpd"
+    if tdpd:
+        ns = params.n_species
+        specs.update(kappa_c=(params.kappa_c, torch.float32, (ns,)),
+                     eps_c=(params.eps_c, torch.float32, (ns,)))
+    elif model == "dpd" and brick.n_excl:
+        specs["excl_w"] = (params.excl_w, torch.float32, ())
+    check_cuda(specs)
+    nr = n_rows(cfg)
+    dev = brick.fb.device
     f = torch.empty((nr, 3), dtype=torch.float32, device=dev)
     vir = torch.empty((nr,), dtype=torch.float32, device=dev)
     extra = None
     if model == "edpd":
         extra = torch.empty((nr,), dtype=torch.float32, device=dev)
-    elif model == "tdpd":
+    elif tdpd:
         extra = torch.empty((nr, params.n_species), dtype=torch.float32,
                             device=dev)
     a, gamma, x3, rc = (getattr(params, n) for n in TABLES[model])
     nx, ny, nz = cfg.ncell
-    tdpd = model == "tdpd"
     excl_w = params.excl_w if model == "dpd" and brick.n_excl else None
     code = lib.meso_pair_brick(
-        MODELS[model], int(tea), brick.fb.data_ptr(), brick.ib.data_ptr(),
+        MODELS[model], int(rng_mode == "tea"), brick.fb.data_ptr(),
+        brick.ib.data_ptr(),
         box.lo.data_ptr(), box.hi.data_ptr(), a.data_ptr(), gamma.data_ptr(),
         x3.data_ptr(), rc.data_ptr(), params.n_types, brick.ch_h,
         brick.ch_typ, brick.ch_ex, brick.n_excl,
@@ -186,12 +298,12 @@ def launch(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
         params.kappa_c.data_ptr() if tdpd else None,
         params.eps_c.data_ptr() if tdpd else None, f.data_ptr(),
         None if extra is None else extra.data_ptr(), vir.data_ptr(),
-        nx, ny, nz, cfg.capacity, xr, 1.0 / math.sqrt(dt),
+        nx, ny, nz, cfg.capacity, brick.xr, 1.0 / math.sqrt(dt),
         getattr(params, "s_exp", 1.0),
         params.mass if model == "edpd" else 1.0,
         params.cv if model == "edpd" else 1.0,
         params.rcc if tdpd else 0.0, params.s1 if tdpd else 1.0,
-        step_u, params.seed, rng_rounds,
+        step & 0xFFFFFFFF, params.seed, rng_rounds,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "pair_brick")
     LAUNCHES[name] += 1
@@ -265,19 +377,29 @@ def brick_forces_plain(model: str, x, v, field, typ, tag, mask, box: Box,
                        step: int, params, dt: float, cfg: CellConfig,
                        rng_mode: str = "fast", rng_rounds: int = 8):
     """The pair_brick kernel's function in plain torch, from the same brick
-    (``build_brick``, integer channels in int64): the ``_brick_pairs`` walk
-    out to the table's largest rc, the pairs inside their own rc_ij, and
-    the model's pair terms (``ops.dpd``'s force with s_exp and the
-    special-bonds weight, ``ops.edpd.edpd_pair``, or ``ops.dpd.pair_force``
-    with ``ops.tdpd.tdpd_flux``), summed into their target rows. Returns
-    (f (nr, 3), dT/dt, dC/dt or None, virial)."""
-    nr = x.shape[0]
-    dev = x.device
+    (``build_brick``, integer channels in int64), walked by
+    ``plain_brick``. Returns (f (nr, 3), dT/dt, dC/dt or None, virial)."""
     fld, typ_b, ex = _inputs(model, params, x, typ, tag, field)
     h = (rngmod.particle_hash(tag, step, params.seed, rounds=rng_rounds)
          if rng_mode == "fast" else None)
     brick = build_brick(cfg, half_window(cfg, rng_mode), x, v, tag, mask,
                         field=fld, h=h, typ=typ_b, ex=ex, idtype=torch.int64)
+    return plain_brick(model, brick, box, step, params, dt, cfg, rng_mode,
+                       rng_rounds)
+
+
+def plain_brick(model: str, brick: Brick, box: Box, step: int, params,
+                dt: float, cfg: CellConfig, rng_mode: str = "fast",
+                rng_rounds: int = 8):
+    """The kernel's function over a built brick whose target cells are
+    ``cfg.ncell``: the ``_brick_pairs`` walk out to the table's largest
+    rc, the pairs inside their own rc_ij, and the model's pair terms
+    (``ops.dpd``'s force with s_exp and the special-bonds weight,
+    ``ops.edpd.edpd_pair``, or ``ops.dpd.pair_force`` with
+    ``ops.tdpd.tdpd_flux``), summed into their target rows. Returns
+    (f (nr, 3), dT/dt, dC/dt or None, virial)."""
+    nr = n_rows(cfg)
+    dev = brick.fb.device
     fbf = brick.fb.reshape(brick.fb.shape[0], -1)
     ibf = brick.ib.reshape(brick.ib.shape[0], -1)
     nt = params.n_types

@@ -2,7 +2,7 @@
 takes, and the specs of the CUDA inputs each launch validates.
 
 Used by ``kernels/pair_dpd_v3.py`` (K1-K3), ``kernels/_brick.py`` and the
-fused and banded selectors built on it (K5-K7). The refusals name their
+fused, banded and halo entry points built on it (K4-K7). The refusals name their
 entry in ROADMAP Queue 3 where the JAX package's kernels and its dense
 oracles disagree (R7, R8, R9): the port refuses such a case rather than
 copy either side.
@@ -34,24 +34,58 @@ def check_classic(params, cfg: CellConfig, rng_mode: str, s_exp: float,
                   debug_pairs: bool) -> tuple[int, bool]:
     """Returns the x half-window and whether the case needs K1's general
     variant (more than one type, s_exp != 1, exclusions, debug_pairs)."""
+    xr = half_window(cfg, rng_mode)
+    check_classic_params(params, s_exp)
+    general = (params.n_types != 1 or s_exp != 1.0
+               or params.excl is not None or debug_pairs)
+    return xr, general
+
+
+def check_classic_params(params, s_exp: float) -> None:
+    """The System's s_exp must be the parameters' own, and exclusions come
+    with their weight."""
     if s_exp != params.s_exp:
         raise ValueError(f"System.s_exp={s_exp} differs from the pair "
                          f"parameters' s_exp={params.s_exp}")
     if (params.excl is None) != (params.excl_w is None):
         raise ValueError("excl and excl_w come together")
-    general = (params.n_types != 1 or s_exp != 1.0
-               or params.excl is not None or debug_pairs)
-    return half_window(cfg, rng_mode), general
+
+
+def halo_window(cfg: CellConfig, ext: tuple, rng_mode: str) -> int:
+    """``half_window`` for a brick whose axes named in ``ext`` arrive
+    extended by halo layers (x by the half-window, y and z by one layer):
+    at least one target column, and an axis padded here with its own
+    periodic copy must hold enough cells that the window visits none
+    twice. Returns the x half-window."""
+    if rng_mode not in ("fast", "tea"):
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
+    if not set(ext) <= {"x", "y", "z"}:
+        raise ValueError(f"ext={ext} names an axis other than x, y, z")
+    xr = 2 if cfg.spill else 1
+    if cfg.spill and "x" not in ext:
+        raise NotImplementedError(
+            "the spill layout under domain decomposition needs the x axis "
+            "halo-extended (1-D slabs or x-decomposed bricks)")
+    for axis, n, need in zip("xyz", cfg.ncell, (2 * xr + 1, 3, 3)):
+        if n < 1 or (axis not in ext and n < need):
+            raise ValueError(
+                f"ncell={cfg.ncell} with ext={ext}: {axis} has {n} target "
+                f"cells, needs at least {1 if axis in ext else need}")
+    return xr
 
 
 def check_tdpd(params, cfg: CellConfig, rng_mode: str) -> int:
-    """Raise for what no tDPD pair kernel takes; return the x half-window.
+    """Raise for what no tDPD pair kernel takes; return the x half-window."""
+    xr = half_window(cfg, rng_mode)
+    check_tdpd_params(params)
+    return xr
 
-    Refused: s_exp != 1 (R8); rcc above the largest rc, which the stencil
+
+def check_tdpd_params(params) -> None:
+    """Refused: s_exp != 1 (R8); rcc above the largest rc, which the stencil
     would not cover; and rcc above the smallest rc_ij (R9), where the JAX
     package's tDPD kernels gate the flux on rc_ij as well as rcc, and its
     dense oracle on rcc alone."""
-    xr = half_window(cfg, rng_mode)
     if params.s_exp != 1.0:
         raise ValueError(
             f"tDPD with s_exp={params.s_exp} is refused (ROADMAP Queue 3, "
@@ -67,7 +101,6 @@ def check_tdpd(params, cfg: CellConfig, rng_mode: str) -> int:
             f"{params.rc_min} is refused (ROADMAP Queue 3, R9): the JAX "
             "package's tDPD kernels drop the flux of pairs with "
             "rc_ij <= r < rcc, and its dense oracle keeps it")
-    return xr
 
 
 def check_strict(cfg: CellConfig) -> None:

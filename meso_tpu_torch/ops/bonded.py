@@ -232,8 +232,8 @@ def bonded_forces_ext(x, tag, mask, box: Box, params: BondedParams,
     Single rank: every tag is present. ``owner_mask`` (the rows whose
     forces this rank owns) and ``reduce_sum`` (a sum of the per-molecule
     membrane scalars across ranks) belong to the domain-decomposed path
-    (ROADMAP Queue 1 item 14); they are accepted and applied as the JAX
-    package applies them. Returns (f (N, 3), missing)."""
+    (``parallel/domain.py``, over its local and ghost rows), applied as
+    the JAX package applies them. Returns (f (N, 3), missing)."""
     return _bonded(x, tag, mask, box, params, style, n_tags, n_mols, image,
                    owner_mask, reduce_sum, count_missing=True)
 

@@ -1,0 +1,615 @@
+"""1-D spatial domain decomposition over torch.distributed (port of
+``meso_tpu/parallel/domain.py``).
+
+Each rank owns a slab of the box along x as bucket-resident rows. Every
+step the boundary cell columns travel the ring (``comm.Ring``; one column
+a side for strict buckets, two for spill ones) with the x coordinates of
+the links across the periodic boundary pre-shifted by the box length, and
+the halo kernels K4 (``halo_forces_pallas_fused``,
+``halo_forces_pallas_model_fused``) or K6-halo (``halo_forces_pallas_1d``)
+take the local planes extended by them. On the rebuild cadence, rows whose
+x left the slab migrate to the ring neighbours through fixed-capacity
+buffers; overflow is counted, never hidden.
+
+As in the JAX package the counter-based pair RNG depends only on (tags,
+step, seed), so a trajectory does not depend on the decomposition, and the
+full-stencil kernels keep one writer per row, so ghost forces need no
+reverse path. Where JAX runs the ranks as one ``shard_map`` program, here
+each rank is a process (``parallel/launch.py``) that calls
+``run_distributed`` on its own slab; a ring of one rank runs in-process.
+The XLA sweep (force_path "bucket", ``_halo_forces``,
+``_halo_forces_model``) is not ported (ROADMAP Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from meso_tpu_torch.core.integrate import final_integrate, initial_integrate
+from meso_tpu_torch.core.state import State, zeros_state
+from meso_tpu_torch.core.system import (_FIT_EXTRA_SLOTS, System,
+                                        SystemParams, _move_mask, _per_type,
+                                        _post_forces)
+from meso_tpu_torch.kernels.common import check_strict
+from meso_tpu_torch.neighbor.bucket_layout import _place, n_rows, spill_assign
+from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
+from meso_tpu_torch.parallel.comm import Pending, Ring
+
+_SWEEP = ("the distributed XLA sweep (force_path 'bucket') is not ported yet "
+          "(ROADMAP Queue 1 item 13); use force_path 'pallas' or "
+          "'pallas_banded'")
+
+
+@dataclass(frozen=True)
+class DomainConfig:
+    """Static decomposition config (1-D slabs along x)."""
+
+    n_dev: int
+    cells: CellConfig          # LOCAL grid: (ncx_local, ny, nz), capacity K
+    lx_global: float           # global box length along x
+    cap_mig: int               # per-direction migration buffer capacity
+    rebuild_every: int = 5
+
+    @property
+    def ncx_local(self) -> int:
+        return self.cells.ncell[0]
+
+    @property
+    def slab_w(self) -> float:
+        return self.lx_global / self.n_dev
+
+
+def _f32(v) -> float:
+    """A Python float holding the float32 rounding of ``v``."""
+    return float(np.float32(v))
+
+
+# ---------------------------------------------------------------------------
+# local rebuild (slab frame)
+# ---------------------------------------------------------------------------
+
+def _rebuild_slab(state: State, cfg: CellConfig, slab_lo: float,
+                  side_x: float):
+    """rebuild_buckets with x-cells indexed relative to the slab origin.
+    Spill buckets spill right within the slab only (``wrap=False``): its
+    first and last columns sit in different x-windows, and the halo ships
+    only the boundary columns. Returns (state of n_rows(cfg) rows,
+    overflow)."""
+    nx, ny, nz = cfg.ncell
+    k = cfg.capacity
+    nr = ny * nz * k * nx
+    n_in = state.n
+    dev = state.device
+    x = state.x
+    lens = state.box.lengths
+    cx = torch.clamp(((x[:, 0] - slab_lo) / side_x).to(torch.int32), 0,
+                     nx - 1).to(torch.int64)
+    cy = torch.clamp((x[:, 1] / lens[1] * ny).to(torch.int32), 0,
+                     ny - 1).to(torch.int64)
+    cz = torch.clamp((x[:, 2] / lens[2] * nz).to(torch.int32), 0,
+                     nz - 1).to(torch.int64)
+    key = torch.where(state.mask, (cy * nz + cz) * nx + cx, nx * ny * nz)
+    key_s, order = torch.sort(key, stable=True)
+    valid_s = state.mask[order]
+    base = key_s // nx
+    cxs = key_s - base * nx
+    iota = torch.arange(n_in, dtype=torch.int64, device=dev)
+    if cfg.spill:
+        target, _, overflow = spill_assign(base, cxs, valid_s, n_in, nx, k,
+                                           ny * nz, wrap=False)
+    else:
+        starts = torch.searchsorted(
+            key_s, torch.arange(nx * ny * nz + 1, dtype=key_s.dtype,
+                                device=dev), side="left")
+        rank = iota - starts[torch.clamp(key_s, max=nx * ny * nz)]
+        fits = valid_s & (rank < k)
+        overflow = torch.sum(valid_s & (rank >= k))
+        target = (base * k + torch.clamp(rank, max=k - 1)) * nx + cxs
+        target = torch.where(fits, target, nr + iota)
+    # out-of-range targets write the trash slot nr, which is dropped
+    idx_map = torch.full((nr + 1,), -1, dtype=torch.int64, device=dev)
+    idx_map[torch.clamp(target, max=nr)] = iota
+    idx_map = idx_map[:nr]
+    return _place(state, order[torch.clamp(idx_map, min=0)], idx_map >= 0,
+                  nr), overflow
+
+
+# ---------------------------------------------------------------------------
+# migration (owner exchange on the ring)
+# ---------------------------------------------------------------------------
+
+_MIG_FIELDS = ["x", "v", "f", "tag", "typ", "image", "mol"]
+
+
+def _mig_fields(state: State):
+    return _MIG_FIELDS + [f for f in ("T", "dTdt", "C", "dCdt")
+                          if getattr(state, f) is not None]
+
+
+def _pack(state: State, sel, cap: int):
+    """Compact the selected rows into fixed-capacity buffers with a stable
+    sort (selected rows first, in their order). Returns (buffers by field
+    with "mask", rows that did not fit)."""
+    order = torch.sort((~sel).to(torch.uint8), stable=True).indices
+    take = order[:cap]
+    buf = {f: getattr(state, f)[take] for f in _mig_fields(state)}
+    buf["mask"] = sel[take]
+    return buf, torch.sum(sel) - torch.sum(buf["mask"])
+
+
+def _migrate(state: State, dcfg: DomainConfig, ring: Ring):
+    """Ship the rows whose x left the slab to the ring neighbours. Returns
+    the merged (nr + 2 cap_mig)-row state and the overflow counter: rows
+    beyond a buffer's capacity and rows more than one slab away."""
+    n = dcfg.n_dev
+    tgt = torch.clamp((state.x[:, 0] / dcfg.slab_w).to(torch.int32), 0,
+                      n - 1)
+    delta = torch.remainder(tgt - ring.rank, n)
+    go_right = state.mask & (delta == 1)
+    # n == 2: both neighbours are the same rank; all moves go right, so a
+    # crosser is shipped once. n == 1: nothing moves (the JAX package
+    # sends every row left to itself there and drops those beyond cap_mig:
+    # ROADMAP Queue 3, R10)
+    go_left = state.mask & (delta == n - 1) & (delta != 0) & ~go_right
+    too_far = state.mask & (delta != 0) & ~go_right & ~go_left
+    buf_r, of_r = _pack(state, go_right, dcfg.cap_mig)
+    buf_l, of_l = _pack(state, go_left, dcfg.cap_mig)
+    names = list(buf_r)
+    got = ring.exchange({1: [buf_r[f] for f in names],
+                         -1: [buf_l[f] for f in names]}).wait()
+    from_left, from_right = dict(zip(names, got[1])), dict(zip(names,
+                                                               got[-1]))
+    keep = state.mask & ~go_right & ~go_left & ~too_far
+    merged = state.replace(**{
+        f: torch.cat([keep if f == "mask" else getattr(state, f),
+                      from_left[f], from_right[f]]) for f in names})
+    return merged, of_r + of_l + torch.sum(too_far)
+
+
+# ---------------------------------------------------------------------------
+# halo exchange + force evaluation
+# ---------------------------------------------------------------------------
+
+def _halo_forces(state, system, params, dcfg, ring, step, x, v):
+    raise NotImplementedError(_SWEEP)
+
+
+def _halo_forces_model(state, system, params, dcfg, ring, step, x, v, t, c):
+    raise NotImplementedError(_SWEEP)
+
+
+def _halo_columns_1d(channels: dict, dcfg: DomainConfig, ring: Ring,
+                     width: int = 1) -> Pending:
+    """x-halo exchange of every channel on the ring, with the x of the
+    links across the periodic boundary shifted by the box length. ``width``
+    columns a side: 1 for strict buckets, 2 for spill ones (a slot-cell may
+    sit one column right of its true cell). Returns the exchange in flight,
+    whose ``wait()`` gives (halo_left, halo_right), so that the border/inner
+    split can queue the interior launch before the host waits."""
+    names = list(channels)
+    n = dcfg.n_dev
+    lx = _f32(dcfg.lx_global)
+
+    def shifted(got):
+        hl, hr = dict(zip(names, got[1])), dict(zip(names, got[-1]))
+        if ring.rank == 0:
+            hl["x"] = hl["x"] - lx
+        if ring.rank == n - 1:
+            hr["x"] = hr["x"] + lx
+        return hl, hr
+
+    return ring.exchange({
+        1: [channels[nm][..., -width:] for nm in names],
+        -1: [channels[nm][..., :width] for nm in names]}).then(shifted)
+
+
+def _halo_channels_1d(channels: dict, dcfg: DomainConfig, ring: Ring,
+                      width: int = 1) -> dict:
+    """x-halo exchange, concatenated: [halo_left | local | halo_right]."""
+    hl, hr = _halo_columns_1d(channels, dcfg, ring, width).wait()
+    return {nm: torch.cat([hl[nm], channels[nm], hr[nm]], dim=-1)
+            for nm in channels}
+
+
+def _split_calls(fn, channels: dict, cfg: CellConfig, xr: int,
+                 pending: Pending, overlap: bool):
+    """Run ``fn(channels, cfg)`` over the x-extended brick: one call over
+    [halo | local | halo], or, with ``overlap`` and a slab of at least
+    2 xr + 1 columns, the border/inner split: the interior target columns
+    [xr, nx - xr) from the local planes alone, queued on the card before
+    the host waits on the exchange, then the xr-wide edge groups from
+    windows that include the halos, stitched along x. Each call drops its
+    window's ghost columns and no kernel folds pairs, so no pair counts
+    twice. ``fn`` returns a tuple of per-row outputs, the virial last."""
+    nx, ny, nz = cfg.ncell
+    k = cfg.capacity
+    if not (overlap and nx >= 2 * xr + 1):
+        hl, hr = pending.wait()
+        return fn({nm: torch.cat([hl[nm], channels[nm], hr[nm]], dim=-1)
+                   for nm in channels}, cfg)
+    inner = fn(channels, cfg.replace(ncell=(nx - 2 * xr, ny, nz)))
+    hl, hr = pending.wait()
+    edge = cfg.replace(ncell=(xr, ny, nz))
+    left = fn({nm: torch.cat([hl[nm], channels[nm][..., :2 * xr]], dim=-1)
+               for nm in channels}, edge)
+    right = fn({nm: torch.cat([channels[nm][..., -2 * xr:], hr[nm]], dim=-1)
+                for nm in channels}, edge)
+
+    def stitch(al, ai, ar):
+        tail = al.shape[1:]   # (3,) for f, () for dT/dt, (S,) for dC/dt
+        return torch.cat([al.reshape((ny, nz, k, xr) + tail),
+                          ai.reshape((ny, nz, k, nx - 2 * xr) + tail),
+                          ar.reshape((ny, nz, k, xr) + tail)],
+                         dim=3).reshape((ny * nz * k * nx,) + tail)
+
+    outs = [stitch(*o) for o in zip(left[:-1], inner[:-1], right[:-1])]
+    return (*outs, inner[-1] + left[-1] + right[-1])
+
+
+def _hash_rows(state: State, system: System, params: SystemParams,
+               step: int):
+    """The fast RNG tier's per-particle hash of the local rows at ``step``
+    (one launch of particle_hash on the card), shipped with the halo to
+    the kernels; None for TEA."""
+    from meso_tpu_torch.kernels.pair_dpd_v3 import particle_hash_v3
+    if system.rng_mode != "fast":
+        return None
+    return particle_hash_v3(state.tag, step, params.pair.seed,
+                            system.rng_rounds)
+
+
+def _halo_forces_model_pallas(state: State, system: System,
+                              params: SystemParams, dcfg: DomainConfig,
+                              ring: Ring, step: int, x, v, t, c):
+    """eDPD/tDPD distributed force evaluation on K4 (the fused kernel over
+    the x-extended brick; spill buckets take 2-column halos). Returns
+    (f, aux with the virial and dTdt or dCdt)."""
+    from meso_tpu_torch.kernels.pair_dpd_fused import \
+        halo_forces_pallas_model_fused
+    from meso_tpu_torch.ops.sweep import make_channels
+
+    cfg = dcfg.cells
+    extra = {}
+    if system.model == "edpd":
+        extra["T"] = t
+        ns = 0
+    else:
+        ns = params.pair.n_species
+        for sidx in range(ns):
+            extra[f"C{sidx}"] = c[:, sidx]
+    channels = make_channels(x, v, state.tag, state.mask,
+                             _hash_rows(state, system, params, step), extra,
+                             cfg.ncell, cfg.capacity)
+    n_types = params.pair.n_types
+    if n_types > 1:
+        channels["typ"] = state.typ.reshape(channels["tag"].shape)
+    xr = 2 if cfg.spill else 1
+
+    def call(chans, c_cfg):
+        return halo_forces_pallas_model_fused(
+            chans, state.box, step, params.pair, system.dt, c_cfg,
+            model=system.model, ns=ns, ext=("x",), rng_mode=system.rng_mode,
+            rng_rounds=system.rng_rounds, n_types=n_types)
+
+    pending = _halo_columns_1d(channels, dcfg, ring, width=xr)
+    f, ex, virial = _split_calls(call, channels, cfg, xr, pending,
+                                 system.dd_overlap)
+    return f, {"virial": virial,
+               ("dTdt" if system.model == "edpd" else "dCdt"): ex}
+
+
+def _halo_forces_pallas(state: State, system: System, params: SystemParams,
+                        dcfg: DomainConfig, ring: Ring, step: int, x, v,
+                        banded: bool = False):
+    """Distributed classic forces: the channel halo exchange, then K4 over
+    the x-extended brick (force_path "pallas", with the border/inner split
+    under ``dd_overlap``) or K6-halo (force_path "pallas_banded": strict
+    buckets, one halo column a side; no exclusions). Either route takes
+    the per-particle hash shipped with the halo (``_hash_rows``)."""
+    from meso_tpu_torch.kernels._brick import exclusion_rows
+    from meso_tpu_torch.kernels.pair_dpd import halo_forces_pallas_1d
+    from meso_tpu_torch.kernels.pair_dpd_fused import halo_forces_pallas_fused
+    from meso_tpu_torch.ops.sweep import make_channels
+
+    cfg = dcfg.cells
+    pair = params.pair
+    channels = make_channels(x, v, state.tag, state.mask,
+                             _hash_rows(state, system, params, step), {},
+                             cfg.ncell, cfg.capacity)
+    n_types = pair.n_types
+    if n_types > 1:
+        channels["typ"] = state.typ.reshape(channels["tag"].shape)
+    n_excl = 0
+    if pair.excl is not None:
+        if banded:
+            raise NotImplementedError(
+                "special_bonds on the banded distributed kernel is absent; "
+                "use force_path='pallas' (fused)")
+        n_excl = pair.excl.shape[1]
+        ex = exclusion_rows(state.tag, pair)
+        for e in range(n_excl):
+            channels[f"EX{e}"] = ex[:, e].reshape(channels["tag"].shape)
+    xr = 2 if cfg.spill else 1
+    if banded:
+        padded = _halo_channels_1d(channels, dcfg, ring, width=xr)
+        return halo_forces_pallas_1d(padded, state.box, step, pair,
+                                     system.dt, cfg,
+                                     rng_mode=system.rng_mode,
+                                     rng_rounds=system.rng_rounds,
+                                     n_types=n_types)
+
+    def call(chans, c_cfg):
+        return halo_forces_pallas_fused(
+            chans, state.box, step, pair, system.dt, c_cfg, ext=("x",),
+            rng_mode=system.rng_mode, rng_rounds=system.rng_rounds,
+            s_exp=system.s_exp, n_types=n_types, n_excl=n_excl)
+
+    pending = _halo_columns_1d(channels, dcfg, ring, width=xr)
+    return _split_calls(call, channels, cfg, xr, pending, system.dd_overlap)
+
+
+def _bonded_ghost_rows(state: State, dcfg: DomainConfig, ring: Ring, x1,
+                       image1, reach: int):
+    """Halo ghost ROWS for the bonded terms: ``reach`` boundary cell
+    columns of (x, image, tag, mask) from each neighbour, flattened to
+    extra rows. The bonded evaluation runs over [local rows | ghost rows]
+    in tag space and each partner's owner keeps only its own side (no
+    reverse path). Chains need reach 1 (bond length < cell side); membrane
+    hinges reach 2."""
+    nx, ny, nz = dcfg.cells.ncell
+    k = dcfg.cells.capacity
+    arrays = [x1, image1, state.tag, state.mask.to(torch.int32)]
+
+    def planes(a):
+        return a.reshape((ny, nz, k, nx) + a.shape[1:])
+
+    got = ring.exchange({1: [planes(a)[:, :, :, nx - reach:] for a in arrays],
+                         -1: [planes(a)[:, :, :, :reach] for a in arrays]}
+                        ).wait()
+    out = [torch.cat([hl.reshape((-1,) + a.shape[1:]),
+                      hr.reshape((-1,) + a.shape[1:])])
+           for a, hl, hr in zip(arrays, got[1], got[-1])]
+    return out[0], out[1], out[2], out[3] > 0
+
+
+def _bonded_distributed(system: System, params: SystemParams,
+                        dcfg: DomainConfig, ring: Ring, state: State, x1,
+                        image1):
+    """Bonded forces over halo-extended rows. Returns (f on local rows,
+    missing-partner count): ``missing`` is the checked invariant for
+    partners beyond the ghost rows' reach."""
+    from meso_tpu_torch.ops.bonded import bonded_forces_ext
+
+    nr = state.n
+    b = params.bonded
+    kw = dict(box=state.box, params=b, style=system.bond_style,
+              n_tags=system.n_tags, n_mols=system.n_mols,
+              reduce_sum=ring.all_sum)
+    if ring.size == 1:
+        # every partner is local; ghost copies of the rank's own rows would
+        # shadow them in the tag map (R10)
+        return bonded_forces_ext(x1, state.tag, state.mask, image=image1,
+                                 **kw)
+    reach = 2 if (b.hinge_tags is not None or b.tri_tags is not None
+                  or b.angle_tags is not None) else 1
+    reach = min(reach, dcfg.ncx_local)
+    gx, gimg, gtag, gmask = _bonded_ghost_rows(state, dcfg, ring, x1, image1,
+                                               reach)
+    owner = torch.cat([torch.ones((nr,), dtype=torch.bool, device=x1.device),
+                       torch.zeros(gx.shape[:1], dtype=torch.bool,
+                                   device=x1.device)])
+    f_ext, missing = bonded_forces_ext(
+        torch.cat([x1, gx]), torch.cat([state.tag, gtag]),
+        torch.cat([state.mask, gmask]), image=torch.cat([image1, gimg]),
+        owner_mask=owner, **kw)
+    return f_ext[:nr], missing
+
+
+# ---------------------------------------------------------------------------
+# distributed step + loop
+# ---------------------------------------------------------------------------
+
+def _step_local(system: System, params: SystemParams, dcfg: DomainConfig,
+                ring: Ring, state: State):
+    """One distributed step; returns (new_state, bonded-missing count as a
+    tensor). Positions are box-wrapped every step (migration reads them)."""
+    inv_m = _per_type(params.inv_mass, state.typ)
+    move = _move_mask(system, state.typ, state.mask)
+    new_step = state.step + 1
+    x1, image1, v_tilde = initial_integrate(
+        state.x, state.v, state.f, state.image, state.box,
+        system.dt, system.lam, inv_m, move)
+    for fx in system.fixes:
+        if hasattr(fx, "post_integrate"):
+            x1, image1, v_tilde = fx.post_integrate(
+                system, params, state, x1, image1, v_tilde)
+    if system.force_path == "pallas_banded":
+        check_strict(dcfg.cells)   # R7, for every model
+    if system.model == "dpd":
+        if system.force_path in ("pallas", "pallas_banded"):
+            f_new, _ = _halo_forces_pallas(
+                state, system, params, dcfg, ring, new_step, x1, v_tilde,
+                banded=system.force_path == "pallas_banded")
+        else:
+            f_new, _ = _halo_forces(state, system, params, dcfg, ring,
+                                    new_step, x1, v_tilde)
+        aux = {}
+    elif system.force_path == "pallas":
+        f_new, aux = _halo_forces_model_pallas(state, system, params, dcfg,
+                                               ring, new_step, x1, v_tilde,
+                                               state.T, state.C)
+    else:
+        f_new, aux = _halo_forces_model(state, system, params, dcfg, ring,
+                                        new_step, x1, v_tilde, state.T,
+                                        state.C)
+    missing = torch.zeros((), dtype=torch.int32, device=state.device)
+    if system.bond_style is not None:
+        f_b, missing = _bonded_distributed(system, params, dcfg, ring, state,
+                                           x1, image1)
+        f_new = f_new + f_b
+    f_new = _post_forces(system, params, state, x1, v_tilde, f_new,
+                         skip_bonded=True, image=image1)
+    v1 = final_integrate(state.v, state.f, f_new, system.dt, inv_m, move)
+    new_state = state.replace(x=x1, v=v1, f=f_new, image=image1,
+                              step=new_step)
+    zero = torch.zeros((), dtype=torch.float32, device=state.device)
+    if system.model == "edpd":
+        new_state = new_state.replace(
+            T=state.T + system.dt * torch.where(move, aux["dTdt"], zero),
+            dTdt=aux["dTdt"])
+    elif system.model == "tdpd":
+        new_state = new_state.replace(
+            C=state.C + system.dt * torch.where(move[:, None], aux["dCdt"],
+                                                zero),
+            dCdt=aux["dCdt"])
+    for fx in system.fixes:
+        if hasattr(fx, "end_of_step"):
+            new_state = fx.end_of_step(system, params, new_state)
+    return new_state, missing
+
+
+def run_distributed(system: System, params: SystemParams, state: State,
+                    nchunks: int, ring: Ring, dcfg: DomainConfig):
+    """This rank's share of ``nchunks`` x (migration + slab rebuild +
+    ``rebuild_every`` steps), as the JAX package's ``shard_body``.
+
+    ``state`` is this rank's slab (from ``distribute_state``) on the device
+    the rank runs on. The counters stay tensors through the chunk and are
+    summed over the ring once at its end. Returns (state, diag): the
+    largest per-chunk "overflow" (migration and bucket) and
+    "bonded_missing" counts over the ring, and "worst_skin_ratio", the
+    largest displacement since a rebuild over every rank, over skin/2."""
+    slab_lo = _f32(np.float32(ring.rank) * np.float32(dcfg.slab_w))
+    side_x = dcfg.slab_w / dcfg.ncx_local
+    counts, disps = [], []
+    for _ in range(nchunks):
+        merged, of_mig = _migrate(state, dcfg, ring)
+        state, of_cell = _rebuild_slab(merged, dcfg.cells, slab_lo, side_x)
+        x_ref = state.x
+        misses = []
+        for _ in range(dcfg.rebuild_every):
+            state, miss = _step_local(system, params, dcfg, ring, state)
+            misses.append(miss.to(torch.int64))
+        counts.append(ring.all_sum(torch.stack(
+            [of_mig + of_cell, torch.max(torch.stack(misses))])))
+        disps.append(ring.all_max(max_displacement_sq(
+            state.x, x_ref, state.mask, state.box)))
+    counts = torch.max(torch.stack(counts), dim=0).values
+    return state, {"overflow": counts[0], "bonded_missing": counts[1],
+                   "worst_skin_ratio": torch.sqrt(torch.max(
+                       torch.stack(disps))) / (0.5 * dcfg.cells.skin)}
+
+
+# ---------------------------------------------------------------------------
+# host-side distribute / collect
+# ---------------------------------------------------------------------------
+
+def build_domain(system: System, n_dev: int, cap_mig: int | None = None,
+                 rebuild_every: int | None = None,
+                 lx_global: float | None = None) -> DomainConfig:
+    g = system.cells
+    ncx, ny, nz = g.ncell
+    if ncx % n_dev:
+        raise ValueError(f"global ncx={ncx} not divisible by n_dev={n_dev}")
+    ncx_l = ncx // n_dev
+    if ncx_l < 3:
+        raise ValueError("slab too thin: need >= 3 cell columns per device")
+    spill = bool(g.spill)
+    if spill and ncx_l < 5:
+        raise ValueError("spill layout under DD needs >= 5 local cell "
+                         "columns per device (the +-2 slot window)")
+    local = CellConfig(ncell=(ncx_l, ny, nz), capacity=g.capacity,
+                       skin=g.skin, rebuild_every=g.rebuild_every,
+                       spill=spill)
+    if cap_mig is None:
+        cap_mig = max(64, (ny * nz * g.capacity) // 4)
+    return DomainConfig(n_dev=n_dev, cells=local,
+                        lx_global=float(lx_global), cap_mig=cap_mig,
+                        rebuild_every=rebuild_every or g.rebuild_every)
+
+
+def distribute_state(state: State, dcfg: DomainConfig,
+                     device="cuda") -> list[State]:
+    """Split a global state into per-rank slab states, bucket-ordered in
+    the slab frame, one per rank, on ``device`` (the card unless the caller
+    names another; the CPU tests pass "cpu"). Raises where a slab's
+    buckets overflow."""
+    slabs, overflow = _slabs(state, dcfg, device)
+    for d, of in enumerate(overflow):
+        if of:
+            raise ValueError(f"device {d}: bucket overflow {of}")
+    return slabs
+
+
+def _slabs(state: State, dcfg: DomainConfig, device):
+    """(per-rank slab states, the bucket overflow of each)."""
+    n = dcfg.n_dev
+    nr_local = n_rows(dcfg.cells)
+    mask = state.mask.cpu().numpy()
+    x0 = state.x[:, 0].cpu().numpy()
+    slab = np.clip((x0 / dcfg.slab_w).astype(int), 0, n - 1)
+    box = state.box.replace(lo=state.box.lo.to(device),
+                            hi=state.box.hi.to(device))
+    side_x = dcfg.slab_w / dcfg.ncx_local
+    out, overflow = [], []
+    for d in range(n):
+        idx = torch.from_numpy(np.where(mask & (slab == d))[0])
+        if len(idx) > nr_local:
+            raise ValueError(f"device {d}: {len(idx)} rows > {nr_local}")
+        local = zeros_state(nr_local, box, n_species=0 if state.C is None
+                            else state.C.shape[1],
+                            with_energy=state.T is not None)
+
+        def take(a):
+            if a is None:
+                return None
+            sel = a.cpu()[idx]
+            fill = torch.zeros((nr_local - len(idx),) + sel.shape[1:],
+                               dtype=sel.dtype)
+            return torch.cat([sel, fill]).to(device)
+
+        local = local.replace(
+            **{f: take(getattr(state, f)) for f in
+               ("x", "v", "f", "typ", "tag", "image", "mol", "T", "C")},
+            mask=torch.arange(nr_local, device=device) < len(idx),
+            step=state.step)
+        local, of = _rebuild_slab(local, dcfg.cells, _f32(d * dcfg.slab_w),
+                                  side_x)
+        out.append(local)
+        overflow.append(int(of))
+    return out, overflow
+
+
+def fit_slab_capacity(system: System, state: State, n_dev: int,
+                      lx_global: float) -> System:
+    """The system with the least bucket capacity, from its own up to
+    ``_FIT_EXTRA_SLOTS`` more, whose ``n_dev`` slabs place this start with
+    no overflow. A right-spill slab cannot spill its last column into its
+    first, so a random start (Poisson occupancy) needs more room under
+    the decomposition than on one card (``core.system.fit_capacity``).
+    Where none fits, the system comes back unchanged and
+    ``distribute_state`` raises."""
+    cfg = system.cells
+    for k in range(cfg.capacity, cfg.capacity + _FIT_EXTRA_SLOTS + 1):
+        fitted = system.replace(cells=cfg.replace(capacity=k))
+        dcfg = build_domain(fitted, n_dev, lx_global=lx_global)
+        if not any(_slabs(state, dcfg, state.device)[1]):
+            return fitted
+    return system
+
+
+_ROW_FIELDS = ["x", "v", "f", "typ", "tag", "image", "mask", "mol",
+               "T", "dTdt", "C", "dCdt"]
+
+
+def collect_state(states: list[State]) -> State:
+    """Merge the per-rank states back into one global state (on the first
+    one's device)."""
+    dev = states[0].device
+    kw = {name: None if getattr(states[0], name) is None else
+          torch.cat([getattr(s, name).to(dev) for s in states])
+          for name in _ROW_FIELDS}
+    return State(box=states[0].box, step=states[0].step, **kw)

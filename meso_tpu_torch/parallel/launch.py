@@ -1,0 +1,173 @@
+"""Start the ranks of a distributed run as processes on one host, and the
+rank side of a slab run; shared by the tests and ``chip_smoke.py``.
+
+``spawn`` starts ``world_size`` processes with the spawn start method (a
+process that already runs threads, such as a test process with JAX loaded,
+must not fork), joins them into a gloo process group through a
+``file://`` rendezvous in ``workdir`` (no TCP port, so concurrent runs do
+not collide) and calls ``target(ring, device, *args)`` in each, with
+``args`` read from a file that the parent wrote. Every rank runs on the
+device the caller names (``"cuda"``: the ranks share the card; ``"cpu"``:
+each rank takes one thread). Each rank's return value comes back through
+a file. A rank that raises makes ``spawn`` raise
+(``torch.multiprocessing``'s ``ProcessRaisedException``); ranks that have
+not finished within ``timeout_s`` are terminated and ``spawn`` raises
+``TimeoutError``; a collective that waits longer than ``op_timeout_s``
+raises in its rank. Nothing here falls back to another device.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+
+import torch
+import torch.multiprocessing as mp
+
+from meso_tpu_torch.parallel.comm import make_ring
+
+
+def _child(rank: int, target, world_size: int, workdir: str, device: str,
+           op_timeout_s: float) -> None:
+    import torch.distributed as dist
+    work = Path(workdir)
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    elif dev.index is not None:
+        torch.cuda.set_device(dev)
+    args = torch.load(work / "args.pt", weights_only=False)
+    ring = make_ring(world_size, rank, f"file://{work / 'rendezvous'}",
+                     timeout_s=op_timeout_s)
+    try:
+        out = target(ring, device, *args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, work / f"rank{rank}.pt")
+
+
+def spawn(target, world_size: int, workdir, args: tuple = (),
+          device: str = "cuda", timeout_s: float = 120.0,
+          op_timeout_s: float = 30.0) -> list:
+    """Run ``target(ring, device, *args)`` on ``world_size`` ranks; returns
+    their return values in rank order. ``target`` must be importable by
+    name (a module-level function)."""
+    work = Path(workdir)
+    work.mkdir(parents=True, exist_ok=True)
+    for stale in [work / "rendezvous"] + [work / f"rank{r}.pt"
+                                          for r in range(world_size)]:
+        stale.unlink(missing_ok=True)
+    torch.save(tuple(args), work / "args.pt")
+    ctx = mp.start_processes(
+        _child, args=(target, world_size, str(work), device, op_timeout_s),
+        nprocs=world_size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world_size} ranks did not finish "
+                                   f"within {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(world_size)]
+
+
+def on_device(state, device):
+    """The state with every tensor on ``device``."""
+    from meso_tpu_torch.core.state import PER_PARTICLE
+    box = state.box.replace(lo=state.box.lo.to(device),
+                            hi=state.box.hi.to(device))
+    return state.replace(box=box, **{
+        f: getattr(state, f).to(device) for f in PER_PARTICLE
+        if getattr(state, f) is not None})
+
+
+def params_on(params, device):
+    """SystemParams with every tensor, the pair and bonded ones included,
+    on ``device``."""
+    import dataclasses
+
+    def move(obj):
+        if obj is None:
+            return None
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    return params.replace(pair=move(params.pair), bonded=move(params.bonded),
+                          mass=params.mass.to(device),
+                          inv_mass=params.inv_mass.to(device))
+
+
+def counted_launches() -> dict:
+    """Every kernel launch counter of the port, by name."""
+    from meso_tpu_torch.kernels import _brick, pair_dpd_v3
+    return {**pair_dpd_v3.LAUNCHES, **_brick.LAUNCHES}
+
+
+def reset_launches() -> None:
+    from meso_tpu_torch.kernels import _brick, pair_dpd_v3
+    pair_dpd_v3.reset_launch_counts()
+    _brick.reset_launch_counts()
+
+
+def slab_run(ring, device: str, system, params, states, dcfg,
+             nchunks: int = 1, warmup: int = 0, then=None,
+             then_args: tuple = ()) -> dict:
+    """The rank side of a slab run: this rank's slab of ``states`` (one CPU
+    state per rank, from ``distribute_state``) and the parameters onto
+    ``device``, the launch counters set to 0, ``warmup`` chunks of
+    ``run_distributed``, then ``nchunks`` chunks timed on the host clock
+    around synchronised work, then, where given, ``then(ring, system,
+    params, state, dcfg, *then_args)`` (a module-level function returning
+    the state and a dict that joins the result). Returns the final slab
+    state on the CPU, the diag of the warm-up (None without one) and of the
+    timed chunks (as Python numbers), their seconds, and the launch counts
+    of the whole run."""
+    from meso_tpu_torch.parallel.domain import run_distributed
+    cuda = torch.device(device).type == "cuda"
+    state = on_device(states[ring.rank], device)
+    params = params_on(params, device)
+    reset_launches()
+    out = {"warmup_diag": None}
+    if warmup:
+        state, diag = run_distributed(system, params, state, warmup, ring,
+                                      dcfg)
+        out["warmup_diag"] = {k: float(v) for k, v in diag.items()}
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, diag = run_distributed(system, params, state, nchunks, ring, dcfg)
+    if cuda:
+        torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0,
+               diag={k: float(v) for k, v in diag.items()})
+    if then is not None:
+        state, more = then(ring, system, params, state, dcfg, *then_args)
+        out.update(more)
+    return {**out, "state": on_device(state, "cpu"),
+            "launches": counted_launches()}
+
+
+def slab_runs(ring, device: str, jobs) -> list:
+    """``slab_run`` with the keyword arguments of each job in turn: several
+    runs on one start of the processes."""
+    return [slab_run(ring, device, **job) for job in jobs]
+
+
+def call(ring, device: str, calls) -> list:
+    """For each (fn, per_rank_args) of ``calls``, ``fn(*per_rank_args[rank],
+    ring)`` on each rank, its states moved to ``device``: probes of one
+    piece of the decomposition (the tests' migration checks)."""
+    from meso_tpu_torch.core.state import State
+    out = []
+    for fn, per_rank_args in calls:
+        args = [on_device(a, device) if isinstance(a, State) else a
+                for a in per_rank_args[ring.rank]]
+        out.append(fn(*args, ring))
+    return out

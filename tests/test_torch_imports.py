@@ -45,7 +45,10 @@ MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.ops.edpd", "meso_tpu_torch.ops.tdpd",
            "meso_tpu_torch.ops.fixes", "meso_tpu_torch.ops.bonded",
            "meso_tpu_torch.core.region", "meso_tpu_torch.models.walls",
-           "meso_tpu_torch.models.polymer", "meso_tpu_torch.obs.viscosity"]
+           "meso_tpu_torch.models.polymer", "meso_tpu_torch.obs.viscosity",
+           "meso_tpu_torch.ops.sweep", "meso_tpu_torch.parallel",
+           "meso_tpu_torch.parallel.comm", "meso_tpu_torch.parallel.domain",
+           "meso_tpu_torch.parallel.launch"]
 
 
 def test_import_leaves_jax_out():
@@ -270,3 +273,132 @@ def test_selector_wrappers_without_nvcc_raise(monkeypatch, selector):
 def test_wrap_mode_rebuild_needs_bucket_path():
     with pytest.raises(ValueError, match="bucket-resident"):
         make_step(System(force_path="dense", wrap_mode="rebuild"))
+
+
+def _ring_of_one(model="dpd", spill=True, **change):
+    """A 498-particle CPU fluid on one rank's slab (6 x 4 x 4 cells of
+    side 1.2): (system, params, slab state, dcfg)."""
+    from meso_tpu_torch.parallel import build_domain, distribute_state
+    lx, lyz = 7.2, 4.8
+    cfg = CellConfig.for_box([lx, lyz, lyz], 1.0, 3.0, skin=0.2,
+                             rebuild_every=2, spill=spill)
+    system = System(rng_mode="fast", force_path="pallas", model=model,
+                    cells=cfg).replace(**change)
+    pair = {"dpd": DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                                   seed=1),
+            "edpd": EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.0,
+                                     cv=10.0, seed=1),
+            "tdpd": TDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                                     kappa_c=[1.0], eps_c=[0.0], rcc=1.0,
+                                     seed=1)}[model]
+    state = create_random(torch.Generator().manual_seed(0), 498,
+                          Box.orthorhombic(lx, lyz, lyz),
+                          n_species=int(model == "tdpd"),
+                          with_energy=model == "edpd")
+    dcfg = build_domain(system, 1, lx_global=lx, rebuild_every=2)
+    (slab,) = distribute_state(state, dcfg, device="cpu")
+    return system, SystemParams.build(pair), slab, dcfg
+
+
+@pytest.mark.parametrize("overlap,calls", [(True, 3), (False, 1)],
+                         ids=["dd_overlap", "one-call"])
+def test_dd_overlap_selects_the_border_inner_split(monkeypatch, overlap,
+                                                   calls):
+    """dd_overlap is no longer ignored: the distributed step makes three K4
+    calls (interior, two edges) with it and one without."""
+    from meso_tpu_torch.parallel import Ring, run_distributed
+    system, params, slab, dcfg = _ring_of_one(dd_overlap=overlap)
+    seen = []
+    real = pair_dpd_fused.halo_forces_pallas_fused
+
+    def spy(channels, box, step, *a, **kw):
+        seen.append(step)
+        return real(channels, box, step, *a, **kw)
+
+    monkeypatch.setattr(pair_dpd_fused, "halo_forces_pallas_fused", spy)
+    state, diag = run_distributed(system, params, slab, 1, Ring.single(),
+                                  dcfg)
+    assert seen == [1] * calls + [2] * calls
+    assert int(diag["overflow"]) == 0 and state.step == 2
+
+
+def test_post_forces_skip_bonded():
+    """_post_forces takes skip_bonded, as in the JAX package: the
+    distributed step adds the bonded terms itself."""
+    from meso_tpu_torch.core.system import _post_forces
+    system, params, state = polymer_melt(l=6.0, n_chains=2, chain_len=5,
+                                         force_path="dense", device="cpu")
+    f0 = torch.zeros_like(state.f)
+    with_b = _post_forces(system, params, state, state.x, state.v, f0)
+    without = _post_forces(system, params, state, state.x, state.v, f0,
+                           skip_bonded=True)
+    assert bool((with_b != 0).any()) and bool((without == 0).all())
+    assert "ignored" not in System.__doc__.split("dd_overlap")[1][:80]
+
+
+def test_halo_routes_refuse_spill_r7():
+    """K6-halo and every banded distributed route take strict buckets only
+    (R7), before any exchange."""
+    from meso_tpu_torch.parallel import Ring, run_distributed
+    for model in ("dpd", "edpd", "tdpd"):
+        system, params, slab, dcfg = _ring_of_one(
+            model, force_path="pallas_banded")
+        with pytest.raises(ValueError, match="R7"):
+            run_distributed(system, params, slab, 1, Ring.single(), dcfg)
+    planes = {n: torch.zeros((4, 4, 8, 9)) for n in (
+        "x", "y", "z", "vx", "vy", "vz", "tag", "valid", "h")}
+    cfg = CellConfig(ncell=(5, 4, 4), capacity=8, spill=True)
+    pair = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=1)
+    with pytest.raises(ValueError, match="R7"):
+        pair_dpd.halo_forces_pallas_1d(planes, Box.cubic(6.0), 1, pair,
+                                       0.01, cfg)
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(s_exp=0.5), "R8"),
+    (dict(rc=[[1.0, 0.7], [0.7, 1.0]], n_types=2), "R9")], ids=["R8", "R9"])
+def test_distributed_tdpd_refuses_r8_r9(change, match):
+    """The distributed tDPD route (K4's model form, which runs s_exp = 1
+    whatever the parameters say on the TPU) refuses s_exp != 1 and rcc
+    above the smallest rc_ij."""
+    from meso_tpu_torch.parallel import Ring, run_distributed
+    system, params, slab, dcfg = _ring_of_one("tdpd")
+    kw = dict(a=25.0, gamma=4.5, rc=1.0, kt=1.0, kappa_c=[1.0], eps_c=[0.0],
+              rcc=0.8, seed=1)
+    s_exp = change.pop("s_exp", None)
+    pair = TDPDParams.build(**{**kw, **change})
+    if s_exp is not None:
+        pair = pair.replace(s_exp=s_exp)
+    with pytest.raises(ValueError, match=match):
+        run_distributed(system, SystemParams.build(pair), slab, 1,
+                        Ring.single(), dcfg)
+
+
+def test_halo_wrappers_without_nvcc_raise(monkeypatch):
+    """K4 and K6-halo on non-CPU planes with no kernel library and no
+    compiler raise; none falls back to its plain version."""
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("CUDA_PATH", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setattr(torch.utils.cpp_extension, "CUDA_HOME", None)
+    _build.load_library.cache_clear()
+    names = ("x", "y", "z", "vx", "vy", "vz", "tag", "valid", "h", "T", "C0")
+    planes = {n: torch.zeros((4, 4, 8, 7), device="meta") for n in names}
+    cfg = CellConfig(ncell=(5, 4, 4), capacity=8)
+    box = Box.cubic(6.0, device="meta")
+    pair = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
+                           seed=1).to("meta")
+    edpd = EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.0, cv=10.0,
+                            seed=1).to("meta")
+    before = dict(_brick.LAUNCHES)
+    calls = [
+        lambda: pair_dpd_fused.halo_forces_pallas_fused(planes, box, 1, pair,
+                                                        0.01, cfg),
+        lambda: pair_dpd_fused.halo_forces_pallas_model_fused(
+            planes, box, 1, edpd, 0.01, cfg, model="edpd"),
+        lambda: pair_dpd.halo_forces_pallas_1d(planes, box, 1, pair, 0.01,
+                                               cfg)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert _brick.LAUNCHES == before
