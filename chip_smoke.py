@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of meso_tpu_torch on one NVIDIA card (built for the H100).
 
-    python3 chip_smoke.py [--kernels-only | --dd-only | --decay-from FILE]
+    python3 chip_smoke.py [--kernels-only | --dd-only | --sweep-only |
+                           --decay-from FILE]
 
 Phases, one line of output each (any failure raises and exits non-zero):
 
@@ -103,16 +104,39 @@ Phases, one line of output each (any failure raises and exits non-zero):
    inside the host-staged exchanges). Two ranks on one card give no
    scaling figure.
 
-Phases 9, 10, 14 and 15 run after phase 5, phases 11-13 and 16-17 after
-phase 8, phases 20-21 after 17. ``--kernels-only`` stops after phase 19;
-``--dd-only`` runs phases 1, 2 and 19-21. ``--decay-from FILE`` runs only
+22. probes: the TPU probes T1-T4 (``meso_tpu_torch/probes``, on
+   csrc/probes.cu) as each probe's own run counts them, every kernel
+   against its plain version (T1, T3, T4 bitwise; T2's products within
+   1e-5 of max |ref|, its pair tile within 4x the float32 plain version's
+   error against float64), then their times: T2 at 8,192 tiles beside
+   torch.bmm with TF32 off and K1's time per candidate test, T4 at K1's 1M
+   view for zc 1, 5, 10 and 25 (the card's streaming rate, which gives
+   each byte-bound kernel's measured floor in the kernels' record);
+23. nlist-path: classic_fluid(l=70) with the JAX package's defaults
+   (force_path "nlist", skin 0.3, cells and lists rebuilt every 10 steps,
+   the TEA tier) from the main path's end state, through ``run``: ms/step,
+   the list build's ms, overflow, kT within 1% at 3 sigma with 10
+   effective samples; the skin check reported;
+24. bucket-paths: the sweep (force_path "bucket") at 1M for classic,
+   eDPD and tDPD through ``run_bucket_fixed`` from their paths' end
+   states, with transport-full's gates; ``run_adaptive`` on the neighbour
+   lists from the classic end state;
+25. dd-bucket: the classic sweep under the 1-D decomposition on two gloo
+   ranks sharing the card, with dd-paths' harness and gates.
+
+Phases 9, 10, 14, 15 and 22 run after phase 5, phases 11-13 and 16-17
+after phase 8, phases 20-21 after 17, phases 23-25 after 21.
+``--kernels-only`` stops after phase 19; ``--dd-only`` runs phases 1, 2
+and 19-21; ``--sweep-only`` runs phases 1-3, 22, 6, 8 (for the end
+states) and 23-25. ``--decay-from FILE`` runs only
 the tDPD decay from the JAX package's starts in FILE, against the JAX
 rates stored beside them (see phase_decay_from).
 
 Launch counts are set to 0 just before each path (6, each model of 8, each
-path of 13 and 16, phase 17, and each rank of each path of 21) is driven
-and read just after. The last three lines are the kernels' JSON
-record, the card's name and power limit from nvidia-smi, and
+path of 13 and 16, phase 17, each rank of each path of 21, the probes'
+runs of 22, and each path of 23-25) is driven and read just after. The
+last three lines are the kernels' JSON record, the card's name and power
+limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Every number is also written to
 build/chip_smoke.json.
 """
@@ -192,6 +216,9 @@ SELECTOR_KERNELS = {
 BRICK_OPS = {"dpd": 50, "edpd": 107}
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the tensor cores' dense TF32 rate (the same data sheet): the probe T2's
+# products run there, three or six TF32 products for each float32 one
+TF32_OPS_PER_S = 495e12
 OPS_PER_PAIR = {"pair_dpd_v3": 44, "pair_edpd_v3": 107,
                 "pair_dpd_v3_general": 50}
 OPS_PER_EXCL_SLOT = 2
@@ -302,11 +329,12 @@ def compare_forces(f_k, vir_k, f_p, vir_p, mask, min_image, label):
     return err, rel, vrel
 
 
-def bound(tensors_in, tensors_out, ops):
+def bound(tensors_in, tensors_out, ops, tc_ops=0.0):
     """(bound_ms, bound_by) of a kernel from its inputs, outputs and
-    operation count."""
+    operation counts."""
     return bytes_bound(sum(t.numel() * t.element_size()
-                           for t in list(tensors_in) + list(tensors_out)), ops)
+                           for t in list(tensors_in) + list(tensors_out)), ops,
+                       tc_ops)
 
 
 def row_bound(mask, per_particle, tensors_out, ops, virial=False):
@@ -325,11 +353,12 @@ def row_bound(mask, per_particle, tensors_out, ops, virial=False):
     return bytes_bound(nbytes, ops)
 
 
-def bytes_bound(nbytes, ops):
+def bytes_bound(nbytes, ops, tc_ops=0.0):
     """(bound_ms, bound_by): the larger of nbytes over the memory rate and
-    ops over the fp32 rate."""
+    the operations over their rates: ops at the fp32 rate, tc_ops
+    (tensor-core products) at the TF32 rate."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    t_ops = 1e3 * (ops / FP32_OPS_PER_S + tc_ops / TF32_OPS_PER_S)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -621,6 +650,7 @@ def phase_kernels():
         "rebuild_sort_ms": timed_ms(lambda: rebuild_buckets(bst, cfg), 10),
     }
     n_rc, _ = pair_counts(bst, cfg)
+    candidates = stencil_candidates(bst, cfg)
     # K1 as timed (need_virial off): the mask, and x, v, tag and h of the
     # valid rows in, f out; the hash: tag in, h out
     pair_bound = row_bound(bst.mask, [bst.x, bst.v, bst.tag, bst.tag],
@@ -628,6 +658,7 @@ def phase_kernels():
     hash_bound = bound([bst.tag], [bst.tag], bst.n * 8 * HASH_OPS_PER_ROUND)
     out["l70"] = {"n": n, "nr": bst.n, "ncell": list(cfg.ncell),
                   "capacity": cfg.capacity, "pairs_in_rc": n_rc,
+                  "candidates": candidates,
                   "max_abs_err": err, "rel": rel,
                   "virial_rel": vrel, "hash_max_abs_err": hash_err, **ms,
                   "pair_bound_ms": pair_bound[0],
@@ -1020,6 +1051,8 @@ def phase_transport_full(model, selector="v3"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = read_launches()
+    if selector == "v3":
+        FINAL_STATES[model] = state
     steps = (TRANSPORT_EQUIL_CHUNKS + TRANSPORT_TIMED_CHUNKS) \
         * TRANSPORT_EVERY
     force_evals = 1 + steps
@@ -1127,6 +1160,8 @@ def phase_main_path(selector="v3"):
             break
     torch.cuda.synchronize()
     launches = read_launches()
+    if selector == "v3":
+        FINAL_STATES["classic"] = state
 
     timed_steps = TIMED_CHUNKS * EVERY
     overflow = max(int(d["bucket_overflow"])
@@ -2856,6 +2891,538 @@ def phase_dd_paths():
     return out, kernels
 
 
+# ---------------------------------------------------------------------------
+# the TPU probes T1-T4 on the card
+# ---------------------------------------------------------------------------
+
+# T2 is timed on this many independent tiles (1,048,576 i-rows x 128 j);
+# T4 at K1's 1M view over these grid splits of z
+PROBE_BATCH = 8192
+T4_ZCS = (1, 5, 10, 25)
+PROBE_SRC = "meso_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {"probe_dynroll": "tools/toy_dynroll.py:32",
+                  "probe_cond": "tools/toy_dynroll.py:58",
+                  "probe_dot_a": "tools/toy_mxu_tile.py:43",
+                  "probe_dot_b": "tools/toy_mxu_tile.py:57",
+                  "probe_tile": "tools/toy_mxu_tile.py:71",
+                  "probe_dot_c": "tools/toy_mxu_tile.py:97",
+                  "probe_tea_roll": "tools/toy_tea_roll.py:64",
+                  "probe_null_stage": "tools/r5a_stage.py:74"}
+
+
+def stencil_candidates(bst, cfg):
+    """The candidate tests K1 makes on these rows: for every valid row, the
+    valid rows of its slot-cell window (3 x 3 in y and z, 2 xr + 1 in x)."""
+    import torch
+    nx, ny, nz = cfg.ncell
+    xr = 2 if cfg.spill else 1
+    occ = bst.mask.reshape(ny, nz, cfg.capacity, nx).sum(2).to(torch.int64)
+    win = torch.zeros_like(occ)
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            for dx in range(-xr, xr + 1):
+                win += torch.roll(occ, (dy, dz, dx), (0, 1, 2))
+    return int((occ * win).sum()) - int(bst.mask.sum())
+
+
+def probe_record(name, launches, err, ms, plain_ms, bnd, library_ms=None,
+                 **extra):
+    return {"name": name, "route": "cuda", "source": PROBE_SRC,
+            "replaces": PROBE_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
+            **extra}
+
+
+def phase_probes(k1):
+    """T1-T4 on the card. Each probe's own run (its module's ``run``, as
+    ``python -m meso_tpu_torch.probes.<name>`` runs it) with the launch
+    counts set to 0 just before and read just after: every kernel against
+    its plain version (T1, T3, T4 bitwise; T2's products within 1e-5 of
+    max |ref|; T2's tile within max(1e-5, 4x the float32 plain version's
+    error) of its float64 plain version). Then the times: T1 and T3 at the
+    probes' shapes; T2 at PROBE_BATCH tiles against its plain version and
+    torch.bmm (TF32 off), with the tile's ns per candidate pair beside K1's
+    per candidate test (``k1``: K1's time and candidate count at the
+    main-path shape); T4 at K1's 1M view for every zc of T4_ZCS, its
+    achieved streaming rate and its cost per grid cell."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch import probes
+    from meso_tpu_torch.probes import (r5a_stage, toy_dynroll, toy_mxu_tile,
+                                       toy_tea_roll)
+    # the plain versions' and the library's products in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probes.reset_launch_counts()
+    runs = {"toy_dynroll": toy_dynroll.run(DEVICE),
+            "toy_mxu_tile": toy_mxu_tile.run(DEVICE),
+            "toy_tea_roll": toy_tea_roll.run(DEVICE),
+            "r5a_stage": r5a_stage.run(DEVICE)}
+    torch.cuda.synchronize()
+    launches = dict(probes.LAUNCHES)
+    failed = [f"{p}/{k}" for p, res in runs.items() for k, r in res.items()
+              if not r.get("ok", r.get("bitwise"))]
+    failed += [f"{name} not launched" for name, n in launches.items()
+               if n == 0]
+    if failed:
+        raise AssertionError(f"probes failed: {failed}: {runs}")
+    say("probes-run", launches=launches, **runs)
+    rows = []
+
+    # T1 at the probe's shape
+    (x0, offs), (x1, jm) = toy_dynroll.inputs(DEVICE)
+    for name, fn, plain, args, ops in (
+            ("probe_dynroll", toy_dynroll.dynroll, toy_dynroll.dynroll_plain,
+             (x0, offs), x0.numel() * offs.numel()),
+            ("probe_cond", toy_dynroll.cond, toy_dynroll.cond_plain,
+             (x1, jm), x1.numel() * (14 * int((jm > 4).sum()) + 1))):
+        out = fn(*args)
+        rows.append(probe_record(
+            name, launches,
+            runs["toy_dynroll"][name.split("_")[1]]["max_abs_err"],
+            timed_ms(lambda: fn(*args), 200), timed_ms(lambda: plain(*args),
+                                                       50),
+            bound(args, [out], ops)))
+
+    # T2 at PROBE_BATCH tiles
+    batch = toy_mxu_tile.inputs(PROBE_BATCH, seed=1, device=DEVICE)
+    library = {"dot_a": lambda a, b: torch.bmm(a, b),
+               "dot_b": lambda a, b: torch.bmm(a, b),
+               "dot_c": lambda a, b: torch.bmm(a.transpose(1, 2), b)}
+    t2 = {}
+    for key in ("dot_a", "dot_b", "tile", "dot_c"):
+        fn, plain = toy_mxu_tile.FUNCS[key]
+        args = batch[key]
+        got = fn(*args)
+        want = plain(*args)
+        rec = {"rel": toy_mxu_tile.rel_err(got, want),
+               "max_abs_err": float((got - want).abs().max())}
+        if key == "tile":
+            rec.update(toy_mxu_tile.tile_check(got, *args))
+            m, n = 128, 128
+            # the tile's split takes six TF32 products a float32 one
+            tc = 6 * (2 * m * n * 3 + 2 * m * 5 * n) * PROBE_BATCH
+            bnd = bound(args, [got], 12 * m * n * PROBE_BATCH, tc)
+        else:
+            rec["ok"] = rec["rel"] < toy_mxu_tile.TOL
+            (bsz, r, s), n = args[0].shape, args[1].shape[2]
+            m, k = (s, r) if key == "dot_c" else (r, s)
+            bnd = bound(args, [got], 0, 3 * 2 * m * n * k * bsz)
+        if not rec["ok"]:
+            raise AssertionError(f"T2 {key} at {PROBE_BATCH} tiles: {rec}")
+        ms = timed_ms(lambda: fn(*args), 20)
+        lib = timed_ms(lambda: library[key](*args), 20) \
+            if key in library else None
+        run_err = runs["toy_mxu_tile"][key]["max_abs_err"]
+        rows.append(probe_record(
+            f"probe_{key}", launches, max(run_err, rec["max_abs_err"]), ms,
+            timed_ms(lambda: plain(*args), 3), bnd, lib, batch=PROBE_BATCH))
+        t2[key] = {**rec, "ms": ms}
+    pairs = PROBE_BATCH * 128 * 128
+    t2["tile_ns_per_candidate_pair"] = 1e6 * t2["tile"]["ms"] / pairs
+    t2["k1_ns_per_candidate_test"] = 1e6 * k1["pair_ms"] / k1["candidates"]
+    t2["k1_candidates_per_valid_row"] = k1["candidates"] / k1["n"]
+    say("probes-t2", batch=PROBE_BATCH, **t2)
+
+    # T3 at the probe's shape, the base variant timed
+    stack, iscal = toy_tea_roll.inputs(DEVICE)
+    out = toy_tea_roll.tea_roll(stack, iscal, "base")
+    n_sites = stack.shape[-1] * stack.shape[-2] * len(toy_tea_roll.OFFS)
+    rows.append(probe_record(
+        "probe_tea_roll", launches,
+        max(r["max_abs_err"] for r in runs["toy_tea_roll"].values()),
+        timed_ms(lambda: toy_tea_roll.tea_roll(stack, iscal, "base"), 200),
+        timed_ms(lambda: toy_tea_roll.tea_roll_plain(stack, iscal, "base"),
+                 5),
+        bound([stack, iscal], [out], n_sites * (8 * HASH_OPS_PER_ROUND + 10)),
+        variants=len(toy_tea_roll.VARIANTS)))
+
+    # T4 at K1's 1M view
+    t4 = {}
+    for zc in T4_ZCS:
+        view = r5a_stage.view_1m(zc, device=DEVICE)
+        got = r5a_stage.null_stage(view)
+        want = r5a_stage.null_stage_plain(view)
+        if not torch.equal(got, want):
+            raise AssertionError(f"T4 at zc={zc} != its plain version")
+        ms = timed_ms(lambda: r5a_stage.null_stage(view), 50)
+        nbytes = r5a_stage.bytes_moved(view)
+        plane4 = view.shape[3] * view.shape[4] // 4
+        blocks = (view.shape[1] - 2) * zc * -(-plane4 // 1024)
+        t4[zc] = {"ms": ms, "plain_ms": timed_ms(
+            lambda: r5a_stage.null_stage_plain(view), 10),
+            "bytes": nbytes, "rate_bytes_per_s": nbytes / (ms * 1e-3),
+            "blocks": blocks,
+            "bound": (1e3 * nbytes / HBM_BYTES_PER_S, "bytes")}
+        del view, got, want
+    zs = list(T4_ZCS)
+    # the time against the number of grid cells (cy, cb), ny * zc, as the
+    # JAX tool read its dispatch slope
+    slope = np.polyfit([(r5a_stage.NY * z) for z in zs],
+                       [t4[z]["ms"] for z in zs], 1)[0]
+    rate = max(t4[z]["rate_bytes_per_s"] for z in zs)
+    base = t4[5]
+    rows.append(probe_record(
+        "probe_null_stage", launches,
+        max(r["max_abs_err"] for r in runs["r5a_stage"].values()),
+        base["ms"], base["plain_ms"], base["bound"], zc=5,
+        rate_bytes_per_s=base["rate_bytes_per_s"]))
+    out = {"runs": runs, "launches": launches, "rows": rows, "t2": t2,
+           "t4": {"by_zc": {str(z): {k: v for k, v in t4[z].items()
+                                     if k != "bound"} for z in zs},
+                  "best_rate_bytes_per_s": rate,
+                  "us_per_grid_cell": 1e3 * slope}}
+    say("probes-t4", **out["t4"])
+    say("probes", kernels=[r["name"] for r in rows])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the paths on XLA code in the JAX package: neighbour lists and the sweep
+# ---------------------------------------------------------------------------
+
+# the equilibrated end states of the 1M paths (the main path's classic
+# fluid, transport-full's eDPD and tDPD), from which the neighbour-list,
+# sweep and dd-bucket paths start: the random start's relaxation would
+# take thousands of their slower steps
+FINAL_STATES = {}
+# nlist-path: the JAX defaults' cadence; NL_EQUIL_CHUNKS chunks of 10
+# steps from the main path's fluid (this cadence runs it 0.8% hotter:
+# the transient would stretch the kT trace's correlation), NL_TIMED_CHUNKS
+# timed, then rounds of NL_TRACE_CHUNKS chunks with kT after each, until
+# its average has MIN_N_EFF effective samples (1,600 steps gave 7.9 on an
+# H100)
+NL_EQUIL_CHUNKS, NL_TIMED_CHUNKS = 20, 5
+NL_TRACE_CHUNKS, NL_MAX_TRACE_ROUNDS = 20, 12
+# bucket-paths: the sweep from the equilibrated starts, chunks of
+# SWEEP_EVERY steps; run_adaptive on the neighbour lists for ADAPTIVE_STEPS
+SWEEP_EVERY, SWEEP_TIMED_CHUNKS, ADAPTIVE_STEPS = 2, 2, 40
+# dd-bucket: the classic sweep on two ranks, chunks of DD_EVERY steps
+DD_SWEEP_WARMUP, DD_SWEEP_CHUNKS = 1, 3
+
+
+def resume(state, box=None):
+    """The valid rows of a bucket state, box-wrapped, as a compact state
+    (what a builder's setup takes)."""
+    import torch
+    idx = torch.nonzero(state.mask).squeeze(1)
+    rows = {f: None if getattr(state, f) is None else getattr(state, f)[idx]
+            for f in ("x", "v", "f", "typ", "tag", "image", "mol", "T",
+                      "dTdt", "C", "dCdt")}
+    x, image = state.box.wrap(rows["x"], rows["image"])
+    return state.replace(**{**rows, "x": x, "image": image,
+                            "mask": state.mask[idx]})
+
+
+def kt_of(params, state):
+    from meso_tpu_torch.obs import kinetic_temperature
+    mass = params.mass[state.typ.long()]
+    return kinetic_temperature(state.v, mass, state.mask)
+
+
+def phase_nlist_path():
+    """classic_fluid(l=70) with the JAX package's defaults (force_path
+    "nlist", skin 0.3, cells and lists rebuilt every 10 steps, the TEA
+    tier, 1,029,000 particles), from the main path's equilibrated
+    particles, driven through ``run``: NL_EQUIL_CHUNKS chunks, then
+    NL_TIMED_CHUNKS timed, then kT after each chunk until its average has
+    MIN_N_EFF effective samples;
+    the list build timed alone. Gates: cell and list overflow 0, every
+    value finite, kT within 1% of 1 at 3 sigma, and no kernel launched
+    (the path is plain torch, as it was XLA code in JAX). The skin check
+    is reported: at this cadence the fastest of a million particles
+    outruns skin/2 within every chunk (JAX's own fixed-cadence test runs
+    skin 0.5 and a rebuild every 3 steps)."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch.core.system import rebuild, run, setup
+    from meso_tpu_torch.models.classic import classic_fluid
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    system, params, _ = classic_fluid(l=L_MAIN, device=DEVICE)
+    state = setup(system, params, resume(FINAL_STATES["classic"]))
+    n = int(state.n_valid())
+    build_ms = timed_ms(lambda: rebuild(system, state), 3)
+    state, equil = run(system, params, state, NL_EQUIL_CHUNKS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, timed = run(system, params, state, NL_TIMED_CHUNKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    kts, traced = [], []
+    for _ in range(NL_MAX_TRACE_ROUNDS):
+        for _ in range(NL_TRACE_CHUNKS):
+            state, d = run(system, params, state, 1)
+            traced.append(d)
+            kts.append(kt_of(params, state))
+        kt_mean, kt_sem, n_eff = kt_stats(
+            torch.stack(kts).cpu().numpy().astype(np.float64))
+        if n_eff >= MIN_N_EFF:
+            break
+    torch.cuda.synchronize()
+    launches = read_launches()
+    every = system.cells.rebuild_every
+    diag = {k: torch.cat([equil[k], timed[k]] + [d[k] for d in traced])
+            for k in timed}
+    half_skin = 0.5 * system.cells.skin
+    res = {"force_path": system.force_path, "rng_mode": system.rng_mode,
+           "skin": system.cells.skin, "rebuild_every": every,
+           "nlist_m": system.nlist_m, "capacity": system.cells.capacity,
+           "ncell": list(system.cells.ncell), "n_particles": n,
+           "timed_steps": NL_TIMED_CHUNKS * every, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / (NL_TIMED_CHUNKS * every),
+           "particle_steps_per_s": n * NL_TIMED_CHUNKS * every / wall,
+           "list_build_ms": build_ms, "setup_s": t1 - t0,
+           "cell_overflow": int(diag["cell_overflow"].max()),
+           "nlist_overflow": int(diag["nlist_overflow"].max()),
+           "max_neigh": int(diag["max_neigh"].max()),
+           "skin_violations_timed": int(timed["skin_violation"].sum()),
+           "skin_violations": int(diag["skin_violation"].sum()),
+           "chunks": int(diag["skin_violation"].numel()),
+           "worst_skin_ratio_timed": float(
+               timed["max_disp_sq"].max().sqrt()) / half_skin,
+           "worst_skin_ratio": float(diag["max_disp_sq"].max().sqrt())
+           / half_skin,
+           "kT_mean": kt_mean, "kT_sem": kt_sem, "kT_3sig": 3 * kt_sem,
+           "kT_n_eff": n_eff, "kT_trace_steps": len(kts) * every,
+           "launches": {k: v for k, v in launches.items() if v},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    say("nlist-path", **res)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (state.x, state.v, state.f))
+    checks = {"no kernel launched": not any(launches.values()),
+              "cell_overflow == 0": res["cell_overflow"] == 0,
+              "nlist_overflow == 0": res["nlist_overflow"] == 0,
+              "state finite": finite,
+              "kT_n_eff >= 10": n_eff >= MIN_N_EFF,
+              "|kT - 1| + 3 sigma <= 0.01":
+                  abs(kt_mean - 1.0) + 3 * kt_sem <= 0.01}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"nlist-path failed: {failed}")
+    return res
+
+
+def sweep_path(model):
+    """(system, params, state) of a 1M sweep path at set-up: the builder's
+    system with force_path "bucket" on strict buckets (skin 0.4, a
+    rebuild every SWEEP_EVERY steps, the fast tier), set up on the
+    equilibrated end state of the model's 1M path: classic_fluid (the main
+    path's a, gamma, dt and lambda), edpd_slab and tdpd_diffusion (their
+    transport-full settings)."""
+    from meso_tpu_torch.core.system import fit_capacity, setup
+    from meso_tpu_torch.models.classic import classic_fluid
+    from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
+    kw = dict(force_path="bucket", skin=SKIN, device=DEVICE)
+    if model == "dpd":
+        system, params, _ = classic_fluid(l=L_MAIN, rng_mode="fast",
+                                          rebuild="sort", **kw)
+        system = system.replace(lam=LAM)
+        start = FINAL_STATES["classic"]
+    elif model == "edpd":
+        system, params, _ = edpd_slab(l=L_MAIN, kappa=2.0, cv=30.0,
+                                      t_hot=1.3, t_cold=0.7, **kw)
+        start = FINAL_STATES["edpd"]
+    else:
+        system, params, _ = tdpd_diffusion(l=L_MAIN, kappa_c=2.0, **kw)
+        start = FINAL_STATES["tdpd"]
+    system = system.replace(cells=system.cells.replace(
+        rebuild="sort", rebuild_every=SWEEP_EVERY))
+    state = resume(start)
+    system = fit_capacity(system, state)
+    return system, params, setup(system, params, state)
+
+
+def phase_bucket_paths():
+    """The sweep (force_path "bucket") at 1,029,000 particles for classic
+    DPD, eDPD and tDPD through ``run_bucket_fixed``, each from its 1M
+    path's equilibrated end state: SWEEP_TIMED_CHUNKS chunks of
+    SWEEP_EVERY steps timed, with transport-full's gates (launch counts:
+    the fast tier's hash once per force evaluation and no pair kernel;
+    overflow 0, skin ratio < 1, finite; eDPD T in (0.3, 3), tDPD sum C
+    drift < 1e-4). Then ``run_adaptive`` for ADAPTIVE_STEPS steps on the
+    neighbour lists (classic_fluid's defaults) from the classic start: its
+    rebuild count and worst displacement, overflow 0, the overshoot within
+    skin/2 + 0.1 (the JAX package's own test bound)."""
+    import torch
+    from meso_tpu_torch.core.system import run_adaptive, run_bucket_fixed
+    from meso_tpu_torch.core.system import setup
+    from meso_tpu_torch.models.classic import classic_fluid
+    out = {}
+    for model in ("dpd", "edpd", "tdpd"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        system, params, state = sweep_path(model)
+        n = int(state.n_valid())
+        c0 = float(torch.sum(state.C[state.mask])) if model == "tdpd" \
+            else None
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, diag = run_bucket_fixed(system, params, state,
+                                       SWEEP_TIMED_CHUNKS, SWEEP_EVERY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = read_launches()
+        steps = SWEEP_TIMED_CHUNKS * SWEEP_EVERY
+        # the builder's set-up on its own start, set-up on the resumed
+        # start, and the timed steps
+        force_evals = 2 + steps
+        fields = (state.x, state.v, state.f) + (
+            (state.T,) if model == "edpd" else
+            (state.C,) if model == "tdpd" else ())
+        res = {"model": model, "rows": state.n, "n_particles": n,
+               "capacity": system.cells.capacity, "spill": False,
+               "steps_per_rebuild": SWEEP_EVERY, "timed_steps": steps,
+               "wall_s": wall, "ms_per_step": 1e3 * wall / steps,
+               "particle_steps_per_s": n * steps / wall,
+               "setup_s": t1 - t0,
+               "bucket_overflow": int(diag["bucket_overflow"]),
+               "worst_skin_ratio": float(diag["worst_skin_ratio"]),
+               "force_evals": force_evals,
+               "launches": {k: v for k, v in launches.items() if v},
+               "kT": float(kt_of(params, state)),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        checks = {"no pair kernel launched":
+                  not any(pair_launches(launches).values()),
+                  "hash launches == force evaluations":
+                  launches["particle_hash"] == force_evals,
+                  "bucket_overflow == 0": res["bucket_overflow"] == 0,
+                  "worst_skin_ratio < 1": res["worst_skin_ratio"] < 1.0,
+                  "state finite": all(bool(torch.isfinite(t).all())
+                                      for t in fields)}
+        if model == "edpd":
+            t = state.T[state.mask]
+            res["t_min"], res["t_max"] = float(t.min()), float(t.max())
+            checks["0.3 < T < 3"] = res["t_min"] > 0.3 and res["t_max"] < 3
+        elif model == "tdpd":
+            c1 = float(torch.sum(state.C[state.mask]))
+            res["c_rel_drift"] = abs(c1 - c0) / abs(c0)
+            checks["sum C drift < 1e-4"] = res["c_rel_drift"] < 1e-4
+        say(f"bucket-{model}", **res)
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"bucket-{model} failed: {failed}")
+        out[model] = res
+        del system, params, state
+        torch.cuda.empty_cache()
+
+    reset_launches()
+    system, params, _ = classic_fluid(l=L_MAIN, device=DEVICE)
+    state = setup(system, params, resume(FINAL_STATES["classic"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, diag = run_adaptive(system, params, state, ADAPTIVE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    res = {"steps": ADAPTIVE_STEPS, "n_rebuilds": diag["n_rebuilds"],
+           "worst_disp_at_rebuild": float(diag["worst_disp_at_rebuild"]),
+           "half_skin": 0.5 * system.cells.skin,
+           "cell_overflow": int(diag["cell_overflow"]),
+           "nlist_overflow": int(diag["nlist_overflow"]),
+           "ms_per_step": 1e3 * wall / ADAPTIVE_STEPS,
+           "launches": {k: v for k, v in launches.items() if v}}
+    say("adaptive-nlist", **res)
+    checks = {"no kernel launched": not any(launches.values()),
+              "overflow == 0": res["cell_overflow"] == 0
+              and res["nlist_overflow"] == 0,
+              "rebuilt at least once": res["n_rebuilds"] > 0,
+              "overshoot < skin/2 + 0.1": res["worst_disp_at_rebuild"]
+              < res["half_skin"] + 0.1,
+              "state finite": all(bool(torch.isfinite(t).all())
+                                  for t in (state.x, state.v, state.f))}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"adaptive-nlist failed: {failed}")
+    out["adaptive"] = res
+    return out
+
+
+def phase_dd_bucket():
+    """The classic sweep path (force_path "bucket", strict buckets, the
+    fast tier) under the 1-D decomposition on two gloo ranks sharing the
+    card, with dd-paths' harness: the start is the main path's
+    equilibrated fluid, distributed into two slabs of 25 cell columns; the
+    ranks run DD_SWEEP_WARMUP chunks, then DD_SWEEP_CHUNKS timed ones, of
+    DD_EVERY steps. Gates (dd-paths'): overflow 0, bonded_missing 0, the
+    worst skin ratio < 1, N conserved and tags unique, the state finite,
+    one hash launch per force evaluation and no pair kernel (the sweep is
+    plain torch), and kT within 1% of 1 at the end. The kT average of
+    dd-paths (10 effective samples) would take thousands of these steps;
+    the start is equilibrated, so the end's kT is held to 1% instead. Not
+    a scaling figure."""
+    import torch
+    from meso_tpu_torch.kernels import _build
+    from meso_tpu_torch.models.classic import classic_fluid
+    from meso_tpu_torch.core.system import setup
+    from meso_tpu_torch.parallel import (collect_state, distribute_state,
+                                         launch)
+    _build.build()
+    system, params, _ = classic_fluid(
+        l=L_MAIN, rng_mode="fast", rebuild="sort", force_path="bucket",
+        skin=SKIN, rebuild_every=DD_EVERY, device=DEVICE)
+    system = system.replace(lam=LAM)
+    state = setup(system, params, resume(FINAL_STATES["classic"]))
+    system, dcfg = dd_domain(system, state, DD_RANKS)
+    slabs = distribute_state(state, dcfg, device=DEVICE)
+    n0 = int(state.n_valid())
+    job = dict(system=system, params=launch.params_on(params, "cpu"),
+               states=[launch.on_device(s, "cpu") for s in slabs], dcfg=dcfg,
+               nchunks=DD_SWEEP_CHUNKS, warmup=DD_SWEEP_WARMUP)
+    del state, slabs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per = [r[0] for r in launch.spawn(
+        launch.slab_runs, DD_RANKS, ROOT / "build" / "dd_ranks",
+        args=([job],), device=DEVICE, timeout_s=DD_SPAWN_TIMEOUT_S,
+        op_timeout_s=DD_OP_TIMEOUT_S)]
+    spawn_s = time.perf_counter() - t0
+    final = collect_state([p["state"] for p in per])
+    launches = {k: sum(p["launches"][k] for p in per)
+                for k in per[0]["launches"]}
+    steps = DD_EVERY * (DD_SWEEP_WARMUP + DD_SWEEP_CHUNKS)
+    evals = DD_RANKS * steps
+    timed_steps = DD_EVERY * DD_SWEEP_CHUNKS
+    timed_s = max(p["seconds"] for p in per)
+    m = final.mask
+    n = int(m.sum())
+    kt = float(kt_of(launch.params_on(params, "cpu"), final))
+    diags = {"equil": per[0]["warmup_diag"], "timed": per[0]["diag"]}
+    res = {"path": "classic-bucket", "ranks": DD_RANKS, "n_particles": n,
+           "rows_per_rank": job["states"][0].n,
+           "ncx_local": dcfg.ncx_local, "capacity": dcfg.cells.capacity,
+           "spill": dcfg.cells.spill, "steps_per_rebuild": DD_EVERY,
+           "steps": steps, "timed_steps": timed_steps,
+           "ms_per_step_two_ranks_sharing_one_card":
+               1e3 * timed_s / timed_steps,
+           "particle_steps_per_s": n * timed_steps / timed_s,
+           "diags": diags, "launches": {k: v for k, v in launches.items()
+                                        if v},
+           "force_evaluations": evals, "kT_end": kt, "spawn_s": spawn_s}
+    say("dd-bucket", **res)
+    checks = {
+        "no pair kernel launched": not any(pair_launches(launches).values()),
+        "one hash launch per force evaluation":
+            launches["particle_hash"] == evals,
+        "overflow == 0": all(d["overflow"] == 0 for d in diags.values()),
+        "bonded_missing == 0": all(d["bonded_missing"] == 0
+                                   for d in diags.values()),
+        "worst_skin_ratio < 1": max(d["worst_skin_ratio"]
+                                    for d in diags.values()) < 1.0,
+        "N conserved, tags unique": n == n0 and int(
+            torch.unique(final.tag[m]).numel()) == n,
+        "state finite": all(bool(torch.isfinite(t).all())
+                            for t in (final.x, final.v, final.f)),
+        "|kT - 1| < 0.01 at the end": abs(kt - 1.0) < 0.01}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dd-bucket failed: {failed}")
+    return res
+
+
 def kernel_records(record):
     """The kernels' JSON record: every kernel of the ported paths, with its
     launches on the path that runs it (K1 and the hash: the classic main
@@ -2940,6 +3507,13 @@ def kernel_records(record):
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": None})
+    rows += record["probes"]["rows"]
+    # the measured floor of each byte-bound kernel: its bytes over the
+    # streaming rate the null stage (T4) reached on this card
+    rate = record["probes"]["t4"]["best_rate_bytes_per_s"]
+    for row in rows:
+        if row["bound_by"] == "bytes":
+            row["floor_ms"] = row["bound_ms"] * HBM_BYTES_PER_S / rate
     return {"kernels": rows}
 
 
@@ -2950,6 +3524,9 @@ def main(argv):
     if "--decay-from" in argv:
         record["decay_from"] = phase_decay_from(
             argv[argv.index("--decay-from") + 1])
+    elif "--sweep-only" in argv:
+        record["kernels"] = phase_kernels()
+        record["probes"] = phase_probes(record["kernels"]["l70"])
     elif "--dd-only" not in argv:
         record["kernels"] = phase_kernels()
         record["transport_kernels"] = phase_transport_kernels()
@@ -2957,11 +3534,19 @@ def main(argv):
             record["kernels"]["l70"]["pair_ms"], info["card"])
         record["selector_kernels"] = phase_selector_kernels()
         record["selector_kernels_l70"] = phase_selector_kernels_l70()
-    if "--decay-from" not in argv:
+        record["probes"] = phase_probes(record["kernels"]["l70"])
+    if "--decay-from" not in argv and "--sweep-only" not in argv:
         record["dd_kernels"] = phase_dd_kernels()
     if "--dd-only" in argv:
         record["dd_ring_of_one"] = phase_dd_ring_of_one()
         record["dd_paths"], record["dd_kernels_l70"] = phase_dd_paths()
+    elif "--sweep-only" in argv:
+        record["main_path"] = phase_main_path()
+        record["transport_full"] = {m: phase_transport_full(m)
+                                    for m in ("edpd", "tdpd")}
+        record["nlist_path"] = phase_nlist_path()
+        record["bucket_paths"] = phase_bucket_paths()
+        record["dd_bucket"] = phase_dd_bucket()
     elif "--kernels-only" not in argv and "--decay-from" not in argv:
         record["main_path"] = phase_main_path()
         record["transport_physics"] = phase_transport_physics()
@@ -2980,13 +3565,17 @@ def main(argv):
         record["banded_physics"] = phase_banded_physics()
         record["dd_ring_of_one"] = phase_dd_ring_of_one()
         record["dd_paths"], record["dd_kernels_l70"] = phase_dd_paths()
+        record["nlist_path"] = phase_nlist_path()
+        record["bucket_paths"] = phase_bucket_paths()
+        record["dd_bucket"] = phase_dd_bucket()
         record["profile"] = phase_profile(
             {p: record[f"{p}_full"]["steps_per_rebuild"]
              for p in ("walls", "polymer")})
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    if set(argv) & {"--kernels-only", "--decay-from", "--dd-only"}:
+    if set(argv) & {"--kernels-only", "--decay-from", "--dd-only",
+                    "--sweep-only"}:
         return 0
     print(json.dumps(kernel_records(record)), flush=True)
     print(info["card"], flush=True)

@@ -11,9 +11,11 @@ oracle, cell config, bucket layout and sort rebuild, the classic pair
 kernel (K1), the integrator, thermo observables, the step and the chunked
 run loop, and ``models.classic.classic_fluid`` — the eDPD/tDPD transport
 path (K2, K3), the wall and bonded paths, the fused and banded kernel
-selectors (K5-K7), and the 1-D domain decomposition over
-torch.distributed (``parallel``, with the halo kernels K4 and K6-halo).
-See ROADMAP.md for the rest.
+selectors (K5-K7), the 1-D domain decomposition over
+torch.distributed (``parallel``, with the halo kernels K4 and K6-halo),
+the neighbour-list and sweep force paths ("nlist", "bucket") with their
+loops, and the TPU probes T1-T4 (``probes``). See ROADMAP.md for the
+rest.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,12 @@
 
 Each ``*_from`` function takes a mapping of arrays, or an object whose
 attributes are arrays (a ``meso_tpu`` State, Box, DPDParams, EDPDParams,
-TDPDParams, BondedParams, SystemParams or CellConfig), reads every field
+TDPDParams, BondedParams, SystemParams, CellConfig, CellList or
+NeighborList), reads every field
 through ``numpy.asarray`` and builds the port's counterpart on ``device``.
-``system_from`` carries a JAX ``System`` across, its fixes mapped by class
+``cell_list_from`` and ``neighbor_list_from`` carry the neighbour
+structures (a ``CellList``, a ``NeighborList``) across. ``system_from``
+carries a JAX ``System`` across, its fixes mapped by class
 name onto the port's fixes of the same fields. ``*_to_numpy`` goes the
 other way. The module takes numpy and never imports JAX; the tests feed it
 JAX output.
@@ -22,7 +25,8 @@ from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.core.state import PER_PARTICLE, State
 from meso_tpu_torch.core.system import System, SystemParams
 from meso_tpu_torch.models.transport import FixRegionT
-from meso_tpu_torch.neighbor.cells import CellConfig
+from meso_tpu_torch.neighbor.cells import CellConfig, CellList
+from meso_tpu_torch.neighbor.nlist import NeighborList
 from meso_tpu_torch.ops import fixes as fixmod
 from meso_tpu_torch.ops.bonded import BondedParams
 from meso_tpu_torch.ops.dpd import DPDParams
@@ -253,3 +257,19 @@ def cell_config_from(src) -> CellConfig:
         spill=bool(_get(src, "spill")),
         rebuild=str(_get(src, "rebuild")),
         wrap_at_rebuild=bool(_get(src, "wrap_at_rebuild")))
+
+
+def cell_list_from(src, device=None) -> CellList:
+    return CellList(
+        cid=_tensor(_get(src, "cid"), np.int32, device),
+        bucket_idx=_tensor(_get(src, "bucket_idx"), np.int32, device),
+        bucket_mask=_tensor(_get(src, "bucket_mask"), np.bool_, device),
+        overflow=_tensor(_get(src, "overflow"), np.int64, device),
+        x_ref=_tensor(_get(src, "x_ref"), np.float32, device))
+
+
+def neighbor_list_from(src, device=None) -> NeighborList:
+    return NeighborList(
+        idx=_tensor(_get(src, "idx"), np.int32, device),
+        n_neigh=_tensor(_get(src, "n_neigh"), np.int32, device),
+        overflow=_tensor(_get(src, "overflow"), np.int64, device))

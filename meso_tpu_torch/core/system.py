@@ -6,14 +6,20 @@ fixes -> final_integrate -> end_of_step fixes. Where JAX runs steps under
 ``jit`` and ``lax.scan``, the port runs them in a Python loop; every tensor
 stays on the device and nothing synchronises inside the loop.
 
-Ported: the models "dpd", "edpd" and "tdpd", each with force_path "pallas"
-(``pair_kernel`` "v3": the Hopper kernels K1, K2, K3; "v2": the fused-lane
-selector K5), "pallas_banded" (the banded selectors K6 and K7, strict
-buckets only) and "dense" (the O(N^2) oracles); the bond styles "fene",
-"harmonic" and "wlc_pow" with the membrane terms (``ops/bonded.py``);
-frozen types and the fixes of ``ops/fixes.py``; the loops
-``run_bucket_chunked`` and ``run_bucket``. The force paths "nlist" and
-"bucket" raise ``NotImplementedError`` naming their ROADMAP item.
+Force paths: "pallas" (``pair_kernel`` "v3": the Hopper kernels K1, K2,
+K3; "v2": the fused-lane selector K5), "pallas_banded" (the banded
+selectors K6 and K7, strict buckets only), "bucket" (the 27-offset sweep,
+``ops/sweep.py``, strict buckets only), "nlist" (classic DPD over padded
+neighbour lists rebuilt by ``rebuild``) and "dense" (the O(N^2) oracles),
+for the models "dpd", "edpd" and "tdpd" ("nlist" for "dpd" only, as in the
+JAX package); the bond styles "fene", "harmonic" and "wlc_pow" with the
+membrane terms (``ops/bonded.py``); frozen types and the fixes of
+``ops/fixes.py``. Loops: ``run_chunk`` (no rebuilds), ``run`` (a rebuild of
+cells and lists every ``rebuild_every`` steps), ``run_adaptive`` (a rebuild
+when some particle moved more than skin/2), and on bucket rows
+``run_bucket_fixed``, ``run_bucket_chunked`` and ``run_bucket``. Only
+``run_adaptive`` and ``run_bucket`` read the card on the host inside the
+loop: one scalar a step, to decide on a rebuild.
 """
 
 from __future__ import annotations
@@ -26,16 +32,14 @@ import torch
 
 from meso_tpu_torch.core.integrate import final_integrate, initial_integrate
 from meso_tpu_torch.core.state import State
-from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
-from meso_tpu_torch.ops.dpd import DPDParams, dense_forces, f32
+from meso_tpu_torch.neighbor.cells import (CellConfig, build_cells,
+                                           max_displacement_sq)
+from meso_tpu_torch.neighbor.nlist import build_nlist
+from meso_tpu_torch.ops.dpd import DPDParams, dense_forces, f32, nlist_forces
 
 _BUCKET_PATHS = ("bucket", "pallas", "pallas_banded")
+_FORCE_PATHS = ("dense", "nlist") + _BUCKET_PATHS
 _MODELS = ("dpd", "edpd", "tdpd")
-_TODO = {
-    "nlist": "force_path 'nlist' is not ported yet (ROADMAP Queue 1 item 13)",
-    "bucket": "force_path 'bucket' is not ported yet (ROADMAP Queue 1 "
-              "item 13)",
-}
 
 
 @dataclass(frozen=True)
@@ -129,12 +133,17 @@ def _per_type(table: torch.Tensor, typ: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_fn(system: System):
-    """The bucket kernel's entry point of this model and selector: pallas
-    with pair_kernel "v3*" (K1-K3), pallas with any other pair_kernel (the
-    fused selector K5, as the JAX package routes it) or pallas_banded (K6,
-    K7)."""
+    """The bucket entry point of this model and selector: pallas with
+    pair_kernel "v3*" (K1-K3), pallas with any other pair_kernel (the
+    fused selector K5, as the JAX package routes it), pallas_banded (K6,
+    K7) or the sweep of force_path "bucket"."""
     from meso_tpu_torch.kernels import (pair_dpd, pair_dpd_fused,
                                         pair_dpd_v3, pair_multiphysics)
+    if system.force_path == "bucket":
+        from meso_tpu_torch.ops import bucket_dpd, edpd, tdpd
+        return {"dpd": bucket_dpd.bucket_forces_xla,
+                "edpd": edpd.bucket_forces_edpd,
+                "tdpd": tdpd.bucket_forces_tdpd}[system.model]
     if system.force_path == "pallas_banded":
         return {"dpd": pair_dpd.bucket_forces_pallas,
                 "edpd": pair_multiphysics.bucket_forces_pallas_edpd,
@@ -159,10 +168,10 @@ def compute_forces(system: System, params: SystemParams, state: State,
     reaches the classic v3 kernel; the others always sum it."""
     if system.model not in _MODELS:
         raise ValueError(f"unknown model {system.model!r}")
-    if system.force_path in _TODO:
-        raise NotImplementedError(_TODO[system.force_path])
-    if system.force_path not in ("dense", "pallas", "pallas_banded"):
+    if system.force_path not in _FORCE_PATHS:
         raise ValueError(f"unknown force_path {system.force_path!r}")
+    if system.force_path == "nlist" and system.model != "dpd":
+        raise ValueError(f"{system.model} does not support 'nlist'")
     args = (x, v, state.typ, state.tag, state.mask, state.box, step,
             params.pair, system.dt)
     kw = dict(rng_mode=system.rng_mode, rng_rounds=system.rng_rounds)
@@ -172,6 +181,9 @@ def compute_forces(system: System, params: SystemParams, state: State,
     if system.model == "dpd":
         if dense:
             f, virial, _ = dense_forces(*args, **kw)
+            return f, {"virial": virial}
+        if system.force_path == "nlist":
+            f, virial = nlist_forces(*args, nlist_idx, **kw)
             return f, {"virial": virial}
         if system.force_path == "pallas":
             kw["s_exp"] = system.s_exp
@@ -276,15 +288,31 @@ def make_step(system: System, with_aux: bool = False):
     return step_fn
 
 
+def rebuild(system: System, state: State):
+    """Neighbour rebuild: re-sort the particles by cell, rebuild buckets and
+    lists. Returns (sorted state, list idx (N, M), positions at the
+    rebuild, diag) with diag's capacity counters "cell_overflow",
+    "nlist_overflow" and "max_neigh", all device scalars."""
+    state, cells = build_cells(state, system.cells)
+    nlist = build_nlist(state.x, state.mask, state.box, cells, system.cells,
+                        system.rc_max, system.nlist_m)
+    diag = {"cell_overflow": cells.overflow,
+            "nlist_overflow": nlist.overflow,
+            "max_neigh": torch.max(nlist.n_neigh)}
+    return state, nlist.idx, cells.x_ref, diag
+
+
 def setup(system: System, params: SystemParams, state: State) -> State:
-    """Initial force evaluation (the Verlet::setup analog)."""
+    """Initial force evaluation (the Verlet::setup analog). Bucket paths
+    return the state in bucket rows, "nlist" sorted by cell."""
     if system.force_path in _BUCKET_PATHS:
         from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
         state = to_bucket_state(state, system.cells)
-    elif system.force_path in _TODO:
-        raise NotImplementedError(_TODO[system.force_path])
+    nlist_idx = None
+    if system.force_path == "nlist":
+        state, nlist_idx, _, _ = rebuild(system, state)
     f0, _ = compute_forces(system, params, state, state.x, state.v,
-                           state.step, t=state.T, c=state.C)
+                           state.step, nlist_idx, t=state.T, c=state.C)
     f0 = _post_forces(system, params, state, state.x, state.v, f0)
     return state.replace(f=f0)
 
@@ -315,6 +343,88 @@ def fit_capacity(system: System, state: State) -> System:
         if int(overflow) == 0:
             return system.replace(cells=cfg.replace(capacity=k))
     return system
+
+
+def run_chunk(system: System, params: SystemParams, state: State,
+              nsteps: int) -> State:
+    """Advance ``nsteps`` steps with no rebuild (the dense path's loop)."""
+    step_fn = make_step(system)
+    for _ in range(nsteps):
+        state = step_fn(params, state)
+    return state
+
+
+def run(system: System, params: SystemParams, state: State, nchunks: int):
+    """The production loop: nchunks x (rebuild + rebuild_every steps) on the
+    neighbour lists, with no host synchronisation. Returns (state, diag):
+    per chunk (tensors of nchunks entries) the rebuild's counters and
+    "skin_violation" (1 where some particle moved more than skin/2 since
+    the rebuild) and "max_disp_sq". The dense path runs nchunks x
+    rebuild_every steps and returns an empty diag."""
+    if system.force_path == "dense":
+        every = system.cells.rebuild_every if system.cells else 1
+        return run_chunk(system, params, state, nchunks * every), {}
+    step_fn = make_step(system)
+    half_skin_sq = f32((system.cells.skin * 0.5) ** 2)
+    diags = []
+    for _ in range(nchunks):
+        state, nlist_idx, x_ref, diag = rebuild(system, state)
+        for _ in range(system.cells.rebuild_every):
+            state = step_fn(params, state, nlist_idx)
+        disp2 = max_displacement_sq(state.x, x_ref, state.mask, state.box)
+        diag["skin_violation"] = (disp2 > half_skin_sq).to(torch.int32)
+        diag["max_disp_sq"] = disp2
+        diags.append(diag)
+    return state, {name: torch.stack([d[name] for d in diags])
+                   for name in diags[0]}
+
+
+def run_adaptive(system: System, params: SystemParams, state: State,
+                 nsteps: int):
+    """The displacement-triggered loop on the neighbour lists
+    (``Neighbor::decide``): before each step, re-sort and rebuild when some
+    particle has moved more than skin/2 since the last rebuild, so an
+    overshoot lasts at most one step of motion. The decision reads one
+    device scalar on the host before every step. Returns (state, diag):
+    "n_rebuilds" (a Python int), "worst_disp_at_rebuild" and the largest
+    "cell_overflow" and "nlist_overflow" seen."""
+    step_fn = make_step(system)
+    half_skin_sq = f32((system.cells.skin * 0.5) ** 2)
+    state, nlist_idx, x_ref, d0 = rebuild(system, state)
+    cof, nof = d0["cell_overflow"], d0["nlist_overflow"]
+    n_rebuilds = 0
+    worst2 = torch.zeros((), dtype=torch.float32, device=state.device)
+    for _ in range(nsteps):
+        disp2 = max_displacement_sq(state.x, x_ref, state.mask, state.box)
+        if float(disp2) > half_skin_sq:
+            state, nlist_idx, x_ref, d = rebuild(system, state)
+            cof = torch.maximum(cof, d["cell_overflow"])
+            nof = torch.maximum(nof, d["nlist_overflow"])
+            n_rebuilds += 1
+            worst2 = torch.maximum(worst2, disp2)
+        state = step_fn(params, state, nlist_idx)
+    return state, {"n_rebuilds": n_rebuilds,
+                   "worst_disp_at_rebuild": torch.sqrt(worst2),
+                   "cell_overflow": cof, "nlist_overflow": nof}
+
+
+def run_bucket_fixed(system: System, params: SystemParams, state: State,
+                     nchunks: int, steps_per_chunk: int):
+    """The fixed-cadence bucket loop: nchunks x (bucket rebuild +
+    steps_per_chunk steps) through ``_bucket_chunk``, with no host
+    synchronisation. Returns (state, diag) with the largest
+    "bucket_overflow" and "worst_skin_ratio" (the largest displacement
+    since a rebuild over skin/2) of the chunks."""
+    half_skin = f32(system.cells.skin * 0.5)
+    of_max = torch.zeros((), dtype=torch.int64, device=state.device)
+    worst = torch.zeros((), dtype=torch.float32, device=state.device)
+    for _ in range(nchunks):
+        state, of, disp, _ = _bucket_chunk(system, params, state,
+                                           steps_per_chunk,
+                                           thermo_trace=False)
+        of_max = torch.maximum(of_max, of.to(torch.int64))
+        worst = torch.maximum(worst, disp / half_skin)
+    return state, {"bucket_overflow": of_max, "worst_skin_ratio": worst}
 
 
 def run_bucket(system: System, params: SystemParams, state: State,

@@ -1,0 +1,438 @@
+// Hopper counterparts of the TPU probes under tools/ (sm_90a), each with a
+// plain torch version beside its wrapper in meso_tpu_torch/probes/:
+//
+//   T1a probe_dynroll    tools/toy_dynroll.py:32 k_dynroll
+//   T1b probe_cond       tools/toy_dynroll.py:58 k_cond
+//   T2a,b,d probe_gemm   tools/toy_mxu_tile.py:43,57,97 k_dot_a/_b/_c
+//   T2c probe_tile       tools/toy_mxu_tile.py:71 k_tile
+//   T3  probe_tea_roll   tools/toy_tea_roll.py:64,158 _kernel(_scratch)
+//   T4  probe_null_stage tools/r5a_stage.py:74 null_pallas
+//
+// Each computes what its TPU kernel computes, not how Mosaic lowered it.
+// T2 runs on the tensor cores: mma.sync m16n8k8 in TF32. The products
+// take the 3xTF32 split (a = a_hi + a_lo, each a TF32 value; a.b ~ a_hi
+// b_hi + a_hi b_lo + a_lo b_hi), which keeps ~2^-21 of each product where
+// plain TF32 keeps ~3 digits. The pair tile cancels twice (r^2 = |xi|^2 +
+// |xj|^2 - 2 xi.xj; F = xi sum g - sum g xj), and its closest pairs
+// magnify r^2's error ~1/r^3, beyond what 2^-21 allows: it splits each
+// value into three TF32 pieces (the last exact) and sums the six products
+// above 2^-24 (6xTF32). The probes are launch-bound at their own shapes;
+// T2 is timed at 8,192 tiles (bound by its products) and T4 at K1's 1M
+// view (bound by bytes: it measures the card's streaming rate).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "dpd_common.cuh"
+
+namespace {
+
+using meso::combine_symmetric;
+using meso::tea_v0;
+using meso::u32_to_symmetric_uniform;
+
+// ---------------------------------------------------------------- T1a
+// out[r, c] = sum_i x[r, (c + offs[i]) mod L], the offsets read from
+// device memory at run time and added in their order. One block per row;
+// the row is staged in shared memory (a row of 256 is wider than a warp).
+__global__ void dynroll_kernel(const float* __restrict__ x,
+                               const int32_t* __restrict__ offs, int n_offs,
+                               float* __restrict__ out, int len) {
+  extern __shared__ float row[];
+  const float* xr = x + static_cast<size_t>(blockIdx.x) * len;
+  for (int c = threadIdx.x; c < len; c += blockDim.x) row[c] = xr[c];
+  __syncthreads();
+  for (int c = threadIdx.x; c < len; c += blockDim.x) {
+    float acc = 0.0f;
+    for (int i = 0; i < n_offs; ++i) {
+      int src = (c + offs[i]) % len;
+      if (src < 0) src += len;
+      acc = acc + row[src];
+    }
+    out[static_cast<size_t>(blockIdx.x) * len + c] = acc;
+  }
+}
+
+// ---------------------------------------------------------------- T1b
+// Seven carries start at zero; each of the two branches, taken when its
+// device-read scalar exceeds 4, sets carry i to 0 + x (i + 1) from the
+// zero carries (the TPU kernel's branch binds the initial tuple, so a
+// second taken branch does not accumulate). out = carry0 + carry6.
+__global__ void cond_kernel(const float* __restrict__ x,
+                            const int32_t* __restrict__ jm,
+                            float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float xi = x[i];
+  float c[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) c[k] = 0.0f;
+  const int j0 = jm[0], j1 = jm[1];
+  if (j0 > 4) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) c[k] = 0.0f + xi * static_cast<float>(k + 1);
+  }
+  if (j1 > 4) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) c[k] = 0.0f + xi * static_cast<float>(k + 1);
+  }
+  out[i] = c[0] + c[6];
+}
+
+// ---------------------------------------------------------------- T2
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// hi and lo TF32 parts of a float32
+__device__ __forceinline__ void split_tf32(float f, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(f);
+  lo = to_tf32(f - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k-step of a warp's 16x8 tile, 3xTF32: a[0..3] are A(g, t), A(g+8, t),
+// A(g, t+4), A(g+8, t+4) and b[0..1] B(t, g), B(t+4, g) of the 16x8x8 step
+// (g = lane / 4, t = lane % 4), as float32; c the tile's accumulators
+// (c0, c1: row g, columns 2t, 2t+1; c2, c3: row g+8).
+__device__ __forceinline__ void mma_3xtf32(float c[4], const float a[4],
+                                           const float b[2]) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) split_tf32(b[i], bh[i], bl[i]);
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// The same step to float32 accuracy: each value is the sum of three TF32
+// pieces (p0 = tf32(a), p1 = tf32(a - p0), p2 = tf32(a - p0 - p1), the
+// last exact), and the six products whose size is above 2^-24 of the
+// product are summed, the smallest first. Each product runs from a zero
+// accumulator and is added to c on the CUDA cores, which round to
+// nearest: the tensor core's own accumulation truncates, and six of its
+// roundings per step would add up.
+__device__ __forceinline__ void split3_tf32(float f, uint32_t p[3]) {
+  p[0] = to_tf32(f);
+  const float r = f - __uint_as_float(p[0]);
+  p[1] = to_tf32(r);
+  p[2] = to_tf32(r - __uint_as_float(p[1]));
+}
+
+__device__ __forceinline__ void mma_6xtf32(float c[4], const float a[4],
+                                           const float b[2]) {
+  uint32_t ap[3][4], bp[3][2], q[3];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    split3_tf32(a[i], q);
+    ap[0][i] = q[0];
+    ap[1][i] = q[1];
+    ap[2][i] = q[2];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    split3_tf32(b[i], q);
+    bp[0][i] = q[0];
+    bp[1][i] = q[1];
+    bp[2][i] = q[2];
+  }
+  const int order[6][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_tf32(z, ap[order[t][0]], bp[order[t][1]]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += z[e];
+  }
+}
+
+// C[b] (M x N) = sum_k A[b](m, k) B[b](k, n), with A(m, k) at
+// a[b * sab + m * sam + k * sak] and B(k, n) at b[b * sbb + k * sbk + n * sbn]:
+// the strides give A.B (T2a, T2b) and A^T.B (T2d) alike. M a multiple of 16,
+// N of 8; k beyond K reads 0. Each warp computes 16x8 tiles.
+__global__ void gemm_kernel(const float* __restrict__ a, long long sab,
+                            int sam, int sak, const float* __restrict__ bm,
+                            long long sbb, int sbk, int sbn,
+                            float* __restrict__ c, int m_dim, int n_dim,
+                            int k_dim) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_n = n_dim / 8;
+  const int n_tiles = (m_dim / 16) * tiles_n;
+  const float* ab = a + blockIdx.y * sab;
+  const float* bb = bm + blockIdx.y * sbb;
+  float* cb = c + static_cast<size_t>(blockIdx.y) * m_dim * n_dim;
+  const int warps = blockDim.x >> 5;
+  for (int tile = blockIdx.x * warps + (threadIdx.x >> 5); tile < n_tiles;
+       tile += gridDim.x * warps) {
+    const int m0 = (tile / tiles_n) * 16, n0 = (tile % tiles_n) * 8;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < k_dim; k0 += 8) {
+      const int ka = k0 + t, kb = k0 + t + 4;
+      float av[4], bv[2];
+      av[0] = ka < k_dim ? ab[(m0 + g) * sam + ka * sak] : 0.0f;
+      av[1] = ka < k_dim ? ab[(m0 + g + 8) * sam + ka * sak] : 0.0f;
+      av[2] = kb < k_dim ? ab[(m0 + g) * sam + kb * sak] : 0.0f;
+      av[3] = kb < k_dim ? ab[(m0 + g + 8) * sam + kb * sak] : 0.0f;
+      bv[0] = ka < k_dim ? bb[ka * sbk + (n0 + g) * sbn] : 0.0f;
+      bv[1] = kb < k_dim ? bb[kb * sbk + (n0 + g) * sbn] : 0.0f;
+      mma_3xtf32(acc, av, bv);
+    }
+    cb[(m0 + g) * n_dim + n0 + 2 * t] = acc[0];
+    cb[(m0 + g) * n_dim + n0 + 2 * t + 1] = acc[1];
+    cb[(m0 + g + 8) * n_dim + n0 + 2 * t] = acc[2];
+    cb[(m0 + g + 8) * n_dim + n0 + 2 * t + 1] = acc[3];
+  }
+}
+
+// T2c, one tile of 128 i-rows x 128 j per block, 8 warps of 16 i-rows:
+// ai (128, 8) = [x, |x|^2, pad], bj (8, 128) = [x^T; |x|^2; ones; pad].
+// cross = ai[:, :3] . bj[:3, :] on the tensor cores (6xTF32), then in registers
+// r2 = (ai3 + bj3) - 2 cross, ok = 1e-12 < r2 < 1, w = 1 - r2 rsqrt(r2),
+// g = 25 w rsqrt(r2) (0 where not ok), staged 32 columns at a time through
+// the warp's shared buffer as the A operand of red = g . bj[:5, :]^T; out =
+// ai[:, :3] red[:, 4] - red[:, :3].
+constexpr int kTileRows = 128, kTileCols = 128, kChunk = 32;
+__global__ void tile_kernel(const float* __restrict__ ai,
+                            const float* __restrict__ bj,
+                            float* __restrict__ out) {
+  __shared__ float bs[8 * kTileCols];
+  __shared__ float gs[8][16][kChunk + 1];
+  __shared__ float rs[8][16][8];
+  const float* aib = ai + static_cast<size_t>(blockIdx.x) * kTileRows * 8;
+  const float* bjb = bj + static_cast<size_t>(blockIdx.x) * 8 * kTileCols;
+  for (int i = threadIdx.x; i < 8 * kTileCols; i += blockDim.x)
+    bs[i] = bjb[i];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = warp * 16;
+  // A operand of the first product, fixed for the warp: x of rows g, g+8
+  float a1[4];
+  a1[0] = t < 3 ? aib[(m0 + g) * 8 + t] : 0.0f;
+  a1[1] = t < 3 ? aib[(m0 + g + 8) * 8 + t] : 0.0f;
+  a1[2] = 0.0f;  // columns t + 4 >= 3
+  a1[3] = 0.0f;
+  const float sq_lo = aib[(m0 + g) * 8 + 3], sq_hi = aib[(m0 + g + 8) * 8 + 3];
+  float red[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c0 = 0; c0 < kTileCols; c0 += kChunk) {
+#pragma unroll
+    for (int nt = 0; nt < kChunk / 8; ++nt) {
+      const int n0 = c0 + nt * 8;
+      float cross[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float bv[2];
+      bv[0] = t < 3 ? bs[t * kTileCols + n0 + g] : 0.0f;
+      bv[1] = 0.0f;
+      mma_6xtf32(cross, a1, bv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + (e >> 1) * 8;
+        const int col = n0 + 2 * t + (e & 1);
+        const float r2 = ((e >> 1) ? sq_hi : sq_lo) + bs[3 * kTileCols + col] -
+                         2.0f * cross[e];
+        const bool ok = (r2 < 1.0f) && (r2 > 1e-12f);
+        const float r2s = ok ? r2 : 1.0f;
+        const float rinv = rsqrtf(r2s);
+        const float w = 1.0f - r2s * rinv;
+        gs[warp][row][col - c0] = ok ? 25.0f * w * rinv : 0.0f;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k0 = 0; k0 < kChunk; k0 += 8) {
+      float av[4], bv[2];
+      av[0] = gs[warp][g][k0 + t];
+      av[1] = gs[warp][g + 8][k0 + t];
+      av[2] = gs[warp][g][k0 + t + 4];
+      av[3] = gs[warp][g + 8][k0 + t + 4];
+      // B(k, n) = bj[n, c0 + k0 + k] for n < 5, else 0
+      bv[0] = g < 5 ? bs[g * kTileCols + c0 + k0 + t] : 0.0f;
+      bv[1] = g < 5 ? bs[g * kTileCols + c0 + k0 + t + 4] : 0.0f;
+      mma_6xtf32(red, av, bv);
+    }
+    __syncwarp();
+  }
+  rs[warp][g][2 * t] = red[0];
+  rs[warp][g][2 * t + 1] = red[1];
+  rs[warp][g + 8][2 * t] = red[2];
+  rs[warp][g + 8][2 * t + 1] = red[3];
+  __syncwarp();
+  float* ob = out + static_cast<size_t>(blockIdx.x) * kTileRows * 3;
+  for (int e = lane; e < 16 * 3; e += 32) {
+    const int row = e / 3, d = e % 3;
+    ob[(m0 + row) * 3 + d] =
+        aib[(m0 + row) * 8 + d] * rs[warp][row][4] - rs[warp][row][d];
+  }
+}
+
+// ---------------------------------------------------------------- T3
+// stack (3, K, L) f32: the mask, the tags' bits, the tags as values; one
+// thread per (k, lane). For each offset o (in order), a row r of the
+// offset's row set sits at lane (c + o) mod L; the pair's keys are
+// (min, max) of the two tags (ordering 1) or (own tag, row tag) (0); the
+// mixer gives theta: TEA of ``rounds`` rounds keyed by (step, seed)
+// (mixer 0) or pair_uniform_fast of the two keys (1); where mask[k, c] *
+// mask[r, c + o] > 0.5 theta joins the sum. Row set 0 is row 0; row set 1
+// is every row, in groups of 8 rows, offsets inside a group.
+__global__ void tea_roll_kernel(const float* __restrict__ stack,
+                                const int32_t* __restrict__ iscal,
+                                const int32_t* __restrict__ offs, int n_offs,
+                                float* __restrict__ out, int k_dim, int len,
+                                int mixer, int rounds, int ordering,
+                                int all_rows) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k_dim * len) return;
+  const int c = i % len;
+  const float* mask = stack;
+  const int32_t* tags = reinterpret_cast<const int32_t*>(stack + k_dim * len);
+  const uint32_t step = static_cast<uint32_t>(iscal[0]);
+  const uint32_t seed = static_cast<uint32_t>(iscal[1]);
+  const int32_t self = tags[i];
+  const float m_self = mask[i];
+  float acc = 0.0f;
+  const int groups = all_rows ? k_dim / 8 : 1;
+  const int per_group = all_rows ? 8 : 1;
+  for (int gr = 0; gr < groups; ++gr) {
+    for (int o = 0; o < n_offs; ++o) {
+      int src = (c + offs[o]) % len;
+      if (src < 0) src += len;
+      for (int r = 0; r < per_group; ++r) {
+        const int row = gr * 8 + r;
+        const int32_t other = tags[row * len + src];
+        uint32_t lo, hi;
+        if (ordering) {
+          lo = static_cast<uint32_t>(self < other ? self : other);
+          hi = static_cast<uint32_t>(self < other ? other : self);
+        } else {
+          lo = static_cast<uint32_t>(self);
+          hi = static_cast<uint32_t>(other);
+        }
+        const float theta =
+            mixer == 1 ? u32_to_symmetric_uniform(combine_symmetric(lo, hi))
+                       : u32_to_symmetric_uniform(
+                             tea_v0(lo, hi, step, seed, rounds));
+        acc = acc + (m_self * mask[row * len + src] > 0.5f ? theta : 0.0f);
+      }
+    }
+  }
+  out[i] = acc;
+}
+
+// ---------------------------------------------------------------- T4
+// view (n_chan, ny + 2, zc, plane) f32, plane = kp * l_lane; every one of
+// the 4 x 2 output planes of grid cell (cy, cb) is view[0, cy + 1, cb] +
+// view[1, cy + 2, cb]. Block (cell, slice) of the TPU grid's (cy, cb)
+// cells: 16-byte loads of both planes, each output element written once.
+__global__ void null_stage_kernel(const float4* __restrict__ view,
+                                  float4* __restrict__ out, int ny, int zc,
+                                  int plane4, int slice4) {
+  const int cell = blockIdx.x;
+  const int cy = cell / zc, cb = cell % zc;
+  const size_t band = static_cast<size_t>(zc) * plane4;
+  const float4* mid = view + (cy + 1) * band + static_cast<size_t>(cb) * plane4;
+  const float4* down = view + static_cast<size_t>(ny + 2) * band +
+                       (cy + 2) * band + static_cast<size_t>(cb) * plane4;
+  const size_t out_plane = static_cast<size_t>(ny) * band;  // one (c, h)
+  float4* ob = out + static_cast<size_t>(cy) * band +
+               static_cast<size_t>(cb) * plane4;
+  const int first = static_cast<int>(blockIdx.y) * slice4;
+  const int end = min(plane4, first + slice4);
+  for (int e = first + static_cast<int>(threadIdx.x); e < end;
+       e += blockDim.x) {
+    const float4 a = mid[e], b = down[e];
+    const float4 s = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) ob[p * out_plane + e] = s;
+  }
+}
+
+}  // namespace
+
+extern "C" int meso_probe_dynroll(const void* x, const void* offs, int n_offs,
+                                  void* out, int rows, int len,
+                                  void* stream) {
+  if (rows > 0 && len > 0)
+    dynroll_kernel<<<rows, 256, len * sizeof(float),
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const int32_t*>(offs),
+        n_offs, static_cast<float*>(out), len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int meso_probe_cond(const void* x, const void* jm, void* out,
+                               int n, void* stream) {
+  if (n > 0)
+    cond_kernel<<<(n + 255) / 256, 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const int32_t*>(jm),
+        static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int meso_probe_gemm(const void* a, long long sab, int sam, int sak,
+                               const void* b, long long sbb, int sbk, int sbn,
+                               void* c, int batch, int m, int n, int k,
+                               void* stream) {
+  if (batch > 0 && m > 0 && n > 0) {
+    const int warps = 8;
+    const int tiles = (m / 16) * (n / 8);
+    const dim3 grid((tiles + warps - 1) / warps, batch);
+    gemm_kernel<<<grid, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(a), sab, sam, sak,
+        static_cast<const float*>(b), sbb, sbk, sbn, static_cast<float*>(c),
+        m, n, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int meso_probe_tile(const void* ai, const void* bj, void* out,
+                               int batch, void* stream) {
+  if (batch > 0)
+    tile_kernel<<<batch, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ai), static_cast<const float*>(bj),
+        static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int meso_probe_tea_roll(const void* stack, const void* iscal,
+                                   const void* offs, int n_offs, void* out,
+                                   int k, int len, int mixer, int rounds,
+                                   int ordering, int all_rows,
+                                   void* stream) {
+  const int n = k * len;
+  if (n > 0)
+    tea_roll_kernel<<<(n + 255) / 256, 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(stack), static_cast<const int32_t*>(iscal),
+        static_cast<const int32_t*>(offs), n_offs, static_cast<float*>(out),
+        k, len, mixer, rounds, ordering, all_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int meso_probe_null_stage(const void* view, void* out, int ny,
+                                     int zc, int plane, void* stream) {
+  const int plane4 = plane / 4;
+  if (ny > 0 && zc > 0 && plane4 > 0) {
+    const int threads = 256, per_block = threads * 4;
+    const int slices = (plane4 + per_block - 1) / per_block;
+    const dim3 grid(ny * zc, slices);
+    null_stage_kernel<<<grid, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(view), static_cast<float4*>(out), ny, zc,
+        plane4, per_block);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

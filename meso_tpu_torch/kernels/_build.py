@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     # tag, h, n, step, seed, rounds, stream
     "meso_particle_hash": (_P, _P, _I, _U, _U, _I, _P),
@@ -64,6 +65,21 @@ SIGNATURES = {
     # rounds, stream
     "meso_pair_brick": (_I, _I) + (_P,) * 8 + (_I,) * 5 + (_P, _I)
     + (_P,) * 5 + (_I,) * 5 + (_F,) * 6 + (_U, _U, _I, _P),
+    # the probes (csrc/probes.cu)
+    # x, offs, n_offs, out, rows, len, stream
+    "meso_probe_dynroll": (_P, _P, _I, _P, _I, _I, _P),
+    # x, jm, out, n, stream
+    "meso_probe_cond": (_P, _P, _P, _I, _P),
+    # a, sab, sam, sak, b, sbb, sbk, sbn, c, batch, m, n, k, stream
+    "meso_probe_gemm": (_P, _L, _I, _I, _P, _L, _I, _I, _P, _I, _I, _I, _I,
+                        _P),
+    # ai, bj, out, batch, stream
+    "meso_probe_tile": (_P, _P, _P, _I, _P),
+    # stack, iscal, offs, n_offs, out, k, len, mixer, rounds, ordering,
+    # all_rows, stream
+    "meso_probe_tea_roll": (_P, _P, _P, _I, _P) + (_I,) * 6 + (_P,),
+    # view, out, ny, zc, plane, stream
+    "meso_probe_null_stage": (_P, _P, _I, _I, _I, _P),
 }
 
 

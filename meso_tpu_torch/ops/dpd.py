@@ -3,7 +3,9 @@
     F_ij = [a w - gamma w^2 (e.v_ij) + sigma w theta_ij / sqrt(dt)] e,
     w(r) = 1 - r/rc,  sigma^2 = 2 gamma kT.
 
-``dense_forces`` is the port's own O(N^2) oracle for the bucket kernel.
+``dense_forces`` is the port's own O(N^2) oracle for the bucket kernel;
+``nlist_forces`` sums the same pair term over a padded neighbour list
+(force_path "nlist").
 Special-bonds exclusions (``special_weight``, ``build_exclusions``) scale
 the whole pair force and virial of a bonded pair by one weight.
 """
@@ -150,6 +152,41 @@ def _theta_dense(tag, step: int, params: DPDParams, rng_mode: str,
         h = rngmod.particle_hash(tag, step, params.seed, rounds=rng_rounds)
         return rngmod.pair_uniform_fast(h[:, None], h[None, :])
     raise ValueError(f"unknown rng_mode {rng_mode!r}")
+
+
+def nlist_forces(x, v, typ, tag, mask, box: Box, step: int,
+                 params: DPDParams, dt: float, nlist_idx,
+                 rng_mode: str = "tea", rng_rounds: int = 8):
+    """O(N M) forces over a padded full neighbour matrix (N, M), whose pad
+    entries are N: one writer per particle, the noise recomputed per pair
+    from the tags. Lists reach rc + skin; the cutoff test of
+    ``pair_force`` drops the skin shell. Returns (f, virial)."""
+    n = x.shape[0]
+    valid = nlist_idx < n
+    j = torch.clamp(nlist_idx, max=n - 1).long()             # (N, M)
+    dr = box.min_image(x[:, None, :] - x[j])
+    vij = v[:, None, :] - v[j]
+    tag_j = tag[j]
+    if rng_mode == "tea":
+        theta = rngmod.pair_uniform_tea(tag[:, None], tag_j, step,
+                                        params.seed, rounds=rng_rounds)
+    elif rng_mode == "fast":
+        h = rngmod.particle_hash(tag, step, params.seed, rounds=rng_rounds)
+        theta = rngmod.pair_uniform_fast(h[:, None], h[j])
+    else:
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
+    ti, tj = typ[:, None].long(), typ[j].long()
+    rc = torch.where(valid & mask[:, None], params.rc[ti, tj],
+                     torch.zeros((), device=x.device))
+    f_pair, vir_half = pair_force(dr, vij, theta, params.a[ti, tj],
+                                  params.gamma[ti, tj], params.sigma[ti, tj],
+                                  rc, 1.0 / math.sqrt(dt),
+                                  params.s_exp)
+    if params.excl is not None:
+        w_sp = special_weight(tag[:, None], tag_j, params)
+        f_pair = f_pair * w_sp[..., None]
+        vir_half = vir_half * w_sp
+    return torch.sum(f_pair, dim=1), torch.sum(vir_half)
 
 
 def dense_forces(x, v, typ, tag, mask, box: Box, step: int,

@@ -10,9 +10,9 @@ energy:    C_v dT_i/dt = sum_j (q^C + q^V + q^R)
            q^R = sqrt(2 k_ij) w zeta dt^-1/2, zeta antisymmetric.
 
 ``dense_forces_edpd`` is the port's own O(N^2) oracle. The bucket kernel
-(K2) is ``kernels.pair_dpd_v3.bucket_forces_pallas_v3_edpd``; the XLA sweep
-``bucket_forces_edpd`` (force_path "bucket") is not ported yet (ROADMAP
-Queue 1 item 13).
+(K2) is ``kernels.pair_dpd_v3.bucket_forces_pallas_v3_edpd``;
+``bucket_forces_edpd`` is the 27-offset sweep over the same rows
+(force_path "bucket").
 """
 
 from __future__ import annotations
@@ -136,3 +136,25 @@ def dense_forces_edpd(x, v, t, typ, tag, mask, box: Box, step: int,
                               1.0 / math.sqrt(dt))
     return (torch.sum(f_p, dim=1), torch.sum(q_p, dim=1) / params.cv,
             torch.sum(vir))
+
+
+def bucket_forces_edpd(x, v, t, typ, tag, mask, box: Box, step: int,
+                       params: EDPDParams, dt: float, cfg, rng_rounds: int = 8,
+                       rng_mode: str = "fast"):
+    """eDPD forces over bucket-resident rows through the sweep
+    (``ops/sweep.py``), strict buckets only. Returns (f (nr, 3), dTdt (nr,),
+    virial)."""
+    from meso_tpu_torch.ops.bucket_dpd import model_channels, require_strict
+    from meso_tpu_torch.ops.sweep import edpd_pair_fn, sweep
+    require_strict(cfg, "bucket_forces_edpd")
+    nr = x.shape[0]
+    ch = model_channels(x, v, typ, tag, mask, step, params, cfg, {"T": t},
+                        rng_mode, rng_rounds)
+    acc = sweep(ch, cfg.ncell, cfg.capacity, (False, False, False),
+                box.lengths,
+                edpd_pair_fn(params, dt, params.n_types > 1,
+                             rng_mode=rng_mode, step=step,
+                             rng_rounds=rng_rounds), 5)
+    f = torch.stack([acc[0].reshape(nr), acc[1].reshape(nr),
+                     acc[2].reshape(nr)], dim=-1)
+    return f, acc[4].reshape(nr) / params.cv, torch.sum(acc[3])

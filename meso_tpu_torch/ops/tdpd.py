@@ -8,9 +8,9 @@ transport: dC_i/dt = sum_j (Q^D + Q^R) per species s,
            total of each species is conserved exactly.
 
 ``dense_forces_tdpd`` is the port's own O(N^2) oracle. The bucket kernel
-(K3) is ``kernels.pair_dpd_v3.bucket_forces_pallas_v3_tdpd``; the XLA sweep
-``bucket_forces_tdpd`` (force_path "bucket") is not ported yet (ROADMAP
-Queue 1 item 13).
+(K3) is ``kernels.pair_dpd_v3.bucket_forces_pallas_v3_tdpd``;
+``bucket_forces_tdpd`` is the 27-offset sweep over the same rows
+(force_path "bucket"), held to the dense oracle.
 """
 
 from __future__ import annotations
@@ -150,3 +150,34 @@ def dense_forces_tdpd(x, v, c, typ, tag, mask, box: Box, step: int,
     q_p = tdpd_flux(dr, c[:, None, :], c[None, :, :], xi, params.kappa_c,
                     params.eps_c, params.rcc, params.s1, dt_inv_sqrt, valid)
     return torch.sum(f_p, dim=1), torch.sum(q_p, dim=1), torch.sum(vir)
+
+
+def bucket_forces_tdpd(x, v, c, typ, tag, mask, box: Box, step: int,
+                       params: TDPDParams, dt: float, cfg, rng_rounds: int = 8,
+                       rng_mode: str = "fast"):
+    """tDPD forces over bucket-resident rows through the sweep, strict
+    buckets only; rcc must not exceed the largest rc, which the stencil
+    covers. s_exp and a multi-type rc table act as in the dense oracle
+    (the JAX package's sweep departs from it there: ROADMAP Queue 3, R8
+    and R9). Returns (f (nr, 3), dCdt (nr, S), virial)."""
+    from meso_tpu_torch.ops.bucket_dpd import model_channels, require_strict
+    from meso_tpu_torch.ops.sweep import sweep, tdpd_pair_fn
+    require_strict(cfg, "bucket_forces_tdpd")
+    if params.rcc > params.rc_max:
+        raise ValueError(
+            "bucket tDPD path requires rcc <= rc (rc-based stencil): "
+            f"rcc={params.rcc}, rc={params.rc_max}")
+    nr = x.shape[0]
+    ns = params.n_species
+    ch = model_channels(x, v, typ, tag, mask, step, params, cfg,
+                        {f"C{s}": c[:, s] for s in range(ns)}, rng_mode,
+                        rng_rounds)
+    acc = sweep(ch, cfg.ncell, cfg.capacity, (False, False, False),
+                box.lengths,
+                tdpd_pair_fn(params, dt, ns, params.n_types > 1,
+                             rng_mode=rng_mode, step=step,
+                             rng_rounds=rng_rounds), 4 + ns)
+    f = torch.stack([acc[0].reshape(nr), acc[1].reshape(nr),
+                     acc[2].reshape(nr)], dim=-1)
+    dcdt = torch.stack([acc[4 + s].reshape(nr) for s in range(ns)], dim=-1)
+    return f, dcdt, torch.sum(acc[3])

@@ -17,8 +17,10 @@ full-stencil kernels keep one writer per row, so ghost forces need no
 reverse path. Where JAX runs the ranks as one ``shard_map`` program, here
 each rank is a process (``parallel/launch.py``) that calls
 ``run_distributed`` on its own slab; a ring of one rank runs in-process.
-The XLA sweep (force_path "bucket", ``_halo_forces``,
-``_halo_forces_model``) is not ported (ROADMAP Queue 1 item 13).
+The other force paths ("bucket", and the eDPD/tDPD models under
+"pallas_banded", as in the JAX package) run the 27-offset sweep of
+``ops/sweep.py`` over the x-extended planes (``_halo_forces``,
+``_halo_forces_model``), strict buckets only.
 """
 
 from __future__ import annotations
@@ -36,11 +38,9 @@ from meso_tpu_torch.core.system import (_FIT_EXTRA_SLOTS, System,
 from meso_tpu_torch.kernels.common import check_strict
 from meso_tpu_torch.neighbor.bucket_layout import _place, n_rows, spill_assign
 from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
+from meso_tpu_torch.ops.fixes import FixMomentumZero
+from meso_tpu_torch.ops.bucket_dpd import fast_hash, require_strict
 from meso_tpu_torch.parallel.comm import Pending, Ring
-
-_SWEEP = ("the distributed XLA sweep (force_path 'bucket') is not ported yet "
-          "(ROADMAP Queue 1 item 13); use force_path 'pallas' or "
-          "'pallas_banded'")
 
 
 @dataclass(frozen=True)
@@ -173,14 +173,6 @@ def _migrate(state: State, dcfg: DomainConfig, ring: Ring):
 # halo exchange + force evaluation
 # ---------------------------------------------------------------------------
 
-def _halo_forces(state, system, params, dcfg, ring, step, x, v):
-    raise NotImplementedError(_SWEEP)
-
-
-def _halo_forces_model(state, system, params, dcfg, ring, step, x, v, t, c):
-    raise NotImplementedError(_SWEEP)
-
-
 def _halo_columns_1d(channels: dict, dcfg: DomainConfig, ring: Ring,
                      width: int = 1) -> Pending:
     """x-halo exchange of every channel on the ring, with the x of the
@@ -249,16 +241,86 @@ def _split_calls(fn, channels: dict, cfg: CellConfig, xr: int,
     return (*outs, inner[-1] + left[-1] + right[-1])
 
 
-def _hash_rows(state: State, system: System, params: SystemParams,
-               step: int):
-    """The fast RNG tier's per-particle hash of the local rows at ``step``
-    (one launch of particle_hash on the card), shipped with the halo to
-    the kernels; None for TEA."""
-    from meso_tpu_torch.kernels.pair_dpd_v3 import particle_hash_v3
-    if system.rng_mode != "fast":
-        return None
-    return particle_hash_v3(state.tag, step, params.pair.seed,
-                            system.rng_rounds)
+def _sweep_calls(channels: dict, state: State, dcfg: DomainConfig,
+                 ring: Ring, pair_fn, n_out: int):
+    """The sweep over the slab's planes extended by one halo column a side
+    (x is the halo axis, y and z roll), in one call whatever dd_overlap
+    says: split into interior and edge columns, its sums over the
+    neighbour slots round differently in about 2% of the rows (1 ulp), so
+    the split is not kept. Returns (f, the other sums flattened to rows,
+    ..., virial)."""
+    from meso_tpu_torch.ops.sweep import sweep
+    require_strict(dcfg.cells, "the distributed sweep")
+    cfg = dcfg.cells
+    padded = _halo_channels_1d(channels, dcfg, ring)
+    acc = sweep(padded, cfg.ncell, cfg.capacity, (False, False, True),
+                state.box.lengths, pair_fn, n_out)
+    f = torch.stack([a.reshape(-1) for a in acc[:3]], dim=-1)
+    return (f, *[a.reshape(-1) for a in acc[4:]], torch.sum(acc[3]))
+
+
+def _halo_forces(state: State, system: System, params: SystemParams,
+                 dcfg: DomainConfig, ring: Ring, step: int, x, v):
+    """Distributed classic forces through the sweep (force_path "bucket"):
+    types, s_exp and exclusions as on one card, in the system's RNG tier
+    (the JAX package's version draws the fast tier whatever rng_mode says:
+    ROADMAP Queue 3, R13). Returns (f, virial)."""
+    from meso_tpu_torch.ops.bucket_dpd import exclusion_channels
+    from meso_tpu_torch.ops.sweep import classic_pair_fn, make_channels
+
+    cfg = dcfg.cells
+    pair = params.pair
+    h = fast_hash(state.tag, step, params.pair, system.rng_mode,
+                  system.rng_rounds)
+    channels = make_channels(x, v, state.tag, state.mask, h, {},
+                             cfg.ncell, cfg.capacity)
+    if pair.n_types > 1:
+        channels["typ"] = state.typ.reshape(channels["tag"].shape)
+    channels.update(exclusion_channels(state.tag, pair,
+                                       channels["tag"].shape))
+    pair_fn = classic_pair_fn(
+        pair, system.dt, rng_mode=system.rng_mode, step=step,
+        rng_rounds=system.rng_rounds, multitype=pair.n_types > 1,
+        n_excl=0 if pair.excl is None else pair.excl.shape[1])
+    return _sweep_calls(channels, state, dcfg, ring, pair_fn, 4)
+
+
+def _halo_forces_model(state: State, system: System, params: SystemParams,
+                       dcfg: DomainConfig, ring: Ring, step: int, x, v, t,
+                       c):
+    """Distributed eDPD/tDPD forces through the sweep. Returns (f, aux
+    with the virial and dTdt or dCdt)."""
+    from meso_tpu_torch.ops.sweep import (edpd_pair_fn, make_channels,
+                                          tdpd_pair_fn)
+
+    cfg = dcfg.cells
+    pair = params.pair
+    kw = dict(rng_mode=system.rng_mode, step=step,
+              rng_rounds=system.rng_rounds)
+    if system.model == "edpd":
+        extra = {"T": t}
+        pair_fn = edpd_pair_fn(pair, system.dt, pair.n_types > 1, **kw)
+        n_out = 5
+    else:
+        if pair.rcc > pair.rc_max:
+            raise ValueError(
+                "the tDPD sweep requires rcc <= rc (rc-based stencil): "
+                f"rcc={pair.rcc}, rc={pair.rc_max}")
+        ns = pair.n_species
+        extra = {f"C{s}": c[:, s] for s in range(ns)}
+        pair_fn = tdpd_pair_fn(pair, system.dt, ns, pair.n_types > 1, **kw)
+        n_out = 4 + ns
+    h = fast_hash(state.tag, step, params.pair, system.rng_mode,
+                  system.rng_rounds)
+    channels = make_channels(x, v, state.tag, state.mask, h, extra,
+                             cfg.ncell, cfg.capacity)
+    if pair.n_types > 1:
+        channels["typ"] = state.typ.reshape(channels["tag"].shape)
+    f, *rest, virial = _sweep_calls(channels, state, dcfg, ring, pair_fn,
+                                    n_out)
+    if system.model == "edpd":
+        return f, {"virial": virial, "dTdt": rest[0] / pair.cv}
+    return f, {"virial": virial, "dCdt": torch.stack(rest, dim=-1)}
 
 
 def _halo_forces_model_pallas(state: State, system: System,
@@ -280,8 +342,9 @@ def _halo_forces_model_pallas(state: State, system: System,
         ns = params.pair.n_species
         for sidx in range(ns):
             extra[f"C{sidx}"] = c[:, sidx]
-    channels = make_channels(x, v, state.tag, state.mask,
-                             _hash_rows(state, system, params, step), extra,
+    h = fast_hash(state.tag, step, params.pair, system.rng_mode,
+                  system.rng_rounds)
+    channels = make_channels(x, v, state.tag, state.mask, h, extra,
                              cfg.ncell, cfg.capacity)
     n_types = params.pair.n_types
     if n_types > 1:
@@ -308,7 +371,7 @@ def _halo_forces_pallas(state: State, system: System, params: SystemParams,
     the x-extended brick (force_path "pallas", with the border/inner split
     under ``dd_overlap``) or K6-halo (force_path "pallas_banded": strict
     buckets, one halo column a side; no exclusions). Either route takes
-    the per-particle hash shipped with the halo (``_hash_rows``)."""
+    the per-particle hash shipped with the halo (``fast_hash``)."""
     from meso_tpu_torch.kernels._brick import exclusion_rows
     from meso_tpu_torch.kernels.pair_dpd import halo_forces_pallas_1d
     from meso_tpu_torch.kernels.pair_dpd_fused import halo_forces_pallas_fused
@@ -316,8 +379,9 @@ def _halo_forces_pallas(state: State, system: System, params: SystemParams,
 
     cfg = dcfg.cells
     pair = params.pair
-    channels = make_channels(x, v, state.tag, state.mask,
-                             _hash_rows(state, system, params, step), {},
+    h = fast_hash(state.tag, step, params.pair, system.rng_mode,
+                  system.rng_rounds)
+    channels = make_channels(x, v, state.tag, state.mask, h, {},
                              cfg.ncell, cfg.capacity)
     n_types = pair.n_types
     if n_types > 1:
@@ -466,7 +530,10 @@ def _step_local(system: System, params: SystemParams, dcfg: DomainConfig,
                                                 zero),
             dCdt=aux["dCdt"])
     for fx in system.fixes:
-        if hasattr(fx, "end_of_step"):
+        if isinstance(fx, FixMomentumZero):   # the drift of the whole box
+            new_state = fx.end_of_step(system, params, new_state,
+                                       reduce_sum=ring.all_sum)
+        elif hasattr(fx, "end_of_step"):
             new_state = fx.end_of_step(system, params, new_state)
     return new_state, missing
 

@@ -23,6 +23,7 @@ from meso_tpu_torch.core.system import make_step
 from meso_tpu_torch.models import polymer as tpoly
 from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
 from meso_tpu_torch.ops import bonded as tb
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 MELT = dict(l=6.0, n_chains=3, chain_len=10, special_weight=0.5)
 

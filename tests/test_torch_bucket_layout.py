@@ -20,6 +20,7 @@ from meso_tpu.neighbor.cells import max_displacement_sq as j_max_disp
 from meso_tpu_torch import bridge
 from meso_tpu_torch.neighbor import bucket_layout as tbl
 from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 FIELDS = ("x", "v", "f", "tag", "typ", "mol", "image", "mask")
 

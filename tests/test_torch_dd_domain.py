@@ -35,6 +35,7 @@ from meso_tpu_torch import bridge
 from meso_tpu_torch.parallel import (Ring, build_domain, collect_state,
                                      distribute_state, launch)
 from meso_tpu_torch.parallel.domain import _migrate, fit_slab_capacity
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 SIDE, RC, SKIN, DENSITY = 1.2, 1.0, 0.2, 3.0
 SPAWN_TIMEOUT_S = 120.0

@@ -39,6 +39,7 @@ from meso_tpu_torch.kernels.pair_dpd_fused import halo_forces_pallas_fused
 from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops.sweep import make_channels
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 STEP = 42
 SIDE, SKIN, DENSITY = 1.3, 0.3, 2.0

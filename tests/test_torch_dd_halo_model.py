@@ -29,6 +29,7 @@ from meso_tpu_torch import bridge
 from meso_tpu_torch.kernels.pair_dpd_fused import \
     halo_forces_pallas_model_fused
 from test_torch_dd_halo_kernels import STEP, halo_case, with_jax_hash
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 
 def model_params(model):

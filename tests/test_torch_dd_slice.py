@@ -30,6 +30,7 @@ from meso_tpu.ops.dpd import DPDParams as JDPDParams
 from meso_tpu_torch import bridge
 from meso_tpu_torch.parallel import (build_domain, collect_state,
                                      distribute_state, launch)
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 N_DEV, CHUNKS, EVERY = 4, 3, 5
 SIDE, RC, SKIN, DENSITY = 1.2, 1.0, 0.2, 3.0

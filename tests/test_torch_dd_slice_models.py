@@ -25,6 +25,7 @@ from meso_tpu.ops.tdpd import TDPDParams as JTDPDParams
 from test_torch_dd_slice import (CHUNKS, DENSITY, EVERY, RC, SKIN,
                                  assert_matches, jax_reference, jax_setup,
                                  port_job, run_jobs, skinny_box)
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 
 def transport_case(model, spill):

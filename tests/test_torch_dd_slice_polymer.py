@@ -35,6 +35,7 @@ from meso_tpu.ops.dpd import build_exclusions as j_build_exclusions
 from test_torch_dd_slice import (CHUNKS, DENSITY, EVERY, RC, SKIN,
                                  assert_matches, by_tag, jax_reference,
                                  jax_setup, port_job, run_jobs, skinny_box)
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 
 def polymer_case(special_weight=0.25):

@@ -29,6 +29,7 @@ from meso_tpu_torch.models.walls import couette, poiseuille
 from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
 from meso_tpu_torch.obs import profiles as tprof
 from meso_tpu_torch.ops import fixes as tfixes
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 BUILDERS = {"poiseuille": j_poiseuille, "couette": j_couette}
 

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it never imports JAX, its kernels are
-never replaced by their plain versions off the CPU, and unported paths
-raise instead of running something else."""
+"""The port stands alone: importing it never imports JAX or the JAX
+package's tools, its kernels are never replaced by their plain versions
+off the CPU, and paths the JAX package refuses raise instead of running
+something else."""
 
 import inspect
 import subprocess
@@ -29,6 +30,20 @@ from meso_tpu_torch.ops.dpd import DPDParams
 from meso_tpu_torch.ops.edpd import EDPDParams
 from meso_tpu_torch.ops.tdpd import TDPDParams
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for each port test file (every test_torch_*.py
+    imports this fixture): the suite runs its files side by side in
+    several worker processes, and a torch thread pool as wide as the
+    machine in each of them oversubscribes the cores many times over
+    (files ran 10-80 times slower than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parents[1]
 MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.core.system", "meso_tpu_torch.core.rng",
@@ -48,7 +63,17 @@ MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.models.polymer", "meso_tpu_torch.obs.viscosity",
            "meso_tpu_torch.ops.sweep", "meso_tpu_torch.parallel",
            "meso_tpu_torch.parallel.comm", "meso_tpu_torch.parallel.domain",
-           "meso_tpu_torch.parallel.launch"]
+           "meso_tpu_torch.parallel.launch", "meso_tpu_torch.neighbor.cells",
+           "meso_tpu_torch.ops.bucket_dpd", "meso_tpu_torch.probes",
+           "meso_tpu_torch.probes.toy_dynroll",
+           "meso_tpu_torch.probes.toy_mxu_tile",
+           "meso_tpu_torch.probes.toy_tea_roll",
+           "meso_tpu_torch.probes.r5a_stage"]
+# top-level names that the port must never bring in: JAX, the JAX package,
+# and the JAX package's probes under tools/ (whether imported as a package
+# or by path)
+FORBIDDEN = ("jax", "jaxlib", "meso_tpu", "tools", "toy_dynroll",
+             "toy_mxu_tile", "toy_tea_roll", "r5a_stage")
 
 
 def test_import_leaves_jax_out():
@@ -56,7 +81,7 @@ def test_import_leaves_jax_out():
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
-            "             in ('jax', 'jaxlib', 'meso_tpu'))\n"
+            f"             in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -68,7 +93,7 @@ def test_no_jax_in_sources():
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):
-                assert words[1].split(".")[0] not in ("jax", "meso_tpu"), \
+                assert words[1].split(".")[0] not in FORBIDDEN, \
                     f"{path}: {line}"
 
 
@@ -145,7 +170,8 @@ def test_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "meso_tpu_torch"
     assert [p.name for p in _build.sources()] == ["pair_brick.cu",
                                                   "pair_dpd_v3.cu",
-                                                  "pair_transport_v3.cu"]
+                                                  "pair_transport_v3.cu",
+                                                  "probes.cu"]
     assert [p.name for p in _build.headers()] == ["dpd_common.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS
@@ -185,13 +211,18 @@ def _system_case(change):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(model="edpd", force_path="bucket"), "Queue 1 item 13"),
-    (dict(force_path="nlist", wrap_mode="step"), "Queue 1 item 13"),
-    (dict(force_path="bucket"), "Queue 1 item 13"),
+    (dict(model="edpd", force_path="nlist", wrap_mode="step"),
+     "edpd does not support 'nlist'"),
+    (dict(model="tdpd", force_path="nlist", wrap_mode="step"),
+     "tdpd does not support 'nlist'"),
+    (dict(force_path="bucket", cells=CellConfig(
+        ncell=(5, 5, 5), capacity=8, spill=True)), "strict buckets"),
 ])
 def test_unported_paths_raise(change, match):
+    """The neighbour-list path takes classic DPD only and the sweep strict
+    buckets only, as in the JAX package: both raise, naming the reason."""
     system, params, state = _system_case(change)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         setup(system, params, state)
 
 

@@ -19,6 +19,7 @@ from meso_tpu_torch.core.system import run_bucket
 from meso_tpu_torch.models import polymer as tpoly
 from test_torch_bonded import (_assert_same_bonded, _assert_same_start,
                                _bonded_pair, _close)
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 MEMBRANE = dict(l=10.0, radius=2.5, subdiv=1)
 

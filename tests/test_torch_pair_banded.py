@@ -31,6 +31,7 @@ from meso_tpu_torch.ops.edpd import EDPDParams
 from meso_tpu_torch.ops.tdpd import TDPDParams
 from test_torch_pair_fused import (assert_classic_match, bucket_rows,
                                    general_params, jax_rows)
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 STEP = 42
 

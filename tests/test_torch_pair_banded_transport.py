@@ -25,6 +25,7 @@ from meso_tpu.ops.tdpd import TDPDParams as JTDPDParams
 from meso_tpu_torch import bridge
 from meso_tpu_torch.kernels import pair_multiphysics as tm
 from test_torch_pair_fused import assert_transport_match, bucket_rows, jax_rows
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 NS = 10
 TWO = dict(a=[[25.0, 35.0], [30.0, 40.0]], rc=[[1.0, 0.8], [0.8, 1.0]],

@@ -24,6 +24,7 @@ from meso_tpu.ops.dpd import dense_forces as j_dense
 from meso_tpu_torch import bridge
 from meso_tpu_torch.kernels.pair_dpd_v3 import bucket_forces_pallas_v3
 from meso_tpu_torch.ops.dpd import DPDParams, dense_forces
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 J_PARAMS = JDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=77)
 STEP = 42

@@ -36,6 +36,7 @@ from meso_tpu_torch import bridge
 from meso_tpu_torch.kernels.pair_dpd_fused import bucket_forces_pallas_fused
 from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
 from meso_tpu_torch.neighbor.cells import CellConfig
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 STEP = 42
 SKIN = 0.3

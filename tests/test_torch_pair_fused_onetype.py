@@ -19,6 +19,7 @@ from meso_tpu.ops.dpd import DPDParams as JDPDParams
 from meso_tpu_torch import bridge
 from meso_tpu_torch.kernels.pair_dpd_fused import bucket_forces_pallas_fused
 from test_torch_pair_fused import assert_classic_match, bucket_rows, jax_rows
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 STEP = 7
 

@@ -27,6 +27,7 @@ from meso_tpu.ops.edpd import EDPDParams as JEDPDParams
 from meso_tpu_torch import bridge
 from meso_tpu_torch.kernels import pair_dpd_fused as tf
 from test_torch_pair_fused import assert_transport_match, bucket_rows, jax_rows
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("spill,rng_mode,n_types", [

@@ -29,6 +29,7 @@ from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
                                                 bucket_forces_v3_plain)
 from meso_tpu_torch.ops.dpd import (build_exclusions, dense_forces,
                                     special_weight)
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 STEP = 42
 L, N = 7.0, 1029

@@ -9,6 +9,7 @@ import torch
 
 from meso_tpu.core import rng as jrng
 from meso_tpu_torch.core import rng as trng
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 TAGS = np.array([1, 2, 3, 7, 100, 4097, 2 ** 24 - 2, 2 ** 24 - 1, 2 ** 24,
                  2 ** 24 + 1, 2 ** 31 - 2, 2 ** 31 - 1], np.int32)

@@ -27,6 +27,7 @@ from meso_tpu.neighbor.bucket_layout import to_bucket_state as j_to_bucket
 from meso_tpu.neighbor.cells import CellConfig as JCellConfig
 from meso_tpu_torch import bridge
 from meso_tpu_torch.core.system import run_bucket_chunked
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 L, SKIN, EVERY = 6.5, 0.4, 2
 FIELD = {"dpd": (), "edpd": ("T", "dTdt"), "tdpd": ("C", "dCdt")}

@@ -23,6 +23,7 @@ import pytest
 from meso_tpu.kernels import pair_dpd as j_pair_dpd
 from meso_tpu.kernels import pair_multiphysics as j_pair_multiphysics
 from test_torch_selector_slice import check_chunk, jax_start
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("model", ["dpd", "edpd", "tdpd"])

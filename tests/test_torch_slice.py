@@ -27,6 +27,7 @@ from meso_tpu_torch.core.system import System, _bucket_chunk, \
 from meso_tpu_torch.models.classic import classic_fluid
 from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
 from meso_tpu_torch.obs import kinetic_temperature, total_momentum
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 LAM = 0.65
 FLUID = dict(l=8.0, rng_mode="fast", wrap_mode="rebuild", rebuild="sort",

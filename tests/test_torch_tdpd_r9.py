@@ -31,6 +31,7 @@ from meso_tpu_torch import bridge
 from meso_tpu_torch.kernels import pair_dpd_fused, pair_dpd_v3
 from meso_tpu_torch.kernels import pair_multiphysics
 from test_torch_pair_fused import bucket_rows, jax_rows
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 NS = 3
 

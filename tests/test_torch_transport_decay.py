@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_SEEDS = range(12)

@@ -31,6 +31,7 @@ from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3_edpd,
                                                 bucket_forces_pallas_v3_tdpd)
 from meso_tpu_torch.neighbor.bucket_layout import to_bucket_state
 from meso_tpu_torch.neighbor.cells import CellConfig
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 SKIN = 0.3
 NS = 10

@@ -32,6 +32,7 @@ from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3_edpd,
                                                 bucket_forces_pallas_v3_tdpd)
 from meso_tpu_torch.ops.edpd import EDPDParams, dense_forces_edpd
 from meso_tpu_torch.ops.tdpd import TDPDParams, dense_forces_tdpd
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 J_EDPD = JEDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.5, cv=10.0,
                            seed=7)

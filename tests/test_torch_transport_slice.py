@@ -37,6 +37,7 @@ from meso_tpu_torch.models.transport import (FixRegionT, edpd_slab,
                                              tdpd_diffusion)
 from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
 from meso_tpu_torch.obs import kinetic_energy, potential_energy_dense
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 EDPD_DECK = dict(l=8.0, kappa=2.0, cv=30.0, t_hot=1.3, t_cold=0.7)
 TDPD_DECK = dict(l=8.0, eps_c=0.3)

@@ -23,6 +23,7 @@ import torch
 
 from meso_tpu_torch.core.system import run_bucket
 from meso_tpu_torch.models.walls import poiseuille
+from test_torch_imports import one_torch_thread  # noqa: F401
 
 W, H = 1.0, 6.0
 
