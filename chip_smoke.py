@@ -11,10 +11,14 @@ Phases, one line of output each (any failure raises and exits non-zero):
 2. build: compile meso_tpu_torch/csrc/*.cu with nvcc for sm_90a, one nvcc
    per source, all at once;
 3. kernels against their plain torch versions on the card: the hash kernel
-   bitwise; the classic pair kernel K1 at l=8 in every covered case
-   (fast/tea RNG x spill/strict x min-image/no-min-image x virial on/off)
+   bitwise; the classic pair kernel K1 (on cell tiles) at l=8 in every
+   covered case (fast/tea RNG x spill/strict x min-image/no-min-image x
+   virial on/off), with a ragged last run of cx (l=41) and in dense
+   fluids whose rows fill their in-range lists (rho 9 and 32, and
+   capacities of 128 spill and 192 strict, which take one block an SM),
    and at the 1M-particle main-path shape (L=70, 2,000,000 bucket rows),
-   with both times;
+   with both times, its tile plan and its slot tests a valid row; then at
+   L=70 through the TEA tier and on strict buckets;
 4. kernels-transport-l8: the uniform_stream device helper bitwise; the eDPD
    and tDPD kernels K2 and K3 against their plain versions and the port's
    dense oracles in every covered case (fast/tea x spill/strict x
@@ -51,7 +55,7 @@ Phases, one line of output each (any failure raises and exits non-zero):
 10. kernels-general-l70: the general variant on each new 1M path's inputs
    at set-up (walls-full, polymer-full), with its time, the plain time,
    K1's one-type time on the same rows and the bound; K1's one-type time
-   at the main-path shape held within 3% of PR 2's on the same card;
+   at the main-path shape below PR 6's on the same card;
 11. walls-physics: the gates of tests/physics/test_walls.py at their deck
    sizes through the kernels and run_bucket (Poiseuille parabola and
    viscosity, Couette profile, frozen walls, Mueller-Plathe viscosity on
@@ -173,11 +177,11 @@ TDPD_DECAY_RATE_JAX = 0.3591
 TDPD_DECAY_RATE_TOL, TDPD_DECAY_MEAN_TOL = 0.05, 0.03
 # --decay-from: the card's rate against JAX's from the same start
 DECAY_SAME_START_TOL = 0.02
-# K1's one-type time through the wrapper at the main-path shape, PR 2's
-# runs (PERF.md), and the card it was taken on: on that card it may move
-# by at most 3% while K1's other cases are added beside it
-K1_PR2_MS, K1_TIME_TOL = 2.30, 0.03
-K1_PR2_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+# K1's one-type time through the wrapper at the main-path shape before its
+# cell tiles (the fastest of PR 6's runs, PERF.md) and the card it was
+# taken on: on that card the tile kernel must take less
+K1_PR6_MS = 2.288
+K1_PR6_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 # walls-full and polymer-full: equilibration with run_bucket, then a timed
 # window of run_bucket_chunked in blocks, at the first rebuild cadence
 # whose worst skin ratio stays below 1
@@ -290,10 +294,12 @@ def kt_stats(kts):
     return float(kts.mean()), float(kts.std(ddof=1) / np.sqrt(n_eff)), n_eff
 
 
-def bucket_case(l, n, spill, min_image, rebuild="sort", seed=3):
+def bucket_case(l, n, spill, min_image, rebuild="sort", seed=3,
+                capacity=None):
     """A bucket state on the card whose rows moved since the rebuild:
     unwrapped by <= skin/2 (no-min-image layout) or box-wrapped (min-image
-    layout, so rows that crossed the boundary sit in their old cells)."""
+    layout, so rows that crossed the boundary sit in their old cells).
+    ``capacity`` overrides the builder's K, as a user may."""
     import torch
     from meso_tpu_torch.core.box import Box
     from meso_tpu_torch.core.state import create_random
@@ -304,7 +310,8 @@ def bucket_case(l, n, spill, min_image, rebuild="sort", seed=3):
     st = create_random(gen, n, box)
     cfg = CellConfig.for_box([l] * 3, 1.0, n / l ** 3, skin=SKIN, spill=spill,
                              rebuild_every=EVERY, rebuild=rebuild,
-                             wrap_at_rebuild=not min_image)
+                             wrap_at_rebuild=not min_image,
+                             capacity=capacity)
     bst = to_bucket_state(st, cfg)
     x = bst.x + torch.clamp(0.04 * bst.v, -SKIN / 2, SKIN / 2) \
         * bst.mask[:, None]
@@ -558,9 +565,14 @@ def phase_build():
     return {"seconds": secs, "ptxas": ptxas}
 
 
-def phase_kernels():
+def phase_kernels(ptxas=()):
+    """The hash and K1 against their plain versions (phase 3); ``ptxas``
+    is the build's register report, whose K1 lines the record keeps."""
+    import dataclasses
+
     import torch
     from meso_tpu_torch.core import rng
+    from meso_tpu_torch.kernels import cell_tiles
     from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
                                                     bucket_forces_v3_plain,
                                                     particle_hash_v3)
@@ -581,44 +593,72 @@ def phase_kernels():
                                rng.particle_hash(edge, hstep, seed)):
                 raise AssertionError(f"hash kernel != plain (seed {seed})")
 
-    # pair kernel at l = 8 in every covered case
-    for spill in (True, False):
-        for min_image in (False, True):
-            bst, cfg = bucket_case(8.0, 1536, spill, min_image)
-            m = bst.mask
-            idx = torch.nonzero(m).squeeze(1)
-            for rng_mode in ("fast", "tea"):
-                args = (bst.x, bst.v, bst.typ, bst.tag, bst.mask, bst.box,
-                        step, params, 0.01, cfg)
-                f_k, vir_k = bucket_forces_pallas_v3(*args, rng_mode=rng_mode)
-                f_k2, vir_off = bucket_forces_pallas_v3(
-                    *args, rng_mode=rng_mode, need_virial=False)
-                torch.cuda.synchronize()
-                f_p, vir_p = bucket_forces_v3_plain(
-                    bst.x, bst.v, bst.tag, bst.mask, bst.box, step, params,
-                    0.01, cfg, rng_mode)
-                label = f"l8 {rng_mode} spill={spill} min_image={min_image}"
-                err, rel, vrel = compare_forces(f_k, vir_k, f_p, vir_p, m,
-                                                min_image, label)
-                if not torch.equal(f_k, f_k2) or vir_off.item() != 0.0:
-                    raise AssertionError(f"{label}: need_virial=False "
-                                         "changed the forces")
-                # and the port's dense O(N^2) oracle over the valid rows
-                f_d, vir_d, _ = dense_forces(
-                    bst.x[idx], bst.v[idx], bst.typ[idx], bst.tag[idx],
-                    bst.mask[idx], bst.box, step, params, 0.01,
-                    rng_mode=rng_mode)
-                f_k_valid = f_k[idx]
-                drel = ((f_k_valid - f_d).abs().max()
-                        / f_d.abs().max()).item()
-                if drel > (2e-5 if min_image else 5e-5):
-                    raise AssertionError(f"{label}: vs dense rel {drel:.3g}")
-                out["l8"].append({"case": label, "max_abs_err": err,
-                                  "rel": rel, "virial_rel": vrel,
-                                  "dense_rel": drel})
+    # pair kernel at l = 8 in every covered case, then the cases of K1's
+    # cell tiles: a ragged last run of cx (l = 41: ncx 29, runs of 15 and
+    # 14 columns), and dense fluids whose rows have more in-range partners
+    # than a thread's list holds (the flush path): rho 9 (K 64 and 72), a
+    # user capacity of 128 spill and 192 strict at rho 9, and rho 32 (K 216
+    # spill); capacities that large take one block an SM
+    cases = [(8.0, 1536, spill, min_image, rng_mode, "l8", None)
+             for spill in (True, False) for min_image in (False, True)
+             for rng_mode in ("fast", "tea")]
+    cases += [(41.0, 206763, True, False, "fast", "ragged", None),
+              (41.0, 206763, False, True, "tea", "ragged", None),
+              (8.0, 4608, True, False, "fast", "dense", None),
+              (8.0, 4608, False, True, "tea", "dense", None),
+              (8.0, 4608, True, False, "tea", "dense", 128),
+              (8.0, 4608, False, False, "fast", "dense", 192),
+              (8.0, 16384, True, True, "fast", "dense", None)]
+    for l, n_p, spill, min_image, rng_mode, kind, capacity in cases:
+        bst, cfg = bucket_case(l, n_p, spill, min_image, capacity=capacity)
+        m = bst.mask
+        idx = torch.nonzero(m).squeeze(1)
+        args = (bst.x, bst.v, bst.typ, bst.tag, bst.mask, bst.box,
+                step, params, 0.01, cfg)
+        f_k, vir_k = bucket_forces_pallas_v3(*args, rng_mode=rng_mode)
+        f_k2, vir_off = bucket_forces_pallas_v3(
+            *args, rng_mode=rng_mode, need_virial=False)
+        torch.cuda.synchronize()
+        f_p, vir_p = bucket_forces_v3_plain(
+            bst.x, bst.v, bst.tag, bst.mask, bst.box, step, params,
+            0.01, cfg, rng_mode)
+        label = (f"{kind} l={l:g} n={n_p} K={cfg.capacity} {rng_mode} "
+                 f"spill={spill} min_image={min_image}")
+        err, rel, vrel = compare_forces(f_k, vir_k, f_p, vir_p, m,
+                                        min_image, label)
+        if not torch.equal(f_k, f_k2) or vir_off.item() != 0.0:
+            raise AssertionError(f"{label}: need_virial=False "
+                                 "changed the forces")
+        plan = cell_tiles.plan(cfg.capacity, 2 if spill else 1, cfg.ncell)
+        rec = {"case": label, "max_abs_err": err, "rel": rel,
+               "virial_rel": vrel, "capacity": cfg.capacity,
+               "ncell": list(cfg.ncell), "width": plan.width,
+               "runs": plan.n_xtiles, "blocks_per_sm": plan.blocks_per_sm(),
+               "max_partners": max_partners(bst, cfg)}
+        if kind == "ragged" and cfg.ncell[0] % plan.width == 0:
+            raise AssertionError(f"{label}: no ragged run ({plan})")
+        if kind == "dense" and rec["max_partners"] <= plan.list_cap:
+            raise AssertionError(f"{label}: no row fills its list")
+        if cfg.capacity >= 128 and plan.blocks_per_sm() != 1:
+            raise AssertionError(f"{label}: not one block an SM ({plan})")
+        if l == 8.0 and n_p <= 4608:
+            # and the port's dense O(N^2) oracle over the valid rows
+            f_d, vir_d, _ = dense_forces(
+                bst.x[idx], bst.v[idx], bst.typ[idx], bst.tag[idx],
+                bst.mask[idx], bst.box, step, params, 0.01,
+                rng_mode=rng_mode)
+            rec["dense_rel"] = ((f_k[idx] - f_d).abs().max()
+                                / f_d.abs().max()).item()
+            if rec["dense_rel"] > (2e-5 if min_image else 5e-5):
+                raise AssertionError(f"{label}: vs dense rel "
+                                     f"{rec['dense_rel']:.3g}")
+        out["l8"].append(rec)
     say("kernels-l8", cases=len(out["l8"]),
         worst_rel=max(c["rel"] for c in out["l8"]),
-        worst_dense_rel=max(c["dense_rel"] for c in out["l8"]))
+        worst_dense_rel=max(c.get("dense_rel", 0.0) for c in out["l8"]),
+        tiles=[{k: c[k] for k in ("case", "width", "runs", "blocks_per_sm",
+                                  "max_partners")}
+               for c in out["l8"][8:]])
 
     # the main-path shape: L = 70, spill, fast, no min-image
     n = int(round(3.0 * L_MAIN ** 3))
@@ -656,9 +696,19 @@ def phase_kernels():
     pair_bound = row_bound(bst.mask, [bst.x, bst.v, bst.tag, bst.tag],
                            [f_k], OPS_PER_PAIR["pair_dpd_v3"] * n_rc)
     hash_bound = bound([bst.tag], [bst.tag], bst.n * 8 * HASH_OPS_PER_ROUND)
+    plan = cell_tiles.plan(cfg.capacity, 2, cfg.ncell)
+    n_valid = int(bst.mask.sum())
     out["l70"] = {"n": n, "nr": bst.n, "ncell": list(cfg.ncell),
                   "capacity": cfg.capacity, "pairs_in_rc": n_rc,
                   "candidates": candidates,
+                  # slot tests a valid row: the tile walk's (occupied
+                  # slots only) and for_each_pair's (all 45 K slots)
+                  "tests_per_valid_row": (candidates + n_valid) / n_valid,
+                  "slot_tests_per_row_pr6": 45 * cfg.capacity,
+                  "plan": dataclasses.asdict(plan),
+                  "blocks_per_sm": plan.blocks_per_sm(),
+                  "ptxas": [ln for ln in ptxas
+                            if "pair_dpd_v3_kernel" in ln],
                   "max_abs_err": err, "rel": rel,
                   "virial_rel": vrel, "hash_max_abs_err": hash_err, **ms,
                   "pair_bound_ms": pair_bound[0],
@@ -666,7 +716,40 @@ def phase_kernels():
                   "hash_bound_ms": hash_bound[0],
                   "hash_bound_by": hash_bound[1]}
     say("kernels-l70", **out["l70"])
+    del f_p, f_k, bst
+
+    # L = 70 through the TEA tier, and on strict buckets (K 28)
+    for label, spill, rng_mode in (("L70 tea", True, "tea"),
+                                   ("L70 strict", False, "fast")):
+        bst, cfg = bucket_case(L_MAIN, n, spill, False)
+        args = (bst.x, bst.v, bst.typ, bst.tag, bst.mask, bst.box, step,
+                params, 0.01, cfg)
+        f_k, vir_k = bucket_forces_pallas_v3(*args, rng_mode=rng_mode)
+        f_p, vir_p = bucket_forces_v3_plain(bst.x, bst.v, bst.tag, bst.mask,
+                                            bst.box, step, params, 0.01, cfg,
+                                            rng_mode)
+        err, rel, vrel = compare_forces(f_k, vir_k, f_p, vir_p, bst.mask,
+                                        False, label)
+        plan = cell_tiles.plan(cfg.capacity, 2 if spill else 1, cfg.ncell)
+        out[label.replace(" ", "_")] = {
+            "capacity": cfg.capacity, "max_abs_err": err, "rel": rel,
+            "virial_rel": vrel, "plan": dataclasses.asdict(plan),
+            "ms": timed_ms(lambda: bucket_forces_pallas_v3(
+                *args, rng_mode=rng_mode, need_virial=False), 20)}
+        say(f"kernels-{label.replace(' ', '-')}",
+            **out[label.replace(" ", "_")])
+        del f_k, f_p, bst
     return out
+
+
+def max_partners(bst, cfg):
+    """The most in-range partners (rc = 1) any valid row has."""
+    import torch
+    from meso_tpu_torch.kernels.pair_dpd_v3 import _stencil_pairs
+    counts = torch.zeros(bst.n, dtype=torch.int64, device=bst.x.device)
+    for row, _, _, _ in _stencil_pairs(bst.x, bst.mask, bst.box, cfg, 1.0):
+        counts.index_add_(0, row, torch.ones_like(row))
+    return int(counts.max())
 
 
 def phase_transport_kernels():
@@ -1389,8 +1472,8 @@ def phase_general_kernels(k1_ms, card):
     covered combination, then on each new 1M path's own inputs, with its
     time, the plain time, K1's one-type time on the same rows and the
     bound. ``k1_ms`` is K1's one-type time at the main-path shape (phase
-    3): on the card PR 2 measured it on (``card``, from nvidia-smi) it must
-    stay within K1_TIME_TOL of PR 2's."""
+    3): on the card PR 6 measured it on (``card``, from nvidia-smi) it must
+    be below PR 6's, the one-thread-a-row kernel's."""
     import torch
     from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
                                                     bucket_forces_v3_plain)
@@ -1449,9 +1532,9 @@ def phase_general_kernels(k1_ms, card):
         worst_virial_rel=max(c["virial_rel"] for c in out["l8"]),
         debug_pairs="bitwise")
 
-    rec = {"k1_main_shape_ms": k1_ms, "k1_pr2_ms": K1_PR2_MS,
-           "k1_change": k1_ms / K1_PR2_MS - 1.0,
-           "k1_pr2_card": K1_PR2_CARD, "card": card}
+    rec = {"k1_main_shape_ms": k1_ms, "k1_pr6_ms": K1_PR6_MS,
+           "k1_change": k1_ms / K1_PR6_MS - 1.0,
+           "k1_pr6_card": K1_PR6_CARD, "card": card}
     for name, build in (("walls", walls_path), ("polymer", polymer_path)):
         system, sparams, st = build()
         cfg, pair = system.cells, sparams.pair
@@ -1495,10 +1578,9 @@ def phase_general_kernels(k1_ms, card):
         del system, sparams, st, f_k, f_p, d_k, d_p, args, plain_args
     out["l70"] = rec
     say("kernels-general-l70", **rec)
-    if card == K1_PR2_CARD and abs(rec["k1_change"]) > K1_TIME_TOL:
-        raise AssertionError(f"K1's one-type time {k1_ms:.4f} ms moved by "
-                             f"{100 * rec['k1_change']:+.2f}% from PR 2's "
-                             f"{K1_PR2_MS} ms on the same card")
+    if card == K1_PR6_CARD and k1_ms >= K1_PR6_MS:
+        raise AssertionError(f"K1's one-type time {k1_ms:.4f} ms is not "
+                             f"below PR 6's {K1_PR6_MS} ms on the same card")
     return out
 
 
@@ -3018,7 +3100,8 @@ def phase_probes(k1):
         rows.append(probe_record(
             f"probe_{key}", launches, max(run_err, rec["max_abs_err"]), ms,
             timed_ms(lambda: plain(*args), 3), bnd, lib, batch=PROBE_BATCH))
-        t2[key] = {**rec, "ms": ms}
+        t2[key] = {**rec, "ms": ms, "library_ms": lib,
+                   "vs_library": None if lib is None else ms / lib}
     pairs = PROBE_BATCH * 128 * 128
     t2["tile_ns_per_candidate_pair"] = 1e6 * t2["tile"]["ms"] / pairs
     t2["k1_ns_per_candidate_test"] = 1e6 * k1["pair_ms"] / k1["candidates"]
@@ -3439,7 +3522,10 @@ def kernel_records(record):
          "launches": k1_launches["pair_dpd_v3"],
          "max_abs_err": l70["max_abs_err"], "ms": l70["pair_ms"],
          "plain_ms": l70["pair_plain_ms"], "bound_ms": l70["pair_bound_ms"],
-         "bound_by": l70["pair_bound_by"], "library_ms": None},
+         "bound_by": l70["pair_bound_by"], "library_ms": None,
+         "width": l70["plan"]["width"],
+         "smem_bytes": l70["plan"]["smem_bytes"],
+         "tests_per_valid_row": l70["tests_per_valid_row"]},
         {"name": "particle_hash", "route": "cuda", "source": k1_src,
          "replaces": "meso_tpu/kernels/pair_dpd_v3.py:161",
          "launches": k1_launches["particle_hash"],
@@ -3525,10 +3611,10 @@ def main(argv):
         record["decay_from"] = phase_decay_from(
             argv[argv.index("--decay-from") + 1])
     elif "--sweep-only" in argv:
-        record["kernels"] = phase_kernels()
+        record["kernels"] = phase_kernels(record["build"]["ptxas"])
         record["probes"] = phase_probes(record["kernels"]["l70"])
     elif "--dd-only" not in argv:
-        record["kernels"] = phase_kernels()
+        record["kernels"] = phase_kernels(record["build"]["ptxas"])
         record["transport_kernels"] = phase_transport_kernels()
         record["general_kernels"] = phase_general_kernels(
             record["kernels"]["l70"]["pair_ms"], info["card"])

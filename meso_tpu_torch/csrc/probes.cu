@@ -17,8 +17,17 @@
 // magnify r^2's error ~1/r^3, beyond what 2^-21 allows: it splits each
 // value into three TF32 pieces (the last exact) and sums the six products
 // above 2^-24 (6xTF32). The probes are launch-bound at their own shapes;
-// T2 is timed at 8,192 tiles (bound by its products) and T4 at K1's 1M
-// view (bound by bytes: it measures the card's streaming rate).
+// T2 is timed at 8,192 tiles and T4 at K1's 1M view (bound by bytes: it
+// measures the card's streaming rate).
+//
+// T2's products (gemm_kernel) at 8,192 tiles are bound by bytes: T2a and
+// T2d by their 537 MB of output (128 x 128 a tile, from 8 KB of input),
+// T2b by its 537 MB of input G (64 KB a tile). Each block stages its A and
+// B once with 16-byte cp.async copies into padded shared tiles (no bank
+// conflicts on the fragment reads) and writes its output through a
+// per-warp shared slab as 16-byte row segments, so that every byte moves
+// once in whole sectors (PERF.md: the former kernel reread A and B per
+// 16 x 8 tile and stored each accumulator with its own 4-byte store).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -159,42 +168,115 @@ __device__ __forceinline__ void mma_6xtf32(float c[4], const float a[4],
   }
 }
 
-// C[b] (M x N) = sum_k A[b](m, k) B[b](k, n), with A(m, k) at
-// a[b * sab + m * sam + k * sak] and B(k, n) at b[b * sbb + k * sbk + n * sbn]:
-// the strides give A.B (T2a, T2b) and A^T.B (T2d) alike. M a multiple of 16,
-// N of 8; k beyond K reads 0. Each warp computes 16x8 tiles.
-__global__ void gemm_kernel(const float* __restrict__ a, long long sab,
-                            int sam, int sak, const float* __restrict__ bm,
-                            long long sbb, int sbk, int sbn,
-                            float* __restrict__ c, int m_dim, int n_dim,
-                            int k_dim) {
-  const int lane = threadIdx.x & 31;
+// 16-byte copy from device to shared memory that bypasses the registers
+// (cp.async, sm_80 and later), and the wait for all of a thread's copies.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// Row strides (in floats) of the staged tiles, padded so that a warp's
+// fragment reads hit 32 distinct banks: an operand read at (row g, column
+// t) (g < 8, t < 4), A stored M x K, needs a stride of 4 mod 8; one read at
+// (row t, column g), B stored K x N, A stored K x M and the output slab,
+// 8 or 24 mod 32.
+__host__ __device__ inline int ld_gt(int cols) { return cols + 4; }
+__host__ __device__ inline int ld_tg(int cols) {
+  return cols + (cols % 16 == 0 ? 8 : 16);
+}
+
+// The output columns a warp stages and writes at once, and the block's
+// dynamic shared memory: A, B, then one 16-row slab a warp.
+__host__ __device__ inline int gemm_chunk(int n) { return n < 32 ? n : 32; }
+
+__host__ __device__ inline int gemm_smem_bytes(int m, int n, int k,
+                                               int a_trans) {
+  const int a_floats = a_trans ? k * ld_tg(m) : m * ld_gt(k);
+  return 4 * (a_floats + k * ld_tg(n) + m * ld_tg(gemm_chunk(n)));
+}
+
+// C[b] (M x N) = A[b] . B[b] for each batch entry b, A stored M x K
+// (a_trans = 0: T2a, T2b) or K x M (a_trans = 1: A^T . B, T2d), B K x N,
+// all contiguous. One block a batch entry, M / 16 warps. The block copies
+// A and B into padded shared tiles with 16-byte cp.async (each input byte
+// read once), then each warp runs its 16-row slab: m16n8k8 3xTF32 steps
+// (mma_3xtf32) over 8-column tiles, their accumulators staged a chunk of
+// up to 32 columns at a time in the warp's shared slab and written as
+// 16-byte row segments (a 16 x 32 chunk: four 512-byte stores a warp).
+// M % 16 == 0, N % 8 == 0 (N % 32 == 0 above 32), K % 8 == 0.
+__global__ void __launch_bounds__(512)
+gemm_kernel(const float* __restrict__ a, const float* __restrict__ bm,
+            float* __restrict__ c, int m_dim, int n_dim, int k_dim,
+            int a_trans) {
+  extern __shared__ __align__(16) float gsm[];
+  const int a_rows = a_trans ? k_dim : m_dim;
+  const int a_cols = a_trans ? m_dim : k_dim;
+  const int lda = a_trans ? ld_tg(m_dim) : ld_gt(k_dim);
+  const int ldb = ld_tg(n_dim);
+  const int cw = gemm_chunk(n_dim), ldc = ld_tg(cw);
+  float* as = gsm;
+  float* bs = as + a_rows * lda;
+  float* cs = bs + k_dim * ldb;
+  const size_t bat = blockIdx.x;
+  const float* ab = a + bat * m_dim * k_dim;
+  const float* bb = bm + bat * k_dim * n_dim;
+  float* cb = c + bat * m_dim * n_dim;
+  const int ach = a_cols / 4, bch = n_dim / 4;
+  for (int i = threadIdx.x; i < a_rows * ach; i += blockDim.x) {
+    const int r = i / ach, q = i - r * ach;
+    cp_async16(as + r * lda + 4 * q, ab + r * a_cols + 4 * q);
+  }
+  for (int i = threadIdx.x; i < k_dim * bch; i += blockDim.x) {
+    const int r = i / bch, q = i - r * bch;
+    cp_async16(bs + r * ldb + 4 * q, bb + r * n_dim + 4 * q);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int tiles_n = n_dim / 8;
-  const int n_tiles = (m_dim / 16) * tiles_n;
-  const float* ab = a + blockIdx.y * sab;
-  const float* bb = bm + blockIdx.y * sbb;
-  float* cb = c + static_cast<size_t>(blockIdx.y) * m_dim * n_dim;
-  const int warps = blockDim.x >> 5;
-  for (int tile = blockIdx.x * warps + (threadIdx.x >> 5); tile < n_tiles;
-       tile += gridDim.x * warps) {
-    const int m0 = (tile / tiles_n) * 16, n0 = (tile % tiles_n) * 8;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int k0 = 0; k0 < k_dim; k0 += 8) {
-      const int ka = k0 + t, kb = k0 + t + 4;
-      float av[4], bv[2];
-      av[0] = ka < k_dim ? ab[(m0 + g) * sam + ka * sak] : 0.0f;
-      av[1] = ka < k_dim ? ab[(m0 + g + 8) * sam + ka * sak] : 0.0f;
-      av[2] = kb < k_dim ? ab[(m0 + g) * sam + kb * sak] : 0.0f;
-      av[3] = kb < k_dim ? ab[(m0 + g + 8) * sam + kb * sak] : 0.0f;
-      bv[0] = ka < k_dim ? bb[ka * sbk + (n0 + g) * sbn] : 0.0f;
-      bv[1] = kb < k_dim ? bb[kb * sbk + (n0 + g) * sbn] : 0.0f;
-      mma_3xtf32(acc, av, bv);
+  const int m0 = warp * 16;
+  float* slab = cs + m0 * ldc;
+  const int q4 = cw / 4;
+  for (int c0 = 0; c0 < n_dim; c0 += cw) {
+    for (int nt = 0; nt < cw; nt += 8) {
+      const int n0 = c0 + nt;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int k0 = 0; k0 < k_dim; k0 += 8) {
+        float av[4], bv[2];
+        if (a_trans) {
+          av[0] = as[(k0 + t) * lda + m0 + g];
+          av[1] = as[(k0 + t) * lda + m0 + g + 8];
+          av[2] = as[(k0 + t + 4) * lda + m0 + g];
+          av[3] = as[(k0 + t + 4) * lda + m0 + g + 8];
+        } else {
+          av[0] = as[(m0 + g) * lda + k0 + t];
+          av[1] = as[(m0 + g + 8) * lda + k0 + t];
+          av[2] = as[(m0 + g) * lda + k0 + t + 4];
+          av[3] = as[(m0 + g + 8) * lda + k0 + t + 4];
+        }
+        bv[0] = bs[(k0 + t) * ldb + n0 + g];
+        bv[1] = bs[(k0 + t + 4) * ldb + n0 + g];
+        mma_3xtf32(acc, av, bv);
+      }
+      *reinterpret_cast<float2*>(slab + g * ldc + nt + 2 * t) =
+          make_float2(acc[0], acc[1]);
+      *reinterpret_cast<float2*>(slab + (g + 8) * ldc + nt + 2 * t) =
+          make_float2(acc[2], acc[3]);
     }
-    cb[(m0 + g) * n_dim + n0 + 2 * t] = acc[0];
-    cb[(m0 + g) * n_dim + n0 + 2 * t + 1] = acc[1];
-    cb[(m0 + g + 8) * n_dim + n0 + 2 * t] = acc[2];
-    cb[(m0 + g + 8) * n_dim + n0 + 2 * t + 1] = acc[3];
+    __syncwarp();
+    for (int i = lane; i < 16 * q4; i += 32) {
+      const int r = i / q4, q = i - r * q4;
+      *reinterpret_cast<float4*>(cb + static_cast<size_t>(m0 + r) * n_dim +
+                                 c0 + 4 * q) =
+          *reinterpret_cast<const float4*>(slab + r * ldc + 4 * q);
+    }
+    __syncwarp();
   }
 }
 
@@ -382,19 +464,23 @@ extern "C" int meso_probe_cond(const void* x, const void* jm, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int meso_probe_gemm(const void* a, long long sab, int sam, int sak,
-                               const void* b, long long sbb, int sbk, int sbn,
-                               void* c, int batch, int m, int n, int k,
+// Refused (cudaErrorInvalidValue, nothing launched): shapes gemm_kernel
+// does not take, or more than 512 rows.
+extern "C" int meso_probe_gemm(const void* a, const void* b, void* c,
+                               int batch, int m, int n, int k, int a_trans,
                                void* stream) {
-  if (batch > 0 && m > 0 && n > 0) {
-    const int warps = 8;
-    const int tiles = (m / 16) * (n / 8);
-    const dim3 grid((tiles + warps - 1) / warps, batch);
-    gemm_kernel<<<grid, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(a), sab, sam, sak,
-        static_cast<const float*>(b), sbb, sbk, sbn, static_cast<float*>(c),
-        m, n, k);
-  }
+  if (batch <= 0) return static_cast<int>(cudaGetLastError());
+  if (m <= 0 || m % 16 || m > 512 || n <= 0 || n % 8 ||
+      (n > 32 && n % 32) || k <= 0 || k % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = gemm_smem_bytes(m, n, k, a_trans);
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gemm_kernel<<<batch, 32 * (m / 16), smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(c), m, n, k, a_trans);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,14 +33,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 SIGNATURES = {
     # tag, h, n, step, seed, rounds, stream
     "meso_particle_hash": (_P, _P, _I, _U, _U, _I, _P),
-    # x, v, tag, valid, h, a, gamma, sigma, rc, box_lo, box_hi, f, vir,
-    # nx, ny, nz, k, xr, min_image, tea, need_virial, dt_inv_sqrt,
-    # step, seed, rounds, stream
-    "meso_pair_dpd_v3": (_P,) * 13 + (_I,) * 8 + (_F, _U, _U, _I, _P),
+    # x, v, h, valid, a, gamma, sigma, rc, box_lo, box_hi, table, f, vir,
+    # nx, k, xr, width, n_blocks, threads, list_cap, smem_bytes, min_image,
+    # tea, need_virial, dt_inv_sqrt, step, seed, rounds, stream
+    "meso_pair_dpd_v3": (_P,) * 13 + (_I,) * 11 + (_F, _U, _U, _I, _P),
     # x, v, tag, typ, valid, h, a, gamma, sigma, rc, n_types, excl,
     # excl_rows, n_excl, excl_w, box_lo, box_hi, f, vir, nx, ny, nz, k, xr,
     # min_image, tea, debug, need_virial, dt_inv_sqrt, s_exp, step, seed,
@@ -70,9 +69,8 @@ SIGNATURES = {
     "meso_probe_dynroll": (_P, _P, _I, _P, _I, _I, _P),
     # x, jm, out, n, stream
     "meso_probe_cond": (_P, _P, _P, _I, _P),
-    # a, sab, sam, sak, b, sbb, sbk, sbn, c, batch, m, n, k, stream
-    "meso_probe_gemm": (_P, _L, _I, _I, _P, _L, _I, _I, _P, _I, _I, _I, _I,
-                        _P),
+    # a, b, c, batch, m, n, k, a_trans, stream
+    "meso_probe_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # ai, bj, out, batch, stream
     "meso_probe_tile": (_P, _P, _P, _I, _P),
     # stack, iscal, offs, n_offs, out, k, len, mixer, rounds, ordering,

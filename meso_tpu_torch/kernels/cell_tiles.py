@@ -1,0 +1,185 @@
+"""The cell tiles of K1's Hopper kernel (``csrc/pair_dpd_v3.cu``,
+``pair_dpd_v3_kernel``): its launch plan and the table each block reads.
+
+A block owns a tile of target cells: one (cy, cz) and a run of up to W
+consecutive cx. It stages the sources of its stencil in shared memory: the
+3 x 3 (dy, dz) lines, each (W + 2 xr) columns wide (xr = 2 for spill
+layouts, 1 for strict ones), every slot-cell compacted to its valid rows.
+What the block needs to find them is computed here, on the host, once per
+grid: the kernel reads it and does no index arithmetic of its own beyond
+``row = line_base + slot * ncx + sx``, so the CPU tests hold the
+(target, source, shift) set the table implies against the plain
+version's stencil (``_stencil_pairs``).
+
+Row layout: row = ((cy * ncz + cz) * K + slot) * ncx + cx.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+# Per SM: 228 KB of shared memory, at most 227 KB for one block, and 1 KB
+# the hardware keeps for each resident block (H100, sm_90).
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+SMEM_RESERVED_PER_BLOCK = 1024
+MAX_THREADS = 256
+# in-range sources a thread collects before it evaluates them; a fuller
+# list is evaluated and the walk goes on, so any density is exact
+LIST_CAP = 32
+# resident blocks per SM the plan sizes the tile for; a capacity too large
+# for two takes one (the 227 KB of a block)
+BLOCKS_PER_SM = 2
+# the 3 x 3 (dy, dz) lines, dy outer: line (dy + 1) * 3 + (dz + 1); the
+# target line (0, 0) is line 4
+LINES = tuple((dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
+TARGET_LINE = 4
+# table row: cy, cz, cx0, width, then (line base row, y code, z code) of
+# the 9 lines, then (sx, x code) of the block's source columns; a code is
+# the wrap of that axis: -1 below 0, +1 above n - 1, 0 inside
+HEAD = 4
+LINE_FIELDS = 3
+COL0 = HEAD + LINE_FIELDS * len(LINES)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """K1's launch for one grid: W target columns a block (the last run of
+    cx may be shorter), ``threads`` a block, ``smem_bytes`` of dynamic
+    shared memory, one block per (cy, cz, x-run): ``n_blocks``."""
+
+    capacity: int
+    xr: int
+    ncell: tuple[int, int, int]
+    width: int
+    n_xtiles: int
+    threads: int
+    list_cap: int
+    smem_bytes: int
+
+    @property
+    def ncols(self) -> int:
+        """Source columns of a full-width block."""
+        return self.width + 2 * self.xr
+
+    @property
+    def n_blocks(self) -> int:
+        nx, ny, nz = self.ncell
+        return ny * nz * self.n_xtiles
+
+    @property
+    def table_width(self) -> int:
+        return COL0 + 2 * self.ncols
+
+    def blocks_per_sm(self) -> int:
+        return SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED_PER_BLOCK)
+
+
+def _threads(width: int, k: int) -> int:
+    """One thread a target slot of the tile, in whole warps, at most
+    MAX_THREADS (more targets take further rounds)."""
+    return min(MAX_THREADS, 32 * -(-(width * k) // 32))
+
+
+def smem_bytes(ncols: int, k: int, threads: int, list_cap: int) -> int:
+    """The block's dynamic shared memory, in the kernel's order
+    (``tile_layout`` in csrc/pair_dpd_v3.cu computes the same and the
+    launch refuses a mismatch): staged positions (float4: x, y, z, the x
+    wrap shift), each staged source's row (int32; v and the hash are
+    gathered from device memory for the in-range pairs only), the
+    slot-cells' first staged indices (ncols + 1 a line, the last the
+    line's end), the slot masks (one 32-bit word a 32 slots), the block's
+    table row, the 9 lines' (y, z) shifts, the lists (uint16)."""
+    s = len(LINES) * ncols * k
+    words = -(-k // 32)
+    b = 16 * s
+    b += 4 * s
+    b += 4 * len(LINES) * (ncols + 1)
+    b += 4 * len(LINES) * ncols * words
+    b += 4 * (COL0 + 2 * ncols)
+    b += 4 * 2 * len(LINES)
+    b += 2 * list_cap * threads
+    return -(-b // 16) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def plan(capacity: int, xr: int, ncell: tuple) -> TilePlan:
+    """The widest W whose block lets BLOCKS_PER_SM blocks share an SM, or,
+    where no W does (capacities above ~118 spill, ~190 strict), one block
+    an SM; then W evened out over the runs of cx: ceil(ncx / W) runs of
+    ceil(ncx / runs). A block has W + 2 xr <= 32 source columns (one warp's
+    lanes stage them) and at most 65,536 staged slots (the lists' uint16
+    index). A capacity whose W = 1 block exceeds the 227 KB of one block
+    (above ~240 spill, ~400 strict) is refused."""
+    nx = int(ncell[0])
+    k = int(capacity)
+
+    def fits(w, budget):
+        ncols = w + 2 * xr
+        return (ncols <= 32 and len(LINES) * ncols * k <= 1 << 16
+                and smem_bytes(ncols, k, _threads(w, k), LIST_CAP) <= budget)
+
+    for blocks in (BLOCKS_PER_SM, 1):
+        budget = min(SMEM_PER_BLOCK,
+                     SMEM_PER_SM // blocks - SMEM_RESERVED_PER_BLOCK)
+        w_max = max((w for w in range(1, nx + 1) if fits(w, budget)),
+                    default=0)
+        if w_max:
+            break
+    else:
+        raise ValueError(f"K1's cell tiles: capacity {k} with x "
+                         f"half-window {xr} leaves no tile width that fits "
+                         f"the {SMEM_PER_BLOCK} bytes of one block")
+    n_xtiles = -(-nx // w_max)
+    w = -(-nx // n_xtiles)
+    threads = _threads(w, k)
+    return TilePlan(capacity=k, xr=xr, ncell=tuple(int(c) for c in ncell),
+                    width=w, n_xtiles=n_xtiles, threads=threads,
+                    list_cap=LIST_CAP,
+                    smem_bytes=smem_bytes(w + 2 * xr, k, threads, LIST_CAP))
+
+
+def _wrap(c: torch.Tensor, n: int):
+    """(c mod n, the wrap code: -1 below 0, +1 above n - 1, else 0)."""
+    code = torch.where(c < 0, -1, torch.where(c >= n, 1, 0))
+    return c - code * n, code
+
+
+def tile_table(p: TilePlan) -> torch.Tensor:
+    """(n_blocks, table_width) int32 on the CPU, block b = (cy * ncz + cz)
+    * n_xtiles + tx: [cy, cz, cx0, width], then for each line (dy, dz) its
+    first row (sy * ncz + sz) * K * ncx with the y and z wrap codes, then
+    for each source column c of the block (cx0 - xr + c, c < width + 2 xr)
+    its sx with the x wrap code; columns past a short last run hold -1, 0.
+    """
+    nx, ny, nz = p.ncell
+    k, xr = p.capacity, p.xr
+    tx = torch.arange(p.n_xtiles)
+    cx0 = tx * p.width
+    width = torch.clamp(nx - cx0, max=p.width)
+    cy = torch.arange(ny).repeat_interleave(nz * p.n_xtiles)
+    cz = torch.arange(nz).repeat_interleave(p.n_xtiles).repeat(ny)
+    tx = tx.repeat(ny * nz)
+    cols = []
+    for dy, dz in LINES:
+        sy, ycode = _wrap(cy + dy, ny)
+        sz, zcode = _wrap(cz + dz, nz)
+        cols += [(sy * nz + sz) * k * nx, ycode, zcode]
+    c = torch.arange(p.ncols)
+    sx, xcode = _wrap(cx0[:, None] - xr + c[None, :], nx)
+    used = c[None, :] < (width + 2 * xr)[:, None]
+    sx = torch.where(used, sx, -1)[tx]
+    xcode = torch.where(used, xcode, 0)[tx]
+    head = torch.stack([cy, cz, cx0[tx], width[tx]] + cols, 1)
+    xcols = torch.stack([sx, xcode], 2).reshape(p.n_blocks, 2 * p.ncols)
+    return torch.cat([head, xcols], 1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def table_on(p: TilePlan, device: torch.device) -> torch.Tensor:
+    """``tile_table`` on ``device``, made once per plan and device (one
+    host-to-device copy per grid, none in the step loop)."""
+    return tile_table(p).to(device)

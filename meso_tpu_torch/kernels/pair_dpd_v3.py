@@ -37,7 +37,7 @@ import torch
 
 from meso_tpu_torch.core import rng as rngmod
 from meso_tpu_torch.core.box import Box
-from meso_tpu_torch.kernels import _build
+from meso_tpu_torch.kernels import _build, cell_tiles
 from meso_tpu_torch.kernels.common import (check_classic, check_cuda,
                                            check_tdpd, half_window,
                                            row_specs, tables, typ_spec)
@@ -148,20 +148,22 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
                                need_virial, debug_pairs)
     step_u = step & 0xFFFFFFFF
     h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     vir_rows = (torch.empty((nr,), dtype=torch.float32, device=x.device)
                 if need_virial else None)
-    nx, ny, nz = cfg.ncell
+    table = cell_tiles.table_on(plan, x.device)
     code = lib.meso_pair_dpd_v3(
-        x.data_ptr(), v.data_ptr(), tag.data_ptr(), mask.data_ptr(),
-        h.data_ptr(), params.a.data_ptr(), params.gamma.data_ptr(),
+        x.data_ptr(), v.data_ptr(), h.data_ptr(), mask.data_ptr(),
+        params.a.data_ptr(), params.gamma.data_ptr(),
         params.sigma.data_ptr(), params.rc.data_ptr(), box.lo.data_ptr(),
-        box.hi.data_ptr(), f.data_ptr(),
+        box.hi.data_ptr(), table.data_ptr(), f.data_ptr(),
         None if vir_rows is None else vir_rows.data_ptr(),
-        nx, ny, nz, cfg.capacity, xr, int(not cfg.wrap_at_rebuild),
-        int(rng_mode == "tea"), int(need_virial), 1.0 / math.sqrt(dt),
-        step_u, params.seed, rng_rounds,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cfg.ncell[0], cfg.capacity, plan.xr, plan.width, plan.n_blocks,
+        plan.threads, plan.list_cap, plan.smem_bytes,
+        int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
+        int(need_virial), 1.0 / math.sqrt(dt), step_u, params.seed,
+        rng_rounds, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "pair_dpd_v3")
     LAUNCHES["pair_dpd_v3"] += 1
     if need_virial:

@@ -60,13 +60,14 @@ def _gemm(name, a, b, transpose_a: bool):
     nb, r, s = a.shape
     m, k = (s, r) if transpose_a else (r, s)
     n = b.shape[2]
-    if b.shape[1] != k or m % 16 or n % 8:
+    if b.shape[1] != k or m % 16 or m > 512 or n % 8 or (n > 32 and n % 32) \
+            or k % 8:
         raise ValueError(f"{name}: shapes {tuple(a.shape)}, {tuple(b.shape)}"
-                         " need M % 16 == 0, N % 8 == 0 and matching K")
+                         " need M % 16 == 0 (M <= 512), N % 8 == 0 (N % 32 "
+                         "== 0 above 32), K % 8 == 0 and matching K")
     c = torch.empty((nb, m, n), dtype=torch.float32, device=a.device)
-    sam, sak = (1, s) if transpose_a else (s, 1)
-    probes.launch(name, "meso_probe_gemm", a.data_ptr(), r * s, sam, sak,
-                  b.data_ptr(), k * n, n, 1, c.data_ptr(), nb, m, n, k,
+    probes.launch(name, "meso_probe_gemm", a.data_ptr(), b.data_ptr(),
+                  c.data_ptr(), nb, m, n, k, int(transpose_a),
                   device=a.device)
     return c[0] if one else c
 
