@@ -11,8 +11,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
 2. build: compile meso_tpu_torch/csrc/*.cu with nvcc for sm_90a, one nvcc
    per source, all at once;
 3. kernels against their plain torch versions on the card: the hash kernel
-   bitwise; the classic pair kernel K1 (on cell tiles) at l=8 in every
-   covered case (fast/tea RNG x spill/strict x min-image/no-min-image x
+   bitwise (edge tags, the 2,000,000 main-path rows, and 2,000,003 rows,
+   not a multiple of its 4 rows a thread, with 8 and 5 rounds and from an
+   unaligned pointer), timed alone at both counts, its bound from its
+   instructions counted by pipe in the built library; the classic pair
+   kernel K1 (on cell tiles) at l=8 in every covered case (fast/tea RNG x spill/strict x min-image/no-min-image x
    virial on/off), with a ragged last run of cx (l=41) and in dense
    fluids whose rows fill their in-range lists (rho 9 and 32, and
    capacities of 128 spill and 192 strict, which take one block an SM),
@@ -74,11 +77,18 @@ Phases, one line of output each (any failure raises and exits non-zero):
    TEA, spill (K5) and strict, one type and two with asymmetric tables,
    s_exp 0.5 and exclusions (classic), one, three and ten species (tDPD),
    a row that crossed the box mid-window; then K2 and K3 with two types and
-   ten species (fast/TEA x spill/strict x min-image on/off);
+   ten species (fast/TEA x spill/strict x min-image on/off); then
+   kernels-brick-tiles: the brick kernel's cell tiles (BRICK_TILE_CASES)
+   on ragged runs of cx (l=41), dense fluids that fill the lists (rho 9 at
+   K 128 spill and 192 strict; rho 32 at one block an SM), TEA, two types
+   with exclusions, ten tDPD species, and K4's and K6-halo's edge calls
+   (ncx = xr);
 15. kernels-selectors-l70: each of those entry points on its own 1M path's
    inputs at set-up (spill rows for the fused, strict rows, K=28 and
    3,500,000 of them, for the banded), and the fused classic kernel on the
-   wall and polymer paths' inputs, with times, plain times and bounds;
+   wall and polymer paths' inputs, with times (through the wrapper, the
+   brick's build included, and the kernel alone on the built brick), plain
+   times, bounds, the tile plan and the slot tests a valid row;
 16. the classic, eDPD and tDPD paths at 1,029,000 particles through each
    selector (v2-classic, v2-edpd, v2-tdpd, banded-classic, banded-edpd,
    banded-tdpd), with the main path's and transport-full's steps and
@@ -86,7 +96,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
 17. banded-physics: the eDPD slab gate and the tDPD decay from one start
    at deck size through force_path "pallas_banded";
 18. profile: torch.profiler over 10 chunks of each 1M path (the six new
-   ones included), device time per kernel and the card's busy share;
+   ones included), device time per kernel (the hash's listed on every
+   path that launches it) and the card's busy share;
 19. dd-kernels-l8: the halo kernels of the 1-D domain decomposition, K4
    (pair_halo_dpd/_edpd/_tdpd) and K6-halo (pair_halo_banded_dpd), all on
    csrc/pair_brick.cu, against their plain versions at l=8 on
@@ -103,8 +114,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
    through K6-halo on strict buckets, eDPD and tDPD through K4, and the
    FENE polymer with special bonds and bonded ghost rows; each path's
    kernel first on rank 0's extended planes against its plain version
-   (dd-kernels-l70), then the run with its gates, the ranks' launch counts
-   summed, and torch.profiler on rank 0 (its busy share and its idle time
+   (dd-kernels-l70, timed through the wrapper and alone on the built
+   brick, with its tile plan), then the run with its gates, the ranks'
+   launch counts summed, and torch.profiler on rank 0 (its busy share and its idle time
    inside the host-staged exchanges). Two ranks on one card give no
    scaling figure.
 
@@ -193,15 +205,27 @@ POLYMER_CHAINS, POLYMER_CHAIN_LEN = 3200, 16
 # (each input read once, each output written once; for a pair kernel over
 # bucket rows, the per-particle inputs of the valid rows only, the mask and
 # the outputs of every row, and one scalar virial: row_bound) over the
-# card's memory rate and its operations over the fp32 rate outside the
-# tensor cores (the NVIDIA H100 SXM data sheet). Integer operations are
-# counted at the same rate; the card's int32 rate is lower,
-# so the bound stays a lower bound. Operations per in-range pair, counted
-# from the CUDA sources (arithmetic after the cutoff test; the candidate
-# tests are not counted): K1 33 fp32 + 11 integer (the hash mix); K2 74
-# fp32 (with 3 divisions, 2 sqrt) + 33 integer (mix and two streams); K3
-# 34 fp32 + 22 integer, plus, inside rcc, 4 fp32 and per species 10 fp32
-# + 11 integer. The hash: ~20 integer operations per TEA round per row.
+# card's memory rate and its operations over their rates (Ops): fp32 over
+# the fp32 rate outside the tensor cores (the NVIDIA H100 SXM data sheet);
+# integer instructions over the SM's issue rate; and, where the compiled
+# code was counted by pipe, its ALU and IMAD instructions over their
+# pipes' rates. Per SM and clock an H100 (sm_90) issues one warp
+# instruction from each of its 4 schedulers (128 lanes), and has 64 lanes
+# of the ALU pipe (LOP3, LEA, IADD3, SHF, ISETP: integer work other than
+# IMAD) and 64 of the FMA-heavy pipe (IMAD, and fp32 FMA beside the
+# FMA-lite pipe's 64): NVIDIA's Hopper architecture white paper (64 INT32,
+# 128 FP32 units an SM) and the Nsight Compute profiling guide (its pipe
+# descriptions). The clock is the one the data sheet's fp32 rate implies:
+# 67e12 = 2 (an FMA) x 128 lanes x 132 SMs x 1.98 GHz. Operations per
+# in-range pair, counted from the CUDA sources (arithmetic after the
+# cutoff test; the candidate tests are not counted): K1 33 fp32 + 11
+# integer (the hash mix); K2 74 fp32 (with 3 divisions, 2 sqrt) + 33
+# integer (mix and two streams); K3 34 fp32 + 22 integer, plus, inside
+# rcc, 4 fp32 and per species 10 fp32 + 11 integer. The integer counts
+# are C operations at the issue rate (any pipe); the compiler fuses some
+# (three xors into one LOP3), so they may exceed the instructions, and
+# they set no pair kernel's bound: bytes do. The hash's instructions are
+# counted by pipe from the built library (hash_sass_ops).
 # K1's general variant: 38 fp32 (K1's, with r2 summed again, rc^2 and
 # 1/rc per pair) + 12 integer per pair, and 2 integer per exclusion slot.
 # the pair kernel each selector runs, by model: force_path "pallas" with
@@ -217,17 +241,90 @@ SELECTOR_KERNELS = {
 # the brick kernels' operations per in-range pair, counted from
 # csrc/pair_brick.cu as for K1-K3 above: classic as K1's general variant
 # (r2 summed again, per-pair tables), eDPD as K2, tDPD as K3
-BRICK_OPS = {"dpd": 50, "edpd": 107}
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+SMS = 132
+SM_CLOCK_HZ = FP32_OPS_PER_S / (2 * 128 * SMS)
+ISSUE_PER_S = 128 * SMS * SM_CLOCK_HZ
+ALU_PER_S = IMAD_PER_S = 64 * SMS * SM_CLOCK_HZ
 # the tensor cores' dense TF32 rate (the same data sheet): the probe T2's
 # products run there, three or six TF32 products for each float32 one
 TF32_OPS_PER_S = 495e12
-OPS_PER_PAIR = {"pair_dpd_v3": 44, "pair_edpd_v3": 107,
-                "pair_dpd_v3_general": 50}
-OPS_PER_EXCL_SLOT = 2
-TDPD_OPS_PER_PAIR, TDPD_OPS_PER_RCC_PAIR, TDPD_OPS_PER_SPECIES = 56, 4, 21
-HASH_OPS_PER_ROUND = 20
+
+
+class Ops(tuple):
+    """(fp32, integer, alu, imad) operation counts: fp32 operations,
+    integer instructions (on any pipe), and of those the ones known to
+    run on the ALU pipe and on the FMA-heavy pipe (IMAD). ``+`` adds
+    them, ``*`` by a number scales all four."""
+
+    def __new__(cls, fp=0.0, integer=0.0, alu=0.0, imad=0.0):
+        return super().__new__(cls, (fp, integer, alu, imad))
+
+    def __add__(self, other):
+        return Ops(*(a + b for a, b in zip(self, other)))
+
+    def __sub__(self, other):
+        return Ops(*(a - b for a, b in zip(self, other)))
+
+    def __mul__(self, n):
+        return Ops(*(a * n for a in self))
+
+    __rmul__ = __mul__
+
+
+BRICK_OPS = {"dpd": Ops(38, 12), "edpd": Ops(74, 33)}
+OPS_PER_PAIR = {"pair_dpd_v3": Ops(33, 11), "pair_edpd_v3": Ops(74, 33),
+                "pair_dpd_v3_general": Ops(38, 12)}
+OPS_PER_EXCL_SLOT = Ops(0, 2)
+TDPD_OPS_PER_PAIR, TDPD_OPS_PER_RCC_PAIR, TDPD_OPS_PER_SPECIES = (
+    Ops(34, 22), Ops(4, 0), Ops(10, 11))
+
+
+# rows a thread of the hash kernel takes (kHashRows, csrc/pair_dpd_v3.cu)
+HASH_ROWS_A_THREAD = 4
+# SASS opcodes the bound puts on a pipe (Nsight Compute's pipe
+# descriptions): the ALU's, and IMAD on the FMA-heavy pipe; the other
+# integer opcodes (VIADD, whose pipe NVIDIA does not document) count at
+# the issue rate only
+ALU_OPCODES = ("LOP3", "LEA", "IADD3", "SHF", "ISETP", "SEL")
+INT_OPCODES = ALU_OPCODES + ("IMAD", "VIADD")
+
+
+def hash_sass_ops():
+    """(Ops of one row of particle_hash_kernel<8>, the opcode counts) from
+    the built library's SASS (cuobjdump beside nvcc): the longest straight
+    run of integer instructions in the kernel, which is the unrolled TEA
+    block of a thread's HASH_ROWS_A_THREAD rows (the xor that makes v1, then
+    a half-round of each row's 8 rounds as LEA, VIADD, LEA.HI, LOP3 and
+    IMAD.IADD), over its rows. Loads, stores, address and loop arithmetic
+    are left out: the count is the least the function needs."""
+    import collections
+    import re
+    from meso_tpu_torch.kernels import _build
+    nvcc = _build.find_nvcc()
+    sass = run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                str(_build.library_path(nvcc))])
+    (body,) = [f for f in sass.split("Function : ")
+               if f.startswith("_ZN") and "particle_hash_kernelILi8E" in
+               f.split(None, 1)[0]]
+    run_, best = [], []
+    opcode = r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+    for op in re.findall(opcode, body):
+        base = op.split(".")[0]
+        if base in ("BSSY", "BSYNC", "NOP"):
+            continue
+        if base in INT_OPCODES and not op.startswith("IMAD.WIDE"):
+            run_.append(op)
+            continue
+        best, run_ = max(best, run_, key=len), []
+    best = max(best, run_, key=len)
+    counts = collections.Counter(best)
+    alu = sum(c for op, c in counts.items()
+              if op.split(".")[0] in ALU_OPCODES)
+    imad = sum(c for op, c in counts.items() if op.startswith("IMAD"))
+    r = HASH_ROWS_A_THREAD
+    return Ops(0, len(best) / r, alu / r, imad / r), dict(counts)
 
 
 def kernel_modules():
@@ -362,10 +459,15 @@ def row_bound(mask, per_particle, tensors_out, ops, virial=False):
 
 def bytes_bound(nbytes, ops, tc_ops=0.0):
     """(bound_ms, bound_by): the larger of nbytes over the memory rate and
-    the operations over their rates: ops at the fp32 rate, tc_ops
-    (tensor-core products) at the TF32 rate."""
+    the operations over their rates: ``ops`` (an Ops, or a number of fp32
+    operations) at the fp32 rate plus tc_ops (tensor-core products) at the
+    TF32 rate, its integer instructions at the issue rate, its ALU and
+    IMAD instructions at their pipes' rates, whichever is longest."""
+    fp, integer, alu, imad = ops if isinstance(ops, Ops) else Ops(ops)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * (ops / FP32_OPS_PER_S + tc_ops / TF32_OPS_PER_S)
+    t_ops = 1e3 * max(fp / FP32_OPS_PER_S + tc_ops / TF32_OPS_PER_S,
+                      integer / ISSUE_PER_S, alu / ALU_PER_S,
+                      imad / IMAD_PER_S)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -572,7 +674,8 @@ def phase_kernels(ptxas=()):
 
     import torch
     from meso_tpu_torch.core import rng
-    from meso_tpu_torch.kernels import cell_tiles
+    from meso_tpu_torch.kernels import _build, cell_tiles
+    from meso_tpu_torch.kernels import pair_dpd_v3 as v3
     from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
                                                     bucket_forces_v3_plain,
                                                     particle_hash_v3)
@@ -675,6 +778,17 @@ def phase_kernels(ptxas=()):
     hash_err = (h_k - h_p).abs().max().item()
     if hash_err != 0:
         raise AssertionError("hash kernel != plain at the main-path shape")
+    # and at a tag count that is not a multiple of the kernel's 4 rows a
+    # thread (its scalar tail), with 8 rounds and with 5 (the generic
+    # instance), and from a tag pointer 4 bytes off 16-byte alignment
+    lib = _build.load_library()
+    tag_odd = torch.cat([bst.tag, bst.tag[:3]])
+    for tags, rounds in ((tag_odd, 8), (tag_odd, 5), (tag_odd[1:], 8)):
+        if not torch.equal(particle_hash_v3(tags, step, params.seed, rounds),
+                           rng.particle_hash(tags, step, params.seed,
+                                             rounds=rounds)):
+            raise AssertionError(f"hash kernel != plain at {tags.numel()} "
+                                 f"tags, {rounds} rounds")
     ms = {
         "pair_ms": timed_ms(lambda: bucket_forces_pallas_v3(
             *args, rng_mode="fast", need_virial=False), 20),
@@ -685,6 +799,14 @@ def phase_kernels(ptxas=()):
             cfg, need_virial=False), 3),
         "hash_ms": timed_ms(lambda: particle_hash_v3(bst.tag, step,
                                                      params.seed), 50),
+        # the hash as the paths call it (launch_hash: the kernel and its
+        # output's allocation; particle_hash_v3 above adds the int64
+        # copy the plain RNG's form needs), at the main-path rows and at
+        # a count that is not a multiple of 4
+        "hash_kernel_ms": timed_ms(lambda: v3.launch_hash(
+            lib, bst.tag, step, params.seed, 8), 200),
+        "hash_odd_kernel_ms": timed_ms(lambda: v3.launch_hash(
+            lib, tag_odd, step, params.seed, 8), 200),
         "hash_plain_ms": timed_ms(lambda: rng.particle_hash(
             bst.tag, step, params.seed), 20),
         "rebuild_sort_ms": timed_ms(lambda: rebuild_buckets(bst, cfg), 10),
@@ -695,7 +817,9 @@ def phase_kernels(ptxas=()):
     # valid rows in, f out; the hash: tag in, h out
     pair_bound = row_bound(bst.mask, [bst.x, bst.v, bst.tag, bst.tag],
                            [f_k], OPS_PER_PAIR["pair_dpd_v3"] * n_rc)
-    hash_bound = bound([bst.tag], [bst.tag], bst.n * 8 * HASH_OPS_PER_ROUND)
+    hash_ops, hash_sass = hash_sass_ops()
+    hash_bound = bound([bst.tag], [bst.tag], bst.n * hash_ops)
+    hash_odd_bound = bound([tag_odd], [tag_odd], tag_odd.numel() * hash_ops)
     plan = cell_tiles.plan(cfg.capacity, 2, cfg.ncell)
     n_valid = int(bst.mask.sum())
     out["l70"] = {"n": n, "nr": bst.n, "ncell": list(cfg.ncell),
@@ -713,8 +837,13 @@ def phase_kernels(ptxas=()):
                   "virial_rel": vrel, "hash_max_abs_err": hash_err, **ms,
                   "pair_bound_ms": pair_bound[0],
                   "pair_bound_by": pair_bound[1],
+                  "hash_ops_per_row": dict(zip(
+                      ("fp", "integer", "alu", "imad"), hash_ops)),
+                  "hash_sass_opcodes": hash_sass,
                   "hash_bound_ms": hash_bound[0],
-                  "hash_bound_by": hash_bound[1]}
+                  "hash_bound_by": hash_bound[1],
+                  "hash_odd_rows": tag_odd.numel(),
+                  "hash_odd_bound_ms": hash_odd_bound[0]}
     say("kernels-l70", **out["l70"])
     del f_p, f_k, bst
 
@@ -1338,12 +1467,19 @@ def phase_profile(full_cadence):
                          sum(c for _, c in kernels.values())
                          / PROFILE_CHUNKS,
                      "top": [{"kernel": k, "ms_per_chunk": ms,
-                              "calls": c} for k, (ms, c) in top]}
+                              "calls": c} for k, (ms, c) in top],
+                     # the kernels of the kernels line (the hash on every
+                     # fast-RNG path among them), in the top or not
+                     "port": [{"kernel": k, "ms_per_chunk": ms, "calls": c}
+                              for k, (ms, c) in kernels.items()
+                              if k.startswith(PORT_KERNELS)]}
         if name in full_cadence:
             out[name]["hooks_per_step"] = profile_hooks(system, params,
                                                         state)
         say(f"profile-{name}", **out[name])
     return out
+
+
 
 
 def device_times(prof, reps):
@@ -2126,6 +2262,110 @@ def phase_selector_kernels():
     return out
 
 
+# the brick kernel's tile cases: (entry point, l, particles, spill, RNG
+# tier, capacity (None: the builder's), coefficients, kind); kinds
+# "ragged" (a short last run of cx), "dense" (rows whose in-range sources
+# overflow a thread's list), "one-block" (a capacity that takes one block
+# an SM), "halo-edge" (a halo entry point's edge call, ncx = xr)
+BRICK_TILE_CASES = (
+    ("pair_fused_dpd", 41.0, 206763, True, "fast", None, "1type", "ragged"),
+    ("pair_banded_dpd", 41.0, 206763, False, "tea", None, "1type", "ragged"),
+    ("pair_fused_dpd", 41.0, 206763, True, "fast", None, "2types-excl",
+     "ragged"),
+    ("pair_fused_edpd", 41.0, 206763, True, "tea", None, "1type", "ragged"),
+    ("pair_banded_tdpd", 41.0, 206763, False, "fast", None, "S10",
+     "ragged"),
+    ("pair_fused_dpd", 8.0, 4608, True, "fast", 128, "1type", "dense"),
+    ("pair_banded_dpd", 8.0, 4608, False, "tea", 192, "1type", "dense"),
+    ("pair_fused_tdpd", 8.0, 4608, True, "tea", 128, "S10", "dense"),
+    ("pair_banded_edpd", 8.0, 4608, False, "fast", 192, "1type", "dense"),
+    ("pair_fused_dpd", 8.0, 16384, True, "fast", None, "2types-excl",
+     "one-block"),
+    ("pair_halo_dpd", 8.0, 4608, True, "fast", 128, "2types-excl",
+     "halo-edge"),
+    ("pair_halo_banded_dpd", 8.0, 4608, False, "tea", 192, "1type",
+     "halo-edge"))
+
+
+def phase_brick_tiles():
+    """The brick kernel's cell tiles (BRICK_TILE_CASES) against the plain
+    version, each with compare_forces' or compare_transport's bounds:
+    ragged runs of cx (l=41: ncx 29) on every model, fused and banded;
+    dense fluids (rho 9 at a capacity of 128 spill and 192 strict) whose
+    rows fill their lists, classic, eDPD and tDPD; rho 32 on spill buckets
+    (K 216), one block an SM; two types with exclusions (the polymer form,
+    weight 0.5); tDPD with ten species (two species blocks); and the halo
+    edge calls (ncx = xr) of K4 and K6-halo on the dense fluids."""
+    import torch
+    from meso_tpu_torch.kernels import cell_tiles
+    from meso_tpu_torch.kernels.common import halo_window
+    transport = transport_params()
+    p_one = selector_params()["dpd"][0][1]
+    states = {}
+    out = []
+    step = 42
+    for name, l, n, spill, rng_mode, capacity, coef, kind in \
+            BRICK_TILE_CASES:
+        key = (l, n, spill, capacity)
+        if key not in states:
+            bst, cfg = bucket_case(l, n, spill, True, capacity=capacity)
+            states[key] = (with_species(bst), cfg, max_partners(bst, cfg))
+        bst, cfg, partners = states[key]
+        if coef == "1type":
+            model = name.rsplit("_", 1)[1]
+            p = p_one if model == "dpd" else transport[model]
+        elif coef == "2types-excl":
+            p = general_params(n, s_exp=1.0, weight=0.5)
+            bst = bst.replace(typ=(bst.tag % 2).to(torch.int32))
+        else:
+            p = tdpd_params(10, False)
+        label = (f"{name} {kind} {coef} l={l:g} n={n} K={cfg.capacity} "
+                 f"{rng_mode}")
+        xr = 2 if spill else 1
+        if name in HALO_KERNELS:
+            planes, tcfg, valid = halo_planes(bst, cfg, ("x",), (xr, 0, 0))
+            planes = with_hash(with_excl(planes, p), step, p.seed)
+            args = (planes, bst.box, step, p, 0.01, tcfg, ("x",), rng_mode)
+            got = run_halo(name, False, *args)
+            torch.cuda.synchronize()
+            rec = compare_halo(name, got, run_halo(name, True, *args), valid,
+                               label)
+            if halo_window(tcfg, ("x",), rng_mode) != tcfg.ncell[0]:
+                raise AssertionError(f"{label}: not an edge call")
+        else:
+            model = name.rsplit("_", 1)[1]
+            fld = (None if model == "dpd" else bst.T if model == "edpd"
+                   else bst.C)
+            got = run_entry(name, False, bst, fld, step, p, 0.01, cfg,
+                            rng_mode)
+            torch.cuda.synchronize()
+            rec = compare_entry(name, got, run_entry(
+                name, True, bst, fld, step, p, 0.01, cfg, rng_mode),
+                bst.mask, label)
+            tcfg = cfg
+        plan = cell_tiles.brick_plan(tcfg.capacity, xr, tcfg.ncell)
+        rec.update(case=label, max_partners=partners, ncell=list(tcfg.ncell),
+                   **tile_fields(tcfg, xr))
+        failed = {
+            "ragged": kind == "ragged" and tcfg.ncell[0] % plan.width == 0,
+            "fills its list": kind == "dense"
+            and partners <= plan.list_cap,
+            "one block an SM": kind == "one-block"
+            and plan.blocks_per_sm() != 1}
+        if any(failed.values()):
+            raise AssertionError(f"{label}: not the case it names "
+                                 f"({[k for k, v in failed.items() if v]},"
+                                 f" {plan})")
+        out.append(rec)
+    say("kernels-brick-tiles", cases=len(out),
+        worst_rel=max(c["rel"] for c in out),
+        worst_flux_rel=max(c.get("flux_rel", 0.0) for c in out),
+        worst_virial_rel=max(c["virial_rel"] for c in out),
+        tiles=[{k: c[k] for k in ("case", "width", "runs", "blocks_per_sm",
+                                  "max_partners")} for c in out])
+    return out
+
+
 def selector_bound(model, st, fld, got, params, n_rc):
     """(bound_ms, bound_by) of a brick kernel on these rows: the mask, and
     x, v, the field, tag and h (and typ, and the exclusion rows where
@@ -2149,6 +2389,50 @@ def selector_bound(model, st, fld, got, params, n_rc):
     else:
         ops = (BRICK_OPS[model] + OPS_PER_EXCL_SLOT * e) * n_rc
     return row_bound(st.mask, ins, outs, ops, virial=True)
+
+
+def tile_fields(cfg, xr):
+    """The brick kernel's tile plan for these cells: W, runs of cx,
+    threads, shared bytes and blocks an SM."""
+    from meso_tpu_torch.kernels import cell_tiles
+    p = cell_tiles.brick_plan(cfg.capacity, xr, cfg.ncell)
+    return {"width": p.width, "runs": p.n_xtiles, "threads": p.threads,
+            "smem_bytes": p.smem_bytes, "blocks_per_sm": p.blocks_per_sm()}
+
+
+def brick_tests_per_row(brick, cfg):
+    """Slot tests a valid row of the brick kernel's walk on this brick:
+    for every valid target, the valid slots of its stencil box (itself
+    included), summed and divided by the valid targets."""
+    import torch
+    nx, ny, nz = cfg.ncell
+    xr = brick.xr
+    occ = (brick.ib[1] != 0).sum(2).to(torch.int64)
+    win = sum(occ[dy:dy + ny, dz:dz + nz, dx:dx + nx] for dy in range(3)
+              for dz in range(3) for dx in range(2 * xr + 1))
+    tgt = occ[1:ny + 1, 1:nz + 1, xr:xr + nx]
+    return float((tgt * win).sum()) / float(tgt.sum())
+
+
+def entry_brick(name, st, fld, step, params, cfg, rng_mode="fast"):
+    """(library, the brick) a fused or banded entry point builds from
+    these rows (``_brick.card_brick``)."""
+    from meso_tpu_torch.kernels import _brick
+    model = name.rsplit("_", 1)[1]
+    return _brick.card_brick(model, st.x, st.v, fld, st.typ, st.tag,
+                             st.mask, st.box, step, params, cfg, rng_mode, 8)
+
+
+def kernel_alone_ms(name, lib, brick, box, step, params, dt, cfg,
+                    rng_mode="fast"):
+    """The brick kernel's time alone (``_brick.launch_brick`` on a built
+    brick: the launch, its outputs' allocation and the virial's sum), over
+    20 calls."""
+    from meso_tpu_torch.kernels import _brick
+    model = name.rsplit("_", 1)[1]
+    return timed_ms(lambda: _brick.launch_brick(
+        lib, model, name, brick, box, step, params, dt, cfg, rng_mode, 8),
+        20)
 
 
 def phase_selector_kernels_l70():
@@ -2187,6 +2471,12 @@ def phase_selector_kernels_l70():
         rec["pairs_in_rc"] = n_rc
         rec["bound_ms"], rec["bound_by"] = selector_bound(
             model, st, fld, got, p, n_rc)
+        lib, brick = entry_brick(name, st, fld, 1, p, cfg)
+        rec["kernel_ms"] = kernel_alone_ms(name, lib, brick, st.box, 1, p,
+                                           system.dt, cfg)
+        rec["tests_per_valid_row"] = brick_tests_per_row(brick, cfg)
+        rec.update(tile_fields(cfg, brick.xr))
+        del brick
         out[label] = rec
         say(f"kernels-selectors-l70-{label}", **rec)
         del system, sparams, st, fld, got, want
@@ -2329,14 +2619,11 @@ def run_halo(name, plain, planes, box, step, params, dt, cfg, ext=("x",),
     from meso_tpu_torch.kernels._brick import halo_forces_plain
     mod, fn, model = HALO_KERNELS[name]
     ns = params.n_species if model == "tdpd" else 0
-    n_excl = 0 if getattr(params, "excl", None) is None \
-        else params.excl.shape[1]
+    fields, n_excl = halo_fields(name, params)
     if plain:
-        fields = (("T",) if model == "edpd" else
-                  tuple(f"C{s}" for s in range(ns)))
         out = halo_forces_plain(
             model, planes, box, step, params, dt, cfg, ext, rng_mode, 8,
-            fields=fields if model != "dpd" else (), n_excl=n_excl)
+            fields=fields, n_excl=n_excl)
         return (out[0], out[2]) if model == "dpd" else out
     entry = getattr(importlib.import_module(
         f"meso_tpu_torch.kernels.{mod}"), fn)
@@ -2346,6 +2633,30 @@ def run_halo(name, plain, planes, box, step, params, dt, cfg, ext=("x",),
     elif model != "dpd":
         kw.update(ext=ext, model=model, ns=ns)
     return entry(planes, box, step, params, dt, cfg, **kw)
+
+
+def halo_fields(name, params):
+    """(the field planes, the exclusion tags a row) a halo entry point
+    reads: T (eDPD), C0 .. (tDPD) or none; E with exclusions."""
+    model = HALO_KERNELS[name][2]
+    fields = (("T",) if model == "edpd" else
+              tuple(f"C{s}" for s in range(params.n_species))
+              if model == "tdpd" else ())
+    n_excl = 0 if getattr(params, "excl", None) is None \
+        else params.excl.shape[1]
+    return fields, n_excl
+
+
+def halo_brick_of(name, planes, params, cfg, ext=("x",), rng_mode="fast"):
+    """The brick a halo entry point builds from these planes
+    (``_brick.halo_brick``, as ``_brick.halo_forces`` calls it)."""
+    from meso_tpu_torch.kernels import _brick
+    from meso_tpu_torch.kernels.common import halo_window
+    fields, n_excl = halo_fields(name, params)
+    return _brick.halo_brick(
+        planes, cfg, halo_window(cfg, ext, rng_mode), ext, fields,
+        planes.get("h") if rng_mode == "fast" else None,
+        params.n_types > 1, n_excl)
 
 
 def compare_halo(name, got, want, valid, label):
@@ -2631,6 +2942,13 @@ def dd_kernel_check(label, system, params, state, slabs, dcfg):
         ms=timed_ms(lambda: run_halo(name, False, *args), 20),
         plain_ms=timed_ms(lambda: run_halo(name, True, *args), 3))
     rec["bound_ms"], rec["bound_by"] = halo_bound(name, planes, got, p, n_rc)
+    from meso_tpu_torch.kernels import _build
+    brick = halo_brick_of(name, planes, p, cfg)
+    rec["kernel_ms"] = kernel_alone_ms(name, _build.load_library(), brick,
+                                       box, 1, p, system.dt, cfg)
+    rec["tests_per_valid_row"] = brick_tests_per_row(brick, cfg)
+    rec.update(tile_fields(cfg, brick.xr))
+    del brick
     if name != "pair_halo_banded_dpd":
         xr = 2 if cfg.spill else 1
         nx = cfg.ncell[0]
@@ -3108,7 +3426,9 @@ def phase_probes(k1):
     t2["k1_candidates_per_valid_row"] = k1["candidates"] / k1["n"]
     say("probes-t2", batch=PROBE_BATCH, **t2)
 
-    # T3 at the probe's shape, the base variant timed
+    # T3 at the probe's shape, the base variant timed; its bound counts a
+    # site's 8-round TEA as a hash row's instructions less the xor that
+    # makes the hash's v1 (T3 takes v1 from the other tag)
     stack, iscal = toy_tea_roll.inputs(DEVICE)
     out = toy_tea_roll.tea_roll(stack, iscal, "base")
     n_sites = stack.shape[-1] * stack.shape[-2] * len(toy_tea_roll.OFFS)
@@ -3118,7 +3438,8 @@ def phase_probes(k1):
         timed_ms(lambda: toy_tea_roll.tea_roll(stack, iscal, "base"), 200),
         timed_ms(lambda: toy_tea_roll.tea_roll_plain(stack, iscal, "base"),
                  5),
-        bound([stack, iscal], [out], n_sites * (8 * HASH_OPS_PER_ROUND + 10)),
+        bound([stack, iscal], [out],
+              n_sites * (Ops(**k1["hash_ops_per_row"]) - Ops(0, 1, 1))),
         variants=len(toy_tea_roll.VARIANTS)))
 
     # T4 at K1's 1M view
@@ -3506,6 +3827,48 @@ def phase_dd_bucket():
     return res
 
 
+# how the profiler names a kernel of csrc/ (each file's kernels sit in an
+# anonymous namespace)
+PORT_KERNEL_PREFIX = "void (anonymous namespace)::"
+# the profiled path and the kernel's name (up to its template arguments)
+# of each row of the kernels line that a profiled path runs
+IN_PATH = {"pair_dpd_v3": ("classic", "pair_dpd_v3_kernel<"),
+           "particle_hash": ("classic", "particle_hash_kernel<"),
+           "pair_dpd_v3_general": ("walls", "pair_dpd_v3_general_kernel"),
+           "pair_edpd_v3": ("edpd", "pair_edpd_v3_kernel"),
+           "pair_tdpd_v3": ("tdpd", "pair_tdpd_v3_kernel"),
+           **{SELECTOR_KERNELS[sel][model]: (f"{sel}-{label}",
+                                             "pair_brick_kernel<")
+              for sel in ("v2", "banded")
+              for model, label in (("dpd", "classic"), ("edpd", "edpd"),
+                                   ("tdpd", "tdpd"))}}
+PORT_KERNELS = tuple(sorted({PORT_KERNEL_PREFIX + kernel
+                             for _, kernel in IN_PATH.values()}))
+
+
+def in_path_ms(profiles, name):
+    """A kernel's device time a call on the profiled path that runs it
+    (IN_PATH), or None where no profiled path runs it."""
+    if name not in IN_PATH:
+        return None
+    path, kernel = IN_PATH[name]
+    hits = [e for e in profiles[path]["port"]
+            if e["kernel"].startswith(PORT_KERNEL_PREFIX + kernel)]
+    calls = sum(e["calls"] for e in hits)
+    if not calls:
+        raise AssertionError(f"the profile of {path} lists no {kernel}")
+    return sum(e["ms_per_chunk"] for e in hits) * PROFILE_CHUNKS / calls
+
+
+def brick_row_fields(rec):
+    """What a brick kernel's row adds to the contract's keys, as K1's row
+    does: its tile plan, slot tests a valid row, and its time alone
+    (kernel_ms; "ms" is through the wrapper, the brick's build
+    included)."""
+    return {k: rec[k] for k in ("width", "smem_bytes", "blocks_per_sm",
+                                "tests_per_valid_row", "kernel_ms")}
+
+
 def kernel_records(record):
     """The kernels' JSON record: every kernel of the ported paths, with its
     launches on the path that runs it (K1 and the hash: the classic main
@@ -3525,13 +3888,23 @@ def kernel_records(record):
          "bound_by": l70["pair_bound_by"], "library_ms": None,
          "width": l70["plan"]["width"],
          "smem_bytes": l70["plan"]["smem_bytes"],
+         "blocks_per_sm": l70["blocks_per_sm"],
          "tests_per_valid_row": l70["tests_per_valid_row"]},
         {"name": "particle_hash", "route": "cuda", "source": k1_src,
          "replaces": "meso_tpu/kernels/pair_dpd_v3.py:161",
          "launches": k1_launches["particle_hash"],
-         "max_abs_err": l70["hash_max_abs_err"], "ms": l70["hash_ms"],
+         "max_abs_err": l70["hash_max_abs_err"],
+         # "ms" through particle_hash_v3, as on every row through its
+         # wrapper; launch_ms through launch_hash, the paths' call (events
+         # around back-to-back calls time the host's launches: longer than
+         # the kernel, whose time on the main path is in_path_ms)
+         "ms": l70["hash_ms"], "launch_ms": l70["hash_kernel_ms"],
+         "odd_rows": l70["hash_odd_rows"],
+         "odd_launch_ms": l70["hash_odd_kernel_ms"],
          "plain_ms": l70["hash_plain_ms"], "bound_ms": l70["hash_bound_ms"],
-         "bound_by": l70["hash_bound_by"], "library_ms": None}]
+         "bound_by": l70["hash_bound_by"], "library_ms": None,
+         # its bound's instructions a row, counted from the built library
+         "ops_per_row": l70["hash_ops_per_row"]}]
     # K1's general variant: its launches on both paths that run it, its
     # numbers on walls-full's inputs (two types; polymer-full's are in
     # build/chip_smoke.json and PERF.md)
@@ -3576,7 +3949,8 @@ def kernel_records(record):
                      "launches"][name],
                  "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                  "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                 "bound_by": rec["bound_by"], "library_ms": None})
+                 "bound_by": rec["bound_by"], "library_ms": None,
+                 **brick_row_fields(rec)})
     # K4 and K6-halo, one row for each two-rank path: the numbers on its
     # rank-0 inputs, the launches of both ranks on that path (K4 runs the
     # classic path and, with exclusions, the polymer one: "pair_halo_dpd"
@@ -3592,12 +3966,14 @@ def kernel_records(record):
              "launches": dp[label]["launches"][name],
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-             "bound_by": rec["bound_by"], "library_ms": None})
+             "bound_by": rec["bound_by"], "library_ms": None,
+             **brick_row_fields(rec)})
     rows += record["probes"]["rows"]
     # the measured floor of each byte-bound kernel: its bytes over the
     # streaming rate the null stage (T4) reached on this card
     rate = record["probes"]["t4"]["best_rate_bytes_per_s"]
     for row in rows:
+        row["in_path_ms"] = in_path_ms(record["profile"], row["name"])
         if row["bound_by"] == "bytes":
             row["floor_ms"] = row["bound_ms"] * HBM_BYTES_PER_S / rate
     return {"kernels": rows}
@@ -3619,6 +3995,7 @@ def main(argv):
         record["general_kernels"] = phase_general_kernels(
             record["kernels"]["l70"]["pair_ms"], info["card"])
         record["selector_kernels"] = phase_selector_kernels()
+        record["brick_tiles"] = phase_brick_tiles()
         record["selector_kernels_l70"] = phase_selector_kernels_l70()
         record["probes"] = phase_probes(record["kernels"]["l70"])
     if "--decay-from" not in argv and "--sweep-only" not in argv:

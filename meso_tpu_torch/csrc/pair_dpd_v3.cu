@@ -52,14 +52,66 @@ namespace {
 
 using namespace meso;
 
-__global__ void particle_hash_kernel(const int32_t* __restrict__ tag,
-                                     uint32_t* __restrict__ h, int n,
-                                     uint32_t step, uint32_t seed,
-                                     int rounds) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t t = static_cast<uint32_t>(tag[i]);
-  h[i] = tea_v0(t, t ^ 0xDEADBEEFu, step, seed, rounds);
+// The per-particle hash h = TEA-rounds(tag, tag ^ 0xDEADBEEF, step, seed)
+// of every row, invalid ones included. One TEA chain is a serial run of
+// integer instructions: compiled for sm_90a, a half-round is LEA, VIADD,
+// LEA.HI, LOP3 and IMAD.IADD, so a row's 8 rounds take ~78 instructions,
+// 46 of them on the ALU pipe (64 lanes an SM). At the main path's
+// 2,000,000 rows that pipe needs ~0.0055 ms on an H100 against 0.0048 ms
+// for its 16 MB: operations bound it (chip_smoke.py counts the
+// instructions from the built library). So a thread takes kHashRows rows
+// at once (one 16-byte load and store where both pointers allow it,
+// scalars for the tail of n % kHashRows), runs their chains interleaved
+// round by round (independent instructions for the scheduler), and the
+// grid is sized to fill every SM, looping over the rest. kRounds > 0
+// fixes the rounds at compile time (8, the fast tier's, unrolled); 0
+// reads ``rounds``.
+constexpr int kHashRows = 4;
+
+template <int kRounds>
+__global__ void __launch_bounds__(kThreads)
+particle_hash_kernel(const int32_t* __restrict__ tag,
+                     uint32_t* __restrict__ h, int n, uint32_t step,
+                     uint32_t seed, int rounds, int vec) {
+  const int units = (n + kHashRows - 1) / kHashRows;
+  const int nr = kRounds > 0 ? kRounds : rounds;
+  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < units;
+       u += gridDim.x * blockDim.x) {
+    const int i = u * kHashRows;
+    const bool whole = vec && i + kHashRows <= n;
+    uint32_t v0[kHashRows], v1[kHashRows];
+    if (whole) {
+      const int4 t = reinterpret_cast<const int4*>(tag)[u];
+      v0[0] = static_cast<uint32_t>(t.x);
+      v0[1] = static_cast<uint32_t>(t.y);
+      v0[2] = static_cast<uint32_t>(t.z);
+      v0[3] = static_cast<uint32_t>(t.w);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kHashRows; ++c)
+        v0[c] = i + c < n ? static_cast<uint32_t>(tag[i + c]) : 0u;
+    }
+#pragma unroll
+    for (int c = 0; c < kHashRows; ++c) v1[c] = v0[c] ^ 0xDEADBEEFu;
+    uint32_t s = 0u;
+#pragma unroll
+    for (int r = 0; r < nr; ++r) {
+      s += kDelta;
+#pragma unroll
+      for (int c = 0; c < kHashRows; ++c)
+        v0[c] += ((v1[c] << 4) + step) ^ (v1[c] + s) ^ ((v1[c] >> 5) + seed);
+#pragma unroll
+      for (int c = 0; c < kHashRows; ++c)
+        v1[c] += ((v0[c] << 4) + kK2) ^ (v0[c] + s) ^ ((v0[c] >> 5) + kK3);
+    }
+    if (whole) {
+      reinterpret_cast<uint4*>(h)[u] = make_uint4(v0[0], v0[1], v0[2], v0[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kHashRows; ++c)
+        if (i + c < n) h[i + c] = v0[c];
+    }
+  }
 }
 
 // The block's dynamic shared memory, in bytes from its start; the wrapper
@@ -547,15 +599,38 @@ void launch_general(dim3 grid, cudaStream_t stream, const float* x,
 
 }  // namespace
 
+// The hash of n tags: at most as many blocks as fill every SM of the
+// current device (2048 threads an SM), each thread kHashRows rows a pass.
 extern "C" int meso_particle_hash(const void* tag, void* h, int n,
                                   uint32_t step, uint32_t seed, int rounds,
                                   void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    particle_hash_kernel<<<blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(tag), static_cast<uint32_t*>(h), n, step,
-        seed, rounds);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  // the SM count of each device, asked once (the main path launches the
+  // hash every step)
+  static int sm_count[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev < 0 || dev >= 64)) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && sm_count[dev] == 0)
+    e = cudaDeviceGetAttribute(&sm_count[dev],
+                               cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int sms = sm_count[dev];
+  const int units = (n + kHashRows - 1) / kHashRows;
+  const int fill = sms * (2048 / kThreads);
+  const int need = (units + kThreads - 1) / kThreads;
+  const int blocks = need < fill ? need : fill;
+  const int vec = ((reinterpret_cast<uintptr_t>(tag) |
+                    reinterpret_cast<uintptr_t>(h)) % 16) == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* t = static_cast<const int32_t*>(tag);
+  uint32_t* out = static_cast<uint32_t*>(h);
+  if (rounds == 8) {
+    particle_hash_kernel<8><<<blocks, kThreads, 0, st>>>(t, out, n, step,
+                                                         seed, rounds, vec);
+  } else {
+    particle_hash_kernel<0><<<blocks, kThreads, 0, st>>>(t, out, n, step,
+                                                         seed, rounds, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

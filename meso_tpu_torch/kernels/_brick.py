@@ -33,7 +33,7 @@ import torch
 
 from meso_tpu_torch.core import rng as rngmod
 from meso_tpu_torch.core.box import Box
-from meso_tpu_torch.kernels import _build
+from meso_tpu_torch.kernels import _build, cell_tiles
 from meso_tpu_torch.kernels import pair_dpd_v3 as v3
 from meso_tpu_torch.kernels.common import (check_cuda, half_window,
                                            halo_window, row_specs, tables,
@@ -231,10 +231,21 @@ def _inputs(model: str, params, x, typ, tag, field):
 def launch(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
            step: int, params, dt: float, cfg: CellConfig, rng_mode: str,
            rng_rounds: int):
-    """One launch of the pair_brick kernel on CUDA tensors. Builds the hash
-    (fast tier, one launch of particle_hash) and the brick, launches, adds
-    one to ``LAUNCHES[name]``. Returns (f (nr, 3), the
-    field's rate (dT/dt, dC/dt) or None, virial)."""
+    """One launch of the pair_brick kernel on CUDA tensors: ``card_brick``
+    (the hash and the brick), then ``launch_brick``, counted under
+    ``name``. Returns (f (nr, 3), the field's rate (dT/dt, dC/dt) or None,
+    virial)."""
+    lib, brick = card_brick(model, x, v, field, typ, tag, mask, box, step,
+                            params, cfg, rng_mode, rng_rounds)
+    return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
+                        rng_mode, rng_rounds)
+
+
+def card_brick(model: str, x, v, field, typ, tag, mask, box: Box, step: int,
+               params, cfg: CellConfig, rng_mode: str, rng_rounds: int):
+    """(the kernel library, the brick of CUDA bucket rows): the inputs
+    checked, the per-particle hash (fast tier, one launch of
+    particle_hash) and ``build_brick``."""
     lib = _build.load_library()
     nr = n_rows(cfg)
     specs = {**row_specs(nr, x, v, tag, mask, box),
@@ -249,17 +260,17 @@ def launch(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
     h = None if rng_mode == "tea" else v3.launch_hash(
         lib, tag, step & 0xFFFFFFFF, params.seed, rng_rounds)
     fld, typ_b, ex = _inputs(model, params, x, typ, tag, field)
-    brick = build_brick(cfg, half_window(cfg, rng_mode), x, v, tag, mask,
-                        field=fld, h=h, typ=typ_b, ex=ex)
-    return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
-                        rng_mode, rng_rounds)
+    return lib, build_brick(cfg, half_window(cfg, rng_mode), x, v, tag, mask,
+                            field=fld, h=h, typ=typ_b, ex=ex)
 
 
 def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
                  step: int, params, dt: float, cfg: CellConfig,
                  rng_mode: str, rng_rounds: int):
     """One launch of pair_brick_kernel over a built brick on the card,
-    whose target cells are ``cfg.ncell``; adds one to ``LAUNCHES[name]``.
+    whose target cells are ``cfg.ncell``, on the cell tiles of
+    ``cell_tiles.brick_plan`` (a capacity no tile fits raises
+    ``ValueError``); adds one to ``LAUNCHES[name]``.
     Returns (f (nr, 3), dT/dt, dC/dt or None, virial)."""
     specs = {"fb": (brick.fb, torch.float32, None),
              "ib": (brick.ib, torch.int32, None),
@@ -286,6 +297,8 @@ def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
                             device=dev)
     a, gamma, x3, rc = (getattr(params, n) for n in TABLES[model])
     nx, ny, nz = cfg.ncell
+    plan = cell_tiles.brick_plan(cfg.capacity, brick.xr, cfg.ncell)
+    table = cell_tiles.table_on(plan, dev, cell_tiles.brick_table)
     excl_w = params.excl_w if model == "dpd" and brick.n_excl else None
     code = lib.meso_pair_brick(
         MODELS[model], int(rng_mode == "tea"), brick.fb.data_ptr(),
@@ -298,7 +311,9 @@ def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
         params.kappa_c.data_ptr() if tdpd else None,
         params.eps_c.data_ptr() if tdpd else None, f.data_ptr(),
         None if extra is None else extra.data_ptr(), vir.data_ptr(),
-        nx, ny, nz, cfg.capacity, brick.xr, 1.0 / math.sqrt(dt),
+        nx, ny, nz, cfg.capacity, brick.xr, table.data_ptr(), plan.width,
+        plan.n_blocks, plan.threads, plan.list_cap, plan.smem_bytes,
+        1.0 / math.sqrt(dt),
         getattr(params, "s_exp", 1.0),
         params.mass if model == "edpd" else 1.0,
         params.cv if model == "edpd" else 1.0,

@@ -60,10 +60,11 @@ SIGNATURES = {
     + (_F,) * 3 + (_U, _U, _I, _P),
     # model, tea, fb, ib, box_lo, box_hi, a, gamma, x3, rc, n_types, ch_h,
     # ch_typ, ch_ex, n_excl, excl_w, ns, kappa_c, eps_c, f, extra, vir, nx,
-    # ny, nz, k, xr, dt_inv_sqrt, s_exp, mass, cv, rcc, s1, step, seed,
-    # rounds, stream
+    # ny, nz, k, xr, table, width, n_blocks, threads, list_cap, smem_bytes,
+    # dt_inv_sqrt, s_exp, mass, cv, rcc, s1, step, seed, rounds, stream
     "meso_pair_brick": (_I, _I) + (_P,) * 8 + (_I,) * 5 + (_P, _I)
-    + (_P,) * 5 + (_I,) * 5 + (_F,) * 6 + (_U, _U, _I, _P),
+    + (_P,) * 5 + (_I,) * 5 + (_P,) + (_I,) * 5 + (_F,) * 6
+    + (_U, _U, _I, _P),
     # the probes (csrc/probes.cu)
     # x, offs, n_offs, out, rows, len, stream
     "meso_probe_dynroll": (_P, _P, _I, _P, _I, _I, _P),

@@ -1,5 +1,8 @@
-"""The cell tiles of K1's Hopper kernel (``csrc/pair_dpd_v3.cu``,
-``pair_dpd_v3_kernel``): its launch plan and the table each block reads.
+"""The cell tiles of the Hopper pair kernels: K1's (``csrc/pair_dpd_v3.cu``,
+``pair_dpd_v3_kernel``) over bucket rows and the brick kernel's
+(``csrc/pair_brick.cu``, ``pair_brick_kernel``: K4-K7 and K6-halo) over a
+padded brick of channel planes; their launch plans and the tables each
+block reads.
 
 A block owns a tile of target cells: one (cy, cz) and a run of up to W
 consecutive cx. It stages the sources of its stencil in shared memory: the
@@ -12,6 +15,15 @@ grid: the kernel reads it and does no index arithmetic of its own beyond
 version's stencil (``_stencil_pairs``).
 
 Row layout: row = ((cy * ncz + cz) * K + slot) * ncx + cx.
+
+The brick (``kernels/_brick.py``) pads every plane by one cell on each
+side in y and z and by xr cells on each side in x, so its tiles need no
+wrap codes: a brick block stages the same 3 x 3 lines x (W + 2 xr)
+columns from the brick's own coordinates, and its table holds, for each
+line, the brick index of the block's first source column in slot 0
+(``brick_table``). What it stages differs from K1's (no row indices: the
+brick index rides in the position's fourth word, and no shifts), so its
+plan sizes W on its own shared-memory layout (``brick_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -43,13 +55,18 @@ TARGET_LINE = 4
 HEAD = 4
 LINE_FIELDS = 3
 COL0 = HEAD + LINE_FIELDS * len(LINES)
+# brick table row: cy, cz, cx0, width, then the 9 lines' first brick index
+BRICK_TABLE_WIDTH = HEAD + len(LINES)
 
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """K1's launch for one grid: W target columns a block (the last run of
-    cx may be shorter), ``threads`` a block, ``smem_bytes`` of dynamic
-    shared memory, one block per (cy, cz, x-run): ``n_blocks``."""
+    """A tile kernel's launch for one grid (K1's or the brick kernel's): W
+    target columns a block (the last run of cx may be shorter),
+    ``threads`` a block, ``smem_bytes`` of dynamic shared memory, one
+    block per (cy, cz, x-run): ``n_blocks``, each reading one row of its
+    table: the head, ``line_fields`` int32 for each of the 9 lines and
+    ``col_fields`` for each source column."""
 
     capacity: int
     xr: int
@@ -59,6 +76,8 @@ class TilePlan:
     threads: int
     list_cap: int
     smem_bytes: int
+    line_fields: int
+    col_fields: int
 
     @property
     def ncols(self) -> int:
@@ -66,13 +85,14 @@ class TilePlan:
         return self.width + 2 * self.xr
 
     @property
+    def table_width(self) -> int:
+        return (HEAD + self.line_fields * len(LINES)
+                + self.col_fields * self.ncols)
+
+    @property
     def n_blocks(self) -> int:
         nx, ny, nz = self.ncell
         return ny * nz * self.n_xtiles
-
-    @property
-    def table_width(self) -> int:
-        return COL0 + 2 * self.ncols
 
     def blocks_per_sm(self) -> int:
         return SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED_PER_BLOCK)
@@ -105,22 +125,57 @@ def smem_bytes(ncols: int, k: int, threads: int, list_cap: int) -> int:
     return -(-b // 16) * 16
 
 
+def brick_smem_bytes(ncols: int, k: int, threads: int, list_cap: int) -> int:
+    """The brick kernel's dynamic shared memory, in its order
+    (``tile_layout`` in csrc/pair_brick.cu computes the same and the
+    launch refuses a mismatch): staged positions (float4: x, y, z and the
+    source's brick index as the fourth word; v, tag, the hash, the type
+    and the field are gathered from the brick for the in-range pairs
+    only), the slot-cells' first staged indices, the slot masks, the
+    block's table row, the lists (uint16)."""
+    s = len(LINES) * ncols * k
+    words = -(-k // 32)
+    b = 16 * s
+    b += 4 * len(LINES) * (ncols + 1)
+    b += 4 * len(LINES) * ncols * words
+    b += 4 * BRICK_TABLE_WIDTH
+    b += 2 * list_cap * threads
+    return -(-b // 16) * 16
+
+
 @functools.lru_cache(maxsize=64)
 def plan(capacity: int, xr: int, ncell: tuple) -> TilePlan:
-    """The widest W whose block lets BLOCKS_PER_SM blocks share an SM, or,
-    where no W does (capacities above ~118 spill, ~190 strict), one block
-    an SM; then W evened out over the runs of cx: ceil(ncx / W) runs of
-    ceil(ncx / runs). A block has W + 2 xr <= 32 source columns (one warp's
-    lanes stage them) and at most 65,536 staged slots (the lists' uint16
-    index). A capacity whose W = 1 block exceeds the 227 KB of one block
-    (above ~240 spill, ~400 strict) is refused."""
+    """K1's plan: the widest W whose block lets BLOCKS_PER_SM blocks share
+    an SM, or, where no W does (capacities above ~118 spill, ~190 strict),
+    one block an SM; then W evened out over the runs of cx: ceil(ncx / W)
+    runs of ceil(ncx / runs). A block has W + 2 xr <= 32 source columns
+    (one warp's lanes stage them) and at most 65,536 staged slots (the
+    lists' uint16 index). A capacity whose W = 1 block exceeds the 227 KB
+    of one block (above ~240 spill, ~400 strict) is refused."""
+    return _plan(int(capacity), xr, ncell, smem_bytes, LINE_FIELDS, 2,
+                 "K1's")
+
+
+@functools.lru_cache(maxsize=64)
+def brick_plan(capacity: int, xr: int, ncell: tuple) -> TilePlan:
+    """The brick kernel's plan, by ``plan``'s rule on its own layout
+    (``brick_smem_bytes``), for any target run ncx >= 1 (the halo calls'
+    edge groups pass ncx = xr). A capacity whose W = 1 block exceeds the
+    227 KB of one block (above ~300 spill, ~500 strict) is refused."""
+    return _plan(int(capacity), xr, ncell, brick_smem_bytes, 1, 0,
+                 "the brick kernel's")
+
+
+def _plan(k: int, xr: int, ncell: tuple, smem_fn, line_fields: int,
+          col_fields: int, who: str) -> TilePlan:
     nx = int(ncell[0])
-    k = int(capacity)
+    if nx < 1:
+        raise ValueError(f"{who} cell tiles: no target column (ncx {nx})")
 
     def fits(w, budget):
         ncols = w + 2 * xr
         return (ncols <= 32 and len(LINES) * ncols * k <= 1 << 16
-                and smem_bytes(ncols, k, _threads(w, k), LIST_CAP) <= budget)
+                and smem_fn(ncols, k, _threads(w, k), LIST_CAP) <= budget)
 
     for blocks in (BLOCKS_PER_SM, 1):
         budget = min(SMEM_PER_BLOCK,
@@ -130,7 +185,7 @@ def plan(capacity: int, xr: int, ncell: tuple) -> TilePlan:
         if w_max:
             break
     else:
-        raise ValueError(f"K1's cell tiles: capacity {k} with x "
+        raise ValueError(f"{who} cell tiles: capacity {k} with x "
                          f"half-window {xr} leaves no tile width that fits "
                          f"the {SMEM_PER_BLOCK} bytes of one block")
     n_xtiles = -(-nx // w_max)
@@ -139,13 +194,27 @@ def plan(capacity: int, xr: int, ncell: tuple) -> TilePlan:
     return TilePlan(capacity=k, xr=xr, ncell=tuple(int(c) for c in ncell),
                     width=w, n_xtiles=n_xtiles, threads=threads,
                     list_cap=LIST_CAP,
-                    smem_bytes=smem_bytes(w + 2 * xr, k, threads, LIST_CAP))
+                    smem_bytes=smem_fn(w + 2 * xr, k, threads, LIST_CAP),
+                    line_fields=line_fields, col_fields=col_fields)
 
 
 def _wrap(c: torch.Tensor, n: int):
     """(c mod n, the wrap code: -1 below 0, +1 above n - 1, else 0)."""
     code = torch.where(c < 0, -1, torch.where(c >= n, 1, 0))
     return c - code * n, code
+
+
+def _runs(p: TilePlan):
+    """(cy, cz, cx0, width) of every block, block b = (cy * ncz + cz) *
+    n_xtiles + tx."""
+    nx, ny, nz = p.ncell
+    tx = torch.arange(p.n_xtiles)
+    cx0 = tx * p.width
+    width = torch.clamp(nx - cx0, max=p.width)
+    cy = torch.arange(ny).repeat_interleave(nz * p.n_xtiles)
+    cz = torch.arange(nz).repeat_interleave(p.n_xtiles).repeat(ny)
+    tx = tx.repeat(ny * nz)
+    return cy, cz, cx0[tx], width[tx]
 
 
 def tile_table(p: TilePlan) -> torch.Tensor:
@@ -157,12 +226,7 @@ def tile_table(p: TilePlan) -> torch.Tensor:
     """
     nx, ny, nz = p.ncell
     k, xr = p.capacity, p.xr
-    tx = torch.arange(p.n_xtiles)
-    cx0 = tx * p.width
-    width = torch.clamp(nx - cx0, max=p.width)
-    cy = torch.arange(ny).repeat_interleave(nz * p.n_xtiles)
-    cz = torch.arange(nz).repeat_interleave(p.n_xtiles).repeat(ny)
-    tx = tx.repeat(ny * nz)
+    cy, cz, cx0, width = _runs(p)
     cols = []
     for dy, dz in LINES:
         sy, ycode = _wrap(cy + dy, ny)
@@ -171,15 +235,35 @@ def tile_table(p: TilePlan) -> torch.Tensor:
     c = torch.arange(p.ncols)
     sx, xcode = _wrap(cx0[:, None] - xr + c[None, :], nx)
     used = c[None, :] < (width + 2 * xr)[:, None]
-    sx = torch.where(used, sx, -1)[tx]
-    xcode = torch.where(used, xcode, 0)[tx]
-    head = torch.stack([cy, cz, cx0[tx], width[tx]] + cols, 1)
+    sx = torch.where(used, sx, -1)
+    xcode = torch.where(used, xcode, 0)
+    head = torch.stack([cy, cz, cx0, width] + cols, 1)
     xcols = torch.stack([sx, xcode], 2).reshape(p.n_blocks, 2 * p.ncols)
     return torch.cat([head, xcols], 1).to(torch.int32)
 
 
+def brick_table(p: TilePlan) -> torch.Tensor:
+    """(n_blocks, BRICK_TABLE_WIDTH) int32 on the CPU, block b = (cy * ncz
+    + cz) * n_xtiles + tx: [cy, cz, cx0, width], then for each line (dy,
+    dz) of LINES the brick index of its slot 0 at the block's first source
+    column: ((cy + 1 + dy) * (ncz + 2) + cz + 1 + dz) * K * (ncx + 2 xr) +
+    cx0. Source column c of the block (c < width + 2 xr) is brick column
+    cx0 + c and slot s of it lies s * (ncx + 2 xr) further on; target
+    column cx0 + c sits in source column c + xr. Nothing wraps: the pads
+    hold the periodic copy or the halo layers."""
+    nx, ny, nz = p.ncell
+    px, pz = nx + 2 * p.xr, nz + 2
+    cy, cz, cx0, width = _runs(p)
+    lines = [((cy + 1 + dy) * pz + cz + 1 + dz) * p.capacity * px + cx0
+             for dy, dz in LINES]
+    return torch.stack([cy, cz, cx0, width] + lines, 1).to(torch.int32)
+
+
 @functools.lru_cache(maxsize=16)
-def table_on(p: TilePlan, device: torch.device) -> torch.Tensor:
-    """``tile_table`` on ``device``, made once per plan and device (one
-    host-to-device copy per grid, none in the step loop)."""
-    return tile_table(p).to(device)
+def table_on(p: TilePlan, device: torch.device,
+             build=tile_table) -> torch.Tensor:
+    """The plan's table, ``build(p)`` (``tile_table`` for K1's plan,
+    ``brick_table`` for a brick plan), on ``device``, made once per plan,
+    builder and device (one host-to-device copy per grid, none in the step
+    loop)."""
+    return build(p).to(device)
