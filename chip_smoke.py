@@ -2,7 +2,7 @@
 """Smoke run of meso_tpu_torch on one NVIDIA card (built for the H100).
 
     python3 chip_smoke.py [--kernels-only | --dd-only | --sweep-only |
-                           --decay-from FILE]
+                           --decay-from FILE | --ab PARENT_DIR]
 
 Phases, one line of output each (any failure raises and exits non-zero):
 
@@ -26,14 +26,19 @@ Phases, one line of output each (any failure raises and exits non-zero):
    and tDPD kernels K2 and K3 against their plain versions and the port's
    dense oracles in every covered case (fast/tea x spill/strict x
    min-image/no-min-image), K3 both with two species (rcc 0.8, s1 2) and
-   with one species, rcc = rc = 1, s1 = 1, as the tDPD path runs it;
+   with one species, rcc = rc = 1, s1 = 1, as the tDPD path runs it; then
+   K3's cell tiles (TDPD_TILE_CASES): ragged runs of cx (l=41), dense
+   fluids that fill the lists (rho 9 at K 128 spill and 192 strict, rho 32
+   at K 216, one block an SM), TEA, both wrap modes, ten species with one
+   and two types;
 5. kernels-transport-l70: K2 and both K3 cases at the 1M shape against
    their plain versions, with their times, the plain times and K1's time
    on the same rows; then K2 and K3 on each 1M path's own inputs (its
    builder's state at set-up, its capacity and its coefficients), whose
    numbers the kernels' record reports;
 6. main path: classic_fluid(l=70) through run_bucket_chunked, 399
-   equilibration steps, 201 timed steps, then a traced window, in rounds
+   equilibration steps, 201 timed steps (timed in TIMED_BLOCKS blocks, each
+   block's ms/step reported), then a traced window, in rounds
    of 300 steps, until the kT average has at least 10 effective samples;
    checks launch counts, overflow (every window), skin ratio (the timed
    window, as bench.py checks it; the others are reported), finiteness
@@ -53,12 +58,15 @@ Phases, one line of output each (any failure raises and exits non-zero):
    against its plain version in every covered combination (fast/tea x
    spill/strict x min-image/no-min-image, two types with an asymmetric a
    table and rc_01 = 0.8, s_exp = 0.5, exclusions E = 2 at weight 0.25),
-   plus the two 1M paths' own combinations; forces within the JAX v3
+   plus the two 1M paths' own combinations, then its cell tiles
+   (GENERAL_TILE_CASES: ragged l=41, rho 9 at K 128/192 and rho 32 at K
+   216, TEA, both wrap modes, E = 6 exclusions); forces within the JAX v3
    tests' bounds, debug_pairs bitwise;
 10. kernels-general-l70: the general variant on each new 1M path's inputs
    at set-up (walls-full, polymer-full), with its time, the plain time,
-   K1's one-type time on the same rows and the bound; K1's one-type time
-   at the main-path shape below PR 6's on the same card;
+   K1's one-type time on the same rows, the bound, the tile plan, the slot
+   tests a valid row and the registers ptxas gave each instance; K1's
+   one-type time at the main-path shape below PR 6's on the same card;
 11. walls-physics: the gates of tests/physics/test_walls.py at their deck
    sizes through the kernels and run_bucket (Poiseuille parabola and
    viscosity, Couette profile, frozen walls, Mueller-Plathe viscosity on
@@ -146,7 +154,12 @@ after phase 8, phases 20-21 after 17, phases 23-25 after 21.
 and 19-21; ``--sweep-only`` runs phases 1-3, 22, 6, 8 (for the end
 states) and 23-25. ``--decay-from FILE`` runs only
 the tDPD decay from the JAX package's starts in FILE, against the JAX
-rates stored beside them (see phase_decay_from).
+rates stored beside them (see phase_decay_from). ``--ab PARENT_DIR`` runs
+only phases 1-2 and phase_ab: this tree and the one at PARENT_DIR (an
+unpacked checkout of another commit inside the repository, e.g. ``git
+archive HEAD~1`` under build/) alternating, a process a run, each timing
+the main path in blocks, K1 and the brick kernel alone, and saving their
+kernels' outputs, which must agree bitwise.
 
 Launch counts are set to 0 just before each path (6, each model of 8, each
 path of 13 and 16, phase 17, each rank of each path of 21, the probes'
@@ -168,6 +181,7 @@ DEVICE = "cuda"
 L_MAIN = 70.0
 SKIN, EVERY, LAM = 0.4, 3, 0.65
 EQUIL_CHUNKS, TIMED_CHUNKS, TRACE_CHUNKS = 133, 67, 100
+TIMED_BLOCKS = 4
 MAX_TRACE_ROUNDS = 20
 MIN_N_EFF = 10.0
 # transport-full: 50 + 100 chunks of 2 steps = 100 + 200 steps. With
@@ -881,10 +895,12 @@ def max_partners(bst, cfg):
     return int(counts.max())
 
 
-def phase_transport_kernels():
+def phase_transport_kernels(ptxas=()):
     """K2 and K3 against their plain versions and the port's dense oracles
-    at l=8, then at the 1M shape with their times and K1's on the same
-    rows."""
+    at l=8, K3 on its cell tiles' cases (TDPD_TILE_CASES), then at the 1M
+    shape with their times and K1's on the same rows; ``ptxas`` is the
+    build's register report, whose K3 lines the tDPD path's record
+    keeps."""
     import torch
     from meso_tpu_torch.core import rng
     from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
@@ -945,6 +961,42 @@ def phase_transport_kernels():
         worst_flux_rel=max(c["flux_rel"] for c in out["l8"]),
         worst_dense_rel=max(c["dense_rel"] for c in out["l8"]),
         worst_dense_flux_rel=max(c["dense_flux_rel"] for c in out["l8"]))
+
+    # K3's cell tiles (TDPD_TILE_CASES)
+    fn, plain, _, _ = transport_fns("tdpd")
+    out["tiles"] = []
+    for l, n, spill, min_image, rng_mode, capacity, coef, kind in \
+            TDPD_TILE_CASES:
+        bst, cfg = bucket_case(l, n, spill, min_image, capacity=capacity)
+        if coef == "S2":
+            bst, p = with_fields(bst), params["tdpd"]
+        elif coef == "S1":
+            bst, p = with_fields(bst), params["tdpd_1species"]
+            bst = bst.replace(C=bst.C[:, :1].contiguous())
+        else:
+            bst = with_species(bst, 10)
+            p = tdpd_params(10, coef == "S10-2types")
+        bst = bst.replace(typ=(bst.tag % p.n_types).to(torch.int32))
+        label = (f"{kind} {coef} l={l:g} n={n} K={cfg.capacity} {rng_mode} "
+                 f"spill={spill} min_image={min_image}")
+        got = fn(bst.x, bst.v, bst.C, bst.typ, bst.tag, bst.mask, bst.box,
+                 step, p, 0.01, cfg, rng_mode=rng_mode)
+        torch.cuda.synchronize()
+        want = plain(bst.x, bst.v, bst.C, bst.tag, bst.mask, bst.box, step, p,
+                     0.01, cfg, rng_mode, typ=bst.typ)
+        rec = {"case": label, "species": p.n_species,
+               **compare_transport(got, want, bst.mask, min_image, label),
+               "max_partners": max_partners(bst, cfg),
+               **row_tile_fields(bst, cfg)}
+        check_tile_case(label, kind, cfg, rec)
+        out["tiles"].append(rec)
+        del bst, got, want
+    say("kernels-transport-tiles", cases=len(out["tiles"]),
+        worst_rel=max(c["rel"] for c in out["tiles"]),
+        worst_flux_rel=max(c["flux_rel"] for c in out["tiles"]),
+        worst_virial_rel=max(c["virial_rel"] for c in out["tiles"]),
+        tiles=[{k: c[k] for k in ("case", "width", "runs", "blocks_per_sm",
+                                  "max_partners")} for c in out["tiles"]])
 
     # the 1M shape of the transport builders: spill, fast, min-image
     n = int(round(3.0 * L_MAIN ** 3))
@@ -1008,6 +1060,9 @@ def phase_transport_kernels():
             st.mask, [st.x, st.v, fld, st.tag, st.tag], [got[0], got[1]],
             ops, virial=True)
         prec.update(nr=st.n, capacity=cfg_p.capacity, pairs_in_rc=p_rc)
+        if model == "tdpd":
+            prec.update(row_tile_fields(st, cfg_p),
+                        ptxas=ptxas_of(ptxas, "pair_tdpd_v3_kernel"))
         rec[f"{model}_path"] = prec
         del system, sparams, st, fld, got, want, args
     dpd = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=77,
@@ -1333,6 +1388,15 @@ def classic_path(selector="v3"):
     return system.replace(lam=LAM), params, state
 
 
+def timed_blocks():
+    """The chunks of each of the TIMED_BLOCKS blocks of the main path's
+    timed window of TIMED_CHUNKS chunks, each block timed on its own
+    (synchronised on both sides), so that a slow run shows which part of
+    the window was slow."""
+    return [TIMED_CHUNKS * (b + 1) // TIMED_BLOCKS - TIMED_CHUNKS * b
+            // TIMED_BLOCKS for b in range(TIMED_BLOCKS)]
+
+
 def phase_main_path(selector="v3"):
     """The classic path at 1,029,000 particles (the main path with "v3"),
     launch counts set to 0 just before it is built and read just after the
@@ -1359,8 +1423,12 @@ def phase_main_path(selector="v3"):
     state, _ = advance(state, EQUIL_CHUNKS, "equil")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    state, _ = advance(state, TIMED_CHUNKS, "timed")
-    torch.cuda.synchronize()
+    block_ms = []
+    for chunks in timed_blocks():
+        tb = time.perf_counter()
+        state, _ = advance(state, chunks, "timed")
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - tb) / (chunks * EVERY))
     wall = time.perf_counter() - t1
     setup_equil_s = t1 - t0
     kts = []
@@ -1391,6 +1459,7 @@ def phase_main_path(selector="v3"):
            "capacity": system.cells.capacity, "steps": force_evals - 1,
            "timed_steps": timed_steps, "wall_s": wall,
            "ms_per_step": 1e3 * wall / timed_steps,
+           "block_ms_per_step": block_ms,
            "particle_steps_per_s": n * timed_steps / wall,
            "setup_and_equil_s": setup_equil_s,
            "kT_mean": kt_mean, "kT_sem": kt_sem, "kT_3sig": 3 * kt_sem,
@@ -1551,10 +1620,13 @@ def polymer_path():
     return deferred_wrap(system), params, state
 
 
-def general_params(n, two_types=True, s_exp=0.5, excl=True, weight=0.25):
+def general_params(n, two_types=True, s_exp=0.5, excl=True, weight=0.25,
+                   max_excl=2):
     """K1's general case as kernels-general-l8 checks it: two types with an
     asymmetric a table and rc_01 = 0.8 < rc = 1, s_exp, and exclusions
-    (E = 2, ``weight``) along random chains of 8 tags among 1..n."""
+    (E = ``max_excl``, ``weight``) along random chains of 8 tags among
+    1..n: each bead's neighbours along its chain up to E / 2 beads away
+    (E = 6 is more than the kernels keep in registers)."""
     import numpy as np
     import torch
     from meso_tpu_torch.ops.dpd import DPDParams, build_exclusions
@@ -1569,7 +1641,13 @@ def general_params(n, two_types=True, s_exp=0.5, excl=True, weight=0.25):
         perm = np.random.RandomState(0).permutation(n) + 1
         bonds = np.asarray([(perm[i], perm[i + 1]) for i in range(n - 1)
                             if (i + 1) % 8], np.int32)
-        ex, w = build_exclusions(bonds, n, weight=weight, max_excl=2,
+        # and, for E = 2 d, the d-th neighbours along the chain: a middle
+        # bead then has E exclusions
+        for d in range(2, max_excl // 2 + 1):
+            bonds = np.concatenate([bonds, np.asarray(
+                [(perm[i], perm[i + d]) for i in range(n - d)
+                 if i % 8 + d < 8], np.int32)])
+        ex, w = build_exclusions(bonds, n, weight=weight, max_excl=max_excl,
                                  device=DEVICE)
         p = p.replace(excl=ex, excl_w=w)
     return p
@@ -1603,7 +1681,75 @@ def general_bound(st, f, params, n_pairs):
                                          + OPS_PER_EXCL_SLOT * e) * n_pairs)
 
 
-def phase_general_kernels(k1_ms, card):
+# the cell tiles' cases of K1's general variant and of K3: (l, particles,
+# spill, min-image, RNG tier, capacity (None: the builder's), coefficients,
+# kind); kinds "ragged" (a short last run of cx), "dense" (rows whose
+# in-range sources overflow a thread's list), "one-block" (a capacity that
+# takes one block an SM), "l8"
+GENERAL_TILE_CASES = (
+    (41.0, 206763, True, False, "fast", None, "two_types", "ragged"),
+    (41.0, 206763, False, True, "tea", None, "general", "ragged"),
+    (8.0, 4608, True, False, "tea", 128, "excl6", "dense"),
+    (8.0, 4608, False, True, "fast", 192, "general", "dense"),
+    (8.0, 16384, True, True, "fast", None, "excl6", "one-block"),
+    (8.0, 16384, True, False, "tea", None, "two_types", "one-block"),
+    (8.0, 1536, True, True, "tea", None, "excl6", "l8"),
+    (8.0, 1536, False, False, "fast", None, "excl6", "l8"))
+TDPD_TILE_CASES = (
+    (41.0, 206763, True, False, "fast", None, "S1", "ragged"),
+    (41.0, 206763, False, True, "tea", None, "S10", "ragged"),
+    (8.0, 4608, True, True, "tea", 128, "S10", "dense"),
+    (8.0, 4608, False, False, "fast", 192, "S2", "dense"),
+    (8.0, 16384, True, True, "fast", None, "S1", "one-block"),
+    (8.0, 16384, True, False, "tea", None, "S10-2types", "one-block"),
+    (8.0, 1536, True, False, "fast", None, "S10-2types", "l8"),
+    (8.0, 1536, False, True, "tea", None, "S10", "l8"))
+
+
+def general_coefs(coef, n):
+    """GENERAL_TILE_CASES' coefficients: "general" (two types, s_exp 0.5,
+    E = 2 at weight 0.25), "two_types" (the walls' form), "excl6" (two
+    types, E = 6 at weight 0.5)."""
+    return {"general": lambda: general_params(n),
+            "two_types": lambda: general_params(n, s_exp=1.0, excl=False),
+            "excl6": lambda: general_params(n, s_exp=1.0, weight=0.5,
+                                            max_excl=6)}[coef]()
+
+
+def row_tile_fields(bst, cfg):
+    """The bucket-row tile plan (K1's, which K1's general variant and K3
+    share) for these cells and the slot tests a valid row its walk makes
+    on these rows (the valid slots of its stencil, itself included)."""
+    from meso_tpu_torch.kernels import cell_tiles
+    p = cell_tiles.plan(cfg.capacity, 2 if cfg.spill else 1, cfg.ncell)
+    n_valid = int(bst.mask.sum())
+    return {"width": p.width, "runs": p.n_xtiles, "threads": p.threads,
+            "smem_bytes": p.smem_bytes, "blocks_per_sm": p.blocks_per_sm(),
+            "tests_per_valid_row":
+                (stencil_candidates(bst, cfg) + n_valid) / n_valid}
+
+
+def check_tile_case(label, kind, cfg, rec):
+    """That a tile case is the case it names (rec: row_tile_fields and
+    max_partners)."""
+    from meso_tpu_torch.kernels import cell_tiles
+    failed = {
+        "ragged": kind == "ragged" and cfg.ncell[0] % rec["width"] == 0,
+        "fills its list": kind == "dense"
+        and rec["max_partners"] <= cell_tiles.LIST_CAP,
+        "one block an SM": kind in ("dense", "one-block")
+        and rec["blocks_per_sm"] != 1}
+    if any(failed.values()):
+        raise AssertionError(f"{label}: not the case it names "
+                             f"({[k for k, v in failed.items() if v]})")
+
+
+def ptxas_of(ptxas, kernel):
+    """The build's register report lines of one kernel's instances."""
+    return [ln for ln in ptxas if kernel in ln]
+
+
+def phase_general_kernels(k1_ms, card, ptxas=()):
     """K1's general variant against its plain version: at l=8 in every
     covered combination, then on each new 1M path's own inputs, with its
     time, the plain time, K1's one-type time on the same rows and the
@@ -1668,6 +1814,47 @@ def phase_general_kernels(k1_ms, card):
         worst_virial_rel=max(c["virial_rel"] for c in out["l8"]),
         debug_pairs="bitwise")
 
+    # the cell tiles' cases (GENERAL_TILE_CASES)
+    out["tiles"] = []
+    for l, n, spill, min_image, rng_mode, capacity, coef, kind in \
+            GENERAL_TILE_CASES:
+        bst, cfg = bucket_case(l, n, spill, min_image, capacity=capacity)
+        p = general_coefs(coef, n)
+        bst = bst.replace(typ=(bst.tag % p.n_types).to(torch.int32))
+        m = bst.mask
+        args = (bst.x, bst.v, bst.typ, bst.tag, m, bst.box, step, p, 0.01,
+                cfg)
+        kw = dict(rng_mode=rng_mode, s_exp=p.s_exp)
+        label = (f"{kind} {coef} l={l:g} n={n} K={cfg.capacity} {rng_mode} "
+                 f"spill={spill} min_image={min_image}")
+        f_k, vir_k = bucket_forces_pallas_v3(*args, **kw)
+        d_k, _ = bucket_forces_pallas_v3(*args, debug_pairs=True, **kw)
+        torch.cuda.synchronize()
+        plain_args = (bst.x, bst.v, bst.tag, m, bst.box, step, p, 0.01, cfg,
+                      rng_mode)
+        f_p, vir_p = bucket_forces_v3_plain(*plain_args, typ=bst.typ)
+        d_p, _ = bucket_forces_v3_plain(*plain_args, typ=bst.typ,
+                                        debug_pairs=True)
+        err, rel, vrel = compare_forces(f_k, vir_k, f_p, vir_p, m, min_image,
+                                        label)
+        if not torch.equal(d_k, d_p):
+            raise AssertionError(f"{label}: debug_pairs differs from the "
+                                 f"plain version on "
+                                 f"{int((d_k != d_p).any(1).sum())} rows")
+        rec = {"case": label, "max_abs_err": err, "rel": rel,
+               "virial_rel": vrel, "pairs": int(d_k[:, 0].sum()),
+               "max_partners": max_partners(bst, cfg),
+               **row_tile_fields(bst, cfg)}
+        check_tile_case(label, kind, cfg, rec)
+        out["tiles"].append(rec)
+        del bst, f_k, f_p, d_k, d_p
+    say("kernels-general-tiles", cases=len(out["tiles"]),
+        worst_rel=max(c["rel"] for c in out["tiles"]),
+        worst_virial_rel=max(c["virial_rel"] for c in out["tiles"]),
+        debug_pairs="bitwise",
+        tiles=[{k: c[k] for k in ("case", "width", "runs", "blocks_per_sm",
+                                  "max_partners")} for c in out["tiles"]])
+
     rec = {"k1_main_shape_ms": k1_ms, "k1_pr6_ms": K1_PR6_MS,
            "k1_change": k1_ms / K1_PR6_MS - 1.0,
            "k1_pr6_card": K1_PR6_CARD, "card": card}
@@ -1710,8 +1897,10 @@ def phase_general_kernels(k1_ms, card):
             20)
         prec["bound_ms"], prec["bound_by"] = general_bound(st, f_k, pair,
                                                            n_pairs)
+        prec.update(row_tile_fields(st, cfg))
         rec[name] = prec
         del system, sparams, st, f_k, f_p, d_k, d_p, args, plain_args
+    rec["ptxas"] = ptxas_of(ptxas, "pair_dpd_v3_general_kernel")
     out["l70"] = rec
     say("kernels-general-l70", **rec)
     if card == K1_PR6_CARD and k1_ms >= K1_PR6_MS:
@@ -2287,7 +2476,7 @@ BRICK_TILE_CASES = (
      "halo-edge"))
 
 
-def phase_brick_tiles():
+def phase_brick_tiles(keep=None):
     """The brick kernel's cell tiles (BRICK_TILE_CASES) against the plain
     version, each with compare_forces' or compare_transport's bounds:
     ragged runs of cx (l=41: ncx 29) on every model, fused and banded;
@@ -2295,7 +2484,8 @@ def phase_brick_tiles():
     rows fill their lists, classic, eDPD and tDPD; rho 32 on spill buckets
     (K 216), one block an SM; two types with exclusions (the polymer form,
     weight 0.5); tDPD with ten species (two species blocks); and the halo
-    edge calls (ncx = xr) of K4 and K6-halo on the dense fluids."""
+    edge calls (ncx = xr) of K4 and K6-halo on the dense fluids. ``keep``,
+    a dict, receives each case's kernel outputs by label."""
     import torch
     from meso_tpu_torch.kernels import cell_tiles
     from meso_tpu_torch.kernels.common import halo_window
@@ -2343,6 +2533,8 @@ def phase_brick_tiles():
                 name, True, bst, fld, step, p, 0.01, cfg, rng_mode),
                 bst.mask, label)
             tcfg = cfg
+        if keep is not None:
+            keep[label] = got
         plan = cell_tiles.brick_plan(tcfg.capacity, xr, tcfg.ncell)
         rec.update(case=label, max_partners=partners, ncell=list(tcfg.ncell),
                    **tile_fields(tcfg, xr))
@@ -3827,6 +4019,153 @@ def phase_dd_bucket():
     return res
 
 
+# --ab: two trees' kernels and main path on one card, a process a run, in
+# the order parent, change, change, parent per round
+AB_ROUNDS = 2
+
+
+def ab_one(out_path):
+    """One run of --ab in this process's meso_tpu_torch (the tree --ab-one
+    put first on sys.path): the main path (set-up, EQUIL_CHUNKS, then
+    TIMED_CHUNKS in TIMED_BLOCKS blocks, each timed), K1 through its
+    wrapper at the main-path shape, the brick kernel alone (K5 classic, K6)
+    on its 1M path's inputs, K1's general variant (walls, polymers) and K3
+    through their wrappers on their paths' inputs; and the kernel outputs
+    the trees must share
+    bitwise, saved to ``out_path``: K1 on kernels-l8's cases and at the
+    main-path shape, the brick kernel on BRICK_TILE_CASES and on the v2 and
+    banded classic paths' inputs."""
+    import torch
+    import meso_tpu_torch
+    from meso_tpu_torch.core.system import run_bucket_chunked
+    from meso_tpu_torch.kernels.pair_dpd_v3 import bucket_forces_pallas_v3
+    from meso_tpu_torch.ops.dpd import DPDParams
+    res = {"package": str(Path(meso_tpu_torch.__file__).parent.parent)}
+    outputs = {}
+    system, params, state = classic_path()
+    state, _ = run_bucket_chunked(system, params, state, EQUIL_CHUNKS, EVERY,
+                                  thermo_trace=False)
+    torch.cuda.synchronize()
+    block_ms = []
+    for chunks in timed_blocks():
+        tb = time.perf_counter()
+        state, _ = run_bucket_chunked(system, params, state, chunks, EVERY,
+                                      thermo_trace=False)
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - tb) / (chunks * EVERY))
+    res["main_ms_per_step"] = sum(
+        ms * c for ms, c in zip(block_ms, timed_blocks())) / TIMED_CHUNKS
+    res["main_block_ms_per_step"] = block_ms
+    outputs["main path end x"] = state.x
+    del system, params, state
+    dpd = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=77,
+                          device=DEVICE)
+    for spill in (True, False):
+        for min_image in (False, True):
+            for rng_mode in ("fast", "tea"):
+                bst, cfg = bucket_case(8.0, 1536, spill, min_image)
+                outputs[f"K1 l8 spill={spill} min_image={min_image} "
+                        f"{rng_mode}"] = bucket_forces_pallas_v3(
+                    bst.x, bst.v, bst.typ, bst.tag, bst.mask, bst.box, 42,
+                    dpd, 0.01, cfg, rng_mode=rng_mode)
+    bst, cfg = bucket_case(L_MAIN, int(round(3.0 * L_MAIN ** 3)), True,
+                           False)
+    k1_args = (bst.x, bst.v, bst.typ, bst.tag, bst.mask, bst.box, 42, dpd,
+               0.01, cfg)
+    outputs["K1 L70"] = bucket_forces_pallas_v3(*k1_args)
+    res["k1_ms"] = timed_ms(lambda: bucket_forces_pallas_v3(
+        *k1_args, need_virial=False), 20)
+    del bst, k1_args
+    phase_brick_tiles(keep=outputs)
+    for sel in ("v2", "banded"):
+        system, sparams, st = classic_path(sel)
+        name = SELECTOR_KERNELS[sel]["dpd"]
+        outputs[f"{name} path"] = run_entry(name, False, st, None, 1,
+                                            sparams.pair, system.dt,
+                                            system.cells)
+        lib, brick = entry_brick(name, st, None, 1, sparams.pair,
+                                 system.cells)
+        res[f"{name}_kernel_ms"] = kernel_alone_ms(
+            name, lib, brick, st.box, 1, sparams.pair, system.dt,
+            system.cells)
+        del system, sparams, st, brick
+    # K1's general variant and K3 through their wrappers on their paths'
+    # inputs at set-up (the parent's may be another design)
+    for label, build in (("walls", walls_path), ("polymer", polymer_path),
+                         ("tdpd", lambda: transport_path("tdpd"))):
+        system, sparams, st = build()
+        if label == "tdpd":
+            fn = transport_fns("tdpd")[0]
+            args = (st.x, st.v, st.C, st.typ, st.tag, st.mask, st.box, 1,
+                    sparams.pair, system.dt, system.cells)
+        else:
+            fn = bucket_forces_pallas_v3
+            args = (st.x, st.v, st.typ, st.tag, st.mask, st.box, 1,
+                    sparams.pair, system.dt, system.cells)
+        res[f"{label}_kernel_ms"] = timed_ms(lambda: fn(*args), 20)
+        del system, sparams, st, args
+    torch.save({k: [t.cpu() for t in (v if isinstance(v, tuple) else (v,))
+                    if t is not None] for k, v in outputs.items()}, out_path)
+    say("ab-run", **res)
+    return res
+
+
+def phase_ab(parent, rounds=AB_ROUNDS):
+    """--ab PARENT: ab_one in the tree at PARENT (a checkout of the parent
+    commit, unpacked inside the repository) and in this one, each run its
+    own process, rounds of parent, change, change, parent; then every
+    output of the change's runs against the parent's first, bitwise."""
+    import torch
+    out_dir = ROOT / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trees = {"parent": str(Path(parent).resolve()), "change": str(ROOT)}
+    runs = []
+    for r in range(rounds):
+        for i, which in enumerate(("parent", "change", "change", "parent")):
+            out = out_dir / f"{r}-{i}-{which}.pt"
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--ab-one",
+                 trees[which], str(out)], capture_output=True, text=True,
+                timeout=900, cwd=ROOT)
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("[ab-run] ")]
+            if proc.returncode or not line:
+                raise AssertionError(f"--ab-one {which} failed "
+                                     f"({proc.returncode}):\n"
+                                     f"{proc.stdout[-3000:]}"
+                                     f"{proc.stderr[-3000:]}")
+            runs.append({"which": which, "out": out,
+                         **json.loads(line[0][len("[ab-run] "):])})
+            say("ab", round=r,
+                **{k: v for k, v in runs[-1].items() if k != "out"})
+    ref = torch.load(next(r["out"] for r in runs if r["which"] == "parent"))
+    differ = {}
+    for r in runs:
+        got = torch.load(r["out"])
+        bad = sorted(k for k in ref if k not in got or len(got[k]) !=
+                     len(ref[k]) or not all(torch.equal(a, b) for a, b in
+                                            zip(got[k], ref[k])))
+        if bad:
+            differ[f"{r['which']} {r['out'].name}"] = bad
+    summary = {
+        which: {k: [r[k] for r in runs if r["which"] == which]
+                for k in ("main_ms_per_step", "k1_ms",
+                          "pair_fused_dpd_kernel_ms",
+                          "pair_banded_dpd_kernel_ms", "walls_kernel_ms",
+                          "polymer_kernel_ms", "tdpd_kernel_ms")}
+        for which in ("parent", "change")}
+    say("ab-summary", outputs=len(ref), differ=differ, **summary)
+    # the main path's end state may differ by the rebuild's own
+    # nondeterminism; every kernel output must not
+    kernel_differ = {k: [b for b in v if b != "main path end x"]
+                     for k, v in differ.items()}
+    if any(kernel_differ.values()):
+        raise AssertionError(f"kernel outputs differ between the trees: "
+                             f"{kernel_differ}")
+    return {"runs": [{k: v for k, v in r.items() if k != "out"}
+                     for r in runs], "differ": differ, **summary}
+
+
 # how the profiler names a kernel of csrc/ (each file's kernels sit in an
 # anonymous namespace)
 PORT_KERNEL_PREFIX = "void (anonymous namespace)::"
@@ -3858,6 +4197,13 @@ def in_path_ms(profiles, name):
     if not calls:
         raise AssertionError(f"the profile of {path} lists no {kernel}")
     return sum(e["ms_per_chunk"] for e in hits) * PROFILE_CHUNKS / calls
+
+
+def tile_row_fields(rec):
+    """What a bucket-row tile kernel's row (K1's general variant, K3) adds
+    to the contract's keys: its tile plan and slot tests a valid row."""
+    return {k: rec[k] for k in ("width", "smem_bytes", "blocks_per_sm",
+                                "tests_per_valid_row")}
 
 
 def brick_row_fields(rec):
@@ -3919,7 +4265,7 @@ def kernel_records(record):
                             for p in ("walls", "polymer")),
          "ms": gen["ms"], "plain_ms": gen["plain_ms"],
          "bound_ms": gen["bound_ms"], "bound_by": gen["bound_by"],
-         "library_ms": None})
+         "library_ms": None, **tile_row_fields(gen)})
     # K2's and K3's numbers are those at the inputs their path gives them
     for model, line in (("edpd", 871), ("tdpd", 896)):
         name = f"pair_{model}_v3"
@@ -3930,7 +4276,8 @@ def kernel_records(record):
              "launches": full[model]["launches"][name],
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-             "bound_by": rec["bound_by"], "library_ms": None})
+             "bound_by": rec["bound_by"], "library_ms": None,
+             **(tile_row_fields(rec) if model == "tdpd" else {})})
     # K5, K6 and K7: the numbers at their own 1M path's inputs, the
     # launches of that path's run
     sk = record["selector_kernels_l70"]
@@ -3981,8 +4328,18 @@ def kernel_records(record):
 
 def main(argv):
     import torch
+    if "--ab-one" in argv:
+        from meso_tpu_torch.kernels import _build
+        _build.load_library()  # the other tree's, in its own build/
+        ab_one(argv[argv.index("--ab-one") + 2])
+        return 0
     info = phase_env()
     record = {"env": info, "build": phase_build()}
+    if "--ab" in argv:
+        record["ab"] = phase_ab(argv[argv.index("--ab") + 1])
+        (ROOT / "build" / "chip_smoke_ab.json").write_text(
+            json.dumps(record, indent=1, default=str))
+        return 0
     if "--decay-from" in argv:
         record["decay_from"] = phase_decay_from(
             argv[argv.index("--decay-from") + 1])
@@ -3991,9 +4348,11 @@ def main(argv):
         record["probes"] = phase_probes(record["kernels"]["l70"])
     elif "--dd-only" not in argv:
         record["kernels"] = phase_kernels(record["build"]["ptxas"])
-        record["transport_kernels"] = phase_transport_kernels()
+        record["transport_kernels"] = phase_transport_kernels(
+            record["build"]["ptxas"])
         record["general_kernels"] = phase_general_kernels(
-            record["kernels"]["l70"]["pair_ms"], info["card"])
+            record["kernels"]["l70"]["pair_ms"], info["card"],
+            record["build"]["ptxas"])
         record["selector_kernels"] = phase_selector_kernels()
         record["brick_tiles"] = phase_brick_tiles()
         record["selector_kernels_l70"] = phase_selector_kernels_l70()
@@ -4049,4 +4408,7 @@ def main(argv):
 
 
 if __name__ == "__main__":
+    if "--ab-one" in sys.argv:
+        # the tree whose meso_tpu_torch this run drives (--ab)
+        sys.path.insert(0, sys.argv[sys.argv.index("--ab-one") + 1])
     sys.exit(main(sys.argv[1:]))

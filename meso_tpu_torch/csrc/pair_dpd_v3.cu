@@ -2,29 +2,33 @@
 //
 // Replaces the Pallas TPU kernel meso_tpu/kernels/pair_dpd_v3.py::_v3_kernel
 // (classic model) and its in-kernel per-particle hash (hash_of,
-// pair_dpd_v3.py:161-167). Two kernels cover its cases:
-// pair_dpd_v3_kernel the main path's (one particle type, s_exp = 1, no
-// exclusions), pair_dpd_v3_general_kernel every case (per-type-pair tables,
-// s_exp != 1, special-bonds exclusions, debug_pairs accounting).
+// pair_dpd_v3.py:161-167). Two kernels cover its cases, both on the cell
+// tiles of cell_tiles.cuh over bucket rows (the BucketRows source policy,
+// K1's plan and table of kernels/cell_tiles.py): pair_dpd_v3_kernel the
+// main path's (one particle type, s_exp = 1, no exclusions; its own
+// visitor, K1Visitor), pair_dpd_v3_general_kernel every case (per-type-pair
+// tables, s_exp != 1, special-bonds exclusions, debug_pairs accounting;
+// the classic visitor of pair_visitor.cuh, which the brick kernel runs
+// too).
 //
 // Layout: row = ((cy * ncz + cz) * K + slot) * ncx + cx
 // (meso_tpu/neighbor/bucket_layout.py:6-9). x and v are (nr, 3) float32,
 // tag is (nr,) int32, valid is the (nr,) bool mask (one byte per row).
 //
-// pair_dpd_v3_kernel (the main path's) works on cell tiles: a block owns
-// one (cy, cz) and a run of W consecutive cx (kernels/cell_tiles.py plans
-// W and builds, on the host, the table of each block's lines, source
-// columns and wrap shifts). It stages the sources of its 3 x 3 (dy, dz)
-// lines x (W + 2 xr) columns (xr = 2 for spill layouts, 1 for strict ones)
-// in shared memory, each slot-cell compacted to its valid rows, then one
-// thread a valid target walks only the occupied slots of its stencil,
-// culls the sources inside rc into a per-thread list and evaluates the
-// list. Each row sums its pairs in registers in the order of the stencil
-// walk (dy, dz, dx, slot) and is written once; every pair is computed by
-// both of its rows (a full traversal): no atomics, and a deterministic
-// per-row sum. Newton folding is left to a later change.
-// pair_dpd_v3_general_kernel keeps the walk of for_each_pair
-// (dpd_common.cuh): one thread a row over all K slots of each slot-cell.
+// A block owns one (cy, cz) and a run of W consecutive cx, stages the
+// sources of its 3 x 3 (dy, dz) lines x (W + 2 xr) columns (xr = 2 for
+// spill layouts, 1 for strict ones) in shared memory, each slot-cell
+// compacted to its valid rows, then one thread a valid target walks only
+// the occupied slots of its stencil, culls the sources inside the walk's
+// radius into a per-thread list and evaluates the list (cell_tiles.cuh).
+// Each row sums its pairs in registers in the order of the stencil walk
+// (dy, dz, dx, slot) and is written once; every pair is computed by both
+// of its rows (a full traversal): no atomics, and a deterministic per-row
+// sum. Newton folding is left to a later change. Without the minimum
+// image both kernels take dr = (xi - xj) - shift; with it K1 takes the
+// minimum image on every candidate (PR 7's design) and the general
+// variant the raw-difference walk (the minimum image only where an axis
+// wraps).
 //
 // RNG: the fast tier reads h[j] = TEA-8(tag, tag ^ 0xDEADBEEF, step, seed)
 // from particle_hash_kernel (one launch per step) and mixes it with
@@ -45,12 +49,18 @@
 // it takes ~0.19 of its ~0.73 ms staging (5,000 blocks of W = 25, latency
 // bound: the table, then the valid bytes, then x, each waits on the last)
 // and the rest walking, issue bound at ~2 blocks an SM (PERF.md, PR 7).
+// The general variant walked as PR 6's K1 did until PR 9 (720 slot tests a
+// row, 1.3-1.4x K1's time on the same rows); on the tiles it makes K1's
+// 371 and gathers the type, and the tag where exclusions or TEA need it,
+// beside v and h (PERF.md).
 
-#include "dpd_common.cuh"
+#include "cell_tiles.cuh"
+#include "pair_visitor.cuh"
 
 namespace {
 
 using namespace meso;
+using tiles::BucketRows;
 
 // The per-particle hash h = TEA-rounds(tag, tag ^ 0xDEADBEEF, step, seed)
 // of every row, invalid ones included. One TEA chain is a serial run of
@@ -114,50 +124,6 @@ particle_hash_kernel(const int32_t* __restrict__ tag,
   }
 }
 
-// The block's dynamic shared memory, in bytes from its start; the wrapper
-// computes the same (kernels/cell_tiles.py::smem_bytes) and a launch whose
-// size differs is refused. ncols and width are a full-width block's.
-struct TileLayout {
-  int pos, rows, off, mask, hdr, lsh, list, total;
-};
-
-constexpr int kLines = 9;
-constexpr int kTargetLine = 4;
-constexpr int kHead = 4;                  // cy, cz, cx0, width
-constexpr int kCol0 = kHead + 3 * kLines;  // first (sx, x code) pair
-constexpr int kTileMaxThreads = 256;
-constexpr int kStageU = 4;  // staged items a thread loads at once
-constexpr int kWalkU = 4;   // candidates a thread tests at once
-
-__host__ __device__ inline int tile_table_width(int ncols) {
-  return kCol0 + 2 * ncols;
-}
-
-__host__ __device__ inline TileLayout tile_layout(int ncols, int k,
-                                                  int threads,
-                                                  int list_cap) {
-  const int s = kLines * ncols * k;
-  const int words = (k + 31) / 32;
-  TileLayout l;
-  int b = 0;
-  l.pos = b;
-  b += 16 * s;
-  l.rows = b;
-  b += 4 * s;
-  l.off = b;
-  b += 4 * kLines * (ncols + 1);
-  l.mask = b;
-  b += 4 * kLines * ncols * words;
-  l.hdr = b;
-  b += 4 * tile_table_width(ncols);
-  l.lsh = b;
-  b += 4 * 2 * kLines;
-  l.list = b;
-  b += 2 * list_cap * threads;
-  l.total = (b + 15) / 16 * 16;
-  return l;
-}
-
 struct K1Args {
   const float* x;
   const float* v;
@@ -169,7 +135,7 @@ struct K1Args {
   const float* rc_tab;
   const float* box_lo;
   const float* box_hi;
-  const int32_t* table;  // (n_blocks, tile_table_width(ncols)) int32
+  const int32_t* table;  // (n_blocks, BucketRows::table_width(ncols))
   float* f;
   float* vir;
   int nx, k, xr, width, list_cap;
@@ -178,423 +144,152 @@ struct K1Args {
   int rounds;
 };
 
-// K1 on cell tiles. Block b owns the target cells of its table row: one
-// (cy, cz) and the run cx0 .. cx0 + width - 1. Phases, with a barrier
-// between each:
-//  A. one warp a line, lanes over its source columns: each column's slot
-//     mask from its K valid bytes, its count by popc, and by a warp scan
-//     its first staged index (line l staged from l * line_cap on, in
-//     (column, slot) order);
-//  B. items (line, slot, column), column fastest (neighbouring rows, so
-//     the loads coalesce), kStageU a thread with their loads in flight
-//     together: each valid source's x, y, z and the x wrap shift of its
-//     column as a float4, and its row; the target line's empty slots get
-//     f = 0 here;
-//  C. one thread a valid target (the target line's slots in the run, in
-//     staged order: lanes of a warp share cells, and read the same sources
-//     as a broadcast): it walks its stencil's occupied slots only, each
-//     line's 2 xr + 1 slot-cells being one contiguous range, kWalkU
-//     candidates at a time, and appends the staged index of each source
-//     inside rc to its list; when the list is full, and after the walk, it
-//     evaluates the list, each entry's loads issued one entry ahead. The
-//     visitor thus runs for as many entries as the warp's longest list,
-//     not for every candidate step on which one lane is in range.
-// dr = (xi - xj) - shift, the shift being the wrap of the source's line
-// (y, z) and column (x), as in for_each_pair: the two rows of a pair get
-// exactly opposite dr. Each line's y and z shifts are read in that line's
-// own loop. Carried across one loop over all nine lines, they came out
-// wrong on the card without min-image: ptxas (CUDA 12.9, -O1 and up) set
-// the line register to its exit value before the exit branch and formed
-// the next line's shift address from it (PERF.md, PR 7).
+// K1's visitor: one type, s_exp = 1, no exclusions; the walk tests rc^2
+// itself (no margin) and the visitor sums r^2 as the walk does.
+template <bool kTea, bool kVirial>
+struct K1Visitor {
+  const K1Args& p;
+  float a, gamma, sg, inv_rc, rc2;
+  float vxi, vyi, vzi, fx, fy, fz, vsum;
+  uint32_t h_i;
+
+  struct Gathered {
+    float vx, vy, vz;
+    uint32_t h;
+  };
+
+  __device__ void zero(int r) const {
+    p.f[3 * r] = 0.0f;
+    p.f[3 * r + 1] = 0.0f;
+    p.f[3 * r + 2] = 0.0f;
+    if (kVirial) p.vir[r] = 0.0f;
+  }
+  __device__ void init() {
+    a = p.a_tab[0];
+    gamma = p.gamma_tab[0];
+    sg = p.sigma_tab[0] * p.dt_inv_sqrt;
+    const float rc = p.rc_tab[0];
+    inv_rc = 1.0f / rc;
+    rc2 = rc * rc;
+  }
+  __device__ float walk_rc2() const { return rc2; }
+  __device__ void begin(int row_i, int) {
+    vxi = p.v[3 * row_i];
+    vyi = p.v[3 * row_i + 1];
+    vzi = p.v[3 * row_i + 2];
+    h_i = p.h[row_i];
+    fx = fy = fz = vsum = 0.0f;
+  }
+  __device__ Gathered fetch(int j) const {
+    Gathered g;
+    g.vx = p.v[3 * j];
+    g.vy = p.v[3 * j + 1];
+    g.vz = p.v[3 * j + 2];
+    g.h = p.h[j];
+    return g;
+  }
+  __device__ void pair(const Gathered& g, int, float drx, float dry,
+                       float drz) {
+    const float r2 = drx * drx + dry * dry + drz * drz;
+    const float rinv = rsqrtf(r2);
+    const float rr = r2 * rinv;
+    const float w = 1.0f - rr * inv_rc;
+    const float ev = (drx * (vxi - g.vx) + dry * (vyi - g.vy) +
+                      drz * (vzi - g.vz)) * rinv;
+    const uint32_t hp = pair_hash<kTea>(
+        static_cast<int32_t>(h_i), static_cast<int32_t>(g.h), h_i, g.h,
+        p.step, p.seed, p.rounds);
+    const float theta = u32_to_symmetric_uniform(hp);
+    const float fmag = w * (a - (gamma * w) * ev + sg * theta);
+    const float fr = fmag * rinv;
+    fx += fr * drx;
+    fy += fr * dry;
+    fz += fr * drz;
+    if (kVirial) vsum += 0.5f * fmag * rr;
+  }
+  __device__ void end(int row_i) const {
+    p.f[3 * row_i] = fx;
+    p.f[3 * row_i + 1] = fy;
+    p.f[3 * row_i + 2] = fz;
+    if (kVirial) p.vir[row_i] = vsum;
+  }
+};
+
+// K1 on cell tiles (cell_tiles.cuh over bucket rows). Its min-image mode
+// takes the minimum image on every candidate (PR 7's design); without it
+// dr = (xi - xj) - shift.
 template <bool kMinImage, bool kTea, bool kVirial>
-__global__ void __launch_bounds__(kTileMaxThreads)
-pair_dpd_v3_kernel(const K1Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int k = p.k, nx = p.nx, xr = p.xr;
-  const int ncols_max = p.width + 2 * xr;
-  const TileLayout lay = tile_layout(ncols_max, k, blockDim.x, p.list_cap);
-  float4* pos = reinterpret_cast<float4*>(smem + lay.pos);
-  int* rows = reinterpret_cast<int*>(smem + lay.rows);
-  int* off = reinterpret_cast<int*>(smem + lay.off);
-  uint32_t* mask = reinterpret_cast<uint32_t*>(smem + lay.mask);
-  int* hdr = reinterpret_cast<int*>(smem + lay.hdr);
-  float* lsh = reinterpret_cast<float*>(smem + lay.lsh);
-  uint16_t* list = reinterpret_cast<uint16_t*>(smem + lay.list);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  const int tw = tile_table_width(ncols_max);
-  const int32_t* trow = p.table + static_cast<size_t>(blockIdx.x) * tw;
-  for (int i = tid; i < tw; i += nthreads) hdr[i] = trow[i];
-  __syncthreads();
-
-  const int width = hdr[3];
-  const int ncols = width + 2 * xr;
-  const int words = (k + 31) >> 5;
-  const float lx = p.box_hi[0] - p.box_lo[0];
-  const float ly = p.box_hi[1] - p.box_lo[1];
-  const float lz = p.box_hi[2] - p.box_lo[2];
-  if (tid < kLines) {
-    lsh[2 * tid] = static_cast<float>(hdr[kHead + 3 * tid + 1]) * ly;
-    lsh[2 * tid + 1] = static_cast<float>(hdr[kHead + 3 * tid + 2]) * lz;
-  }
-
-  // A: masks, counts and each column's first staged index
-  const uint8_t* __restrict__ valid = p.valid;
-  const int line_cap = ncols_max * k;
-  for (int line = warp; line < kLines; line += nwarps) {
-    int cnt = 0;
-    if (lane < ncols) {
-      const int sc = line * ncols + lane;
-      const uint8_t* vb =
-          valid + hdr[kHead + 3 * line] + hdr[kCol0 + 2 * lane];
-      for (int w = 0; w < words; ++w) {
-        const int m = min(32, k - 32 * w);
-        uint32_t bits = 0u;
-#pragma unroll 8
-        for (int j = 0; j < m; ++j)
-          bits |= static_cast<uint32_t>(vb[(32 * w + j) * nx] != 0) << j;
-        mask[sc * words + w] = bits;
-        cnt += __popc(bits);
-      }
-    }
-    int incl = cnt;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += y;
-    }
-    const int first = line * line_cap + incl - cnt;
-    if (lane < ncols) off[line * (ncols + 1) + lane] = first;
-    if (lane == ncols - 1) off[line * (ncols + 1) + ncols] = first + cnt;
-  }
-  __syncthreads();
-
-  // B: stage the valid sources, compacted; zero the empty target rows
-  const int tcell0 = kTargetLine * (ncols + 1) + xr;
-  const int tbase = off[tcell0];
-  const float* __restrict__ x = p.x;
-  const float* __restrict__ v = p.v;
-  const uint32_t* __restrict__ h = p.h;
-  float* __restrict__ f = p.f;
-  float* __restrict__ vir = p.vir;
-  const int n_items = kLines * k * ncols;
-  for (int i0 = tid; i0 < n_items; i0 += kStageU * nthreads) {
-    float4 px[kStageU];
-    int at[kStageU], row[kStageU];
-    bool ok[kStageU], target[kStageU];
-#pragma unroll
-    for (int u = 0; u < kStageU; ++u) {
-      const int i = i0 + u * nthreads;
-      ok[u] = target[u] = false;
-      if (i >= n_items) continue;
-      const int ls = i / ncols, c = i - ls * ncols;
-      const int line = ls / k, slot = ls - line * k;
-      const int sc = line * ncols + c;
-      row[u] = hdr[kHead + 3 * line] + slot * nx + hdr[kCol0 + 2 * c];
-      const int col_off = off[line * (ncols + 1) + c];
-      const int w = slot >> 5, bit = slot & 31;
-      const uint32_t bits = mask[sc * words + w];
-      target[u] = line == kTargetLine && c >= xr && c < xr + width;
-      ok[u] = (bits >> bit) & 1u;
-      if (!ok[u]) continue;
-      int idx = col_off + __popc(bits & ((1u << bit) - 1u));
-      for (int w2 = 0; w2 < w; ++w2) idx += __popc(mask[sc * words + w2]);
-      at[u] = idx;
-      const int r = row[u];
-      px[u] = make_float4(x[3 * r], x[3 * r + 1], x[3 * r + 2],
-                          kMinImage ? 0.0f
-                                    : static_cast<float>(
-                                          hdr[kCol0 + 2 * c + 1]) * lx);
-    }
-#pragma unroll
-    for (int u = 0; u < kStageU; ++u) {
-      if (ok[u]) {
-        pos[at[u]] = px[u];
-        rows[at[u]] = row[u];
-      } else if (target[u]) {
-        f[3 * row[u]] = 0.0f;
-        f[3 * row[u] + 1] = 0.0f;
-        f[3 * row[u] + 2] = 0.0f;
-        if (kVirial) vir[row[u]] = 0.0f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // C: walk, cull, evaluate
-  const int n_t = off[tcell0 + width] - tbase;
-  const float a = p.a_tab[0];
-  const float gamma = p.gamma_tab[0];
-  const float sg = p.sigma_tab[0] * p.dt_inv_sqrt;
-  const float rc = p.rc_tab[0];
-  const float inv_rc = 1.0f / rc;
-  const float rc2 = rc * rc;
-  const float inv_lx = 1.0f / lx, inv_ly = 1.0f / ly, inv_lz = 1.0f / lz;
-  uint16_t* my = list + tid;
-  for (int t0 = 0; t0 < n_t; t0 += nthreads) {
-    const int t = t0 + tid;
-    if (t >= n_t) continue;
-    const int si = tbase + t;
-    int tc = xr;
-    while (si >= off[kTargetLine * (ncols + 1) + tc + 1]) ++tc;
-    const float4 pi = pos[si];
-    const int row_i = rows[si];
-    const float vxi = v[3 * row_i], vyi = v[3 * row_i + 1],
-                vzi = v[3 * row_i + 2];
-    const uint32_t h_i = h[row_i];
-    float fx = 0.0f, fy = 0.0f, fz = 0.0f, vsum = 0.0f;
-    int line = 0, s = off[tc - xr];  // line 0
-    while (true) {
-      // walk from (line, s) until the list is full or the stencil ends
-      int n = 0;
-      for (; line < kLines; ++line) {
-        const int e = off[line * (ncols + 1) + tc + xr + 1];
-        const float shy = kMinImage ? 0.0f : lsh[2 * line];
-        const float shz = kMinImage ? 0.0f : lsh[2 * line + 1];
-        auto in_range = [&](int j) {
-          const float4 q = pos[j];
-          float drx = pi.x - q.x, dry = pi.y - q.y, drz = pi.z - q.z;
-          if (kMinImage) {
-            drx -= rintf(drx * inv_lx) * lx;
-            dry -= rintf(dry * inv_ly) * ly;
-            drz -= rintf(drz * inv_lz) * lz;
-          } else {
-            drx -= q.w;
-            dry -= shy;
-            drz -= shz;
-          }
-          const float r2 = drx * drx + dry * dry + drz * drz;
-          return r2 < rc2 && r2 > 0.0f;
-        };
-        // kWalkU candidates a step (independent loads) while the list has
-        // room for them all, then one at a time
-        for (; s + kWalkU <= e && n <= p.list_cap - kWalkU; s += kWalkU) {
-          bool in[kWalkU];
-#pragma unroll
-          for (int u = 0; u < kWalkU; ++u) in[u] = in_range(s + u);
-#pragma unroll
-          for (int u = 0; u < kWalkU; ++u)
-            if (in[u]) my[(n++) * nthreads] = static_cast<uint16_t>(s + u);
-        }
-        for (; s < e && n < p.list_cap; ++s)
-          if (in_range(s)) my[(n++) * nthreads] = static_cast<uint16_t>(s);
-        if (n == p.list_cap) break;  // s is the next candidate
-        if (line + 1 < kLines) s = off[(line + 1) * (ncols + 1) + tc - xr];
-      }
-      // evaluate the list; each entry's loads (staged index, position, v
-      // and hash) are issued one entry ahead of its arithmetic
-      struct Source {
-        int s;
-        float4 q;
-        float vx, vy, vz;
-        uint32_t h;
-      };
-      auto fetch = [&](int i) {
-        Source src;
-        src.s = my[i * nthreads];
-        src.q = pos[src.s];
-        const int j = rows[src.s];
-        src.vx = v[3 * j];
-        src.vy = v[3 * j + 1];
-        src.vz = v[3 * j + 2];
-        src.h = h[j];
-        return src;
-      };
-      int el = 0;
-      Source next;
-      if (n > 0) next = fetch(0);
-      for (int i = 0; i < n; ++i) {
-        const Source cur = next;
-        if (i + 1 < n) next = fetch(i + 1);
-        const int sj = cur.s;
-        const float4 q = cur.q;
-        float drx = pi.x - q.x, dry = pi.y - q.y, drz = pi.z - q.z;
-        if (kMinImage) {
-          drx -= rintf(drx * inv_lx) * lx;
-          dry -= rintf(dry * inv_ly) * ly;
-          drz -= rintf(drz * inv_lz) * lz;
-        } else {
-          while (sj >= (el + 1) * line_cap) ++el;
-          drx -= q.w;
-          dry -= lsh[2 * el];
-          drz -= lsh[2 * el + 1];
-        }
-        const float r2 = drx * drx + dry * dry + drz * drz;
-        const float vxj = cur.vx, vyj = cur.vy, vzj = cur.vz;
-        const uint32_t h_j = cur.h;
-        const float rinv = rsqrtf(r2);
-        const float rr = r2 * rinv;
-        const float w = 1.0f - rr * inv_rc;
-        const float ev = (drx * (vxi - vxj) + dry * (vyi - vyj) +
-                          drz * (vzi - vzj)) * rinv;
-        const uint32_t hp = pair_hash<kTea>(
-            static_cast<int32_t>(h_i), static_cast<int32_t>(h_j), h_i, h_j,
-            p.step, p.seed, p.rounds);
-        const float theta = u32_to_symmetric_uniform(hp);
-        const float fmag = w * (a - (gamma * w) * ev + sg * theta);
-        const float fr = fmag * rinv;
-        fx += fr * drx;
-        fy += fr * dry;
-        fz += fr * drz;
-        if (kVirial) vsum += 0.5f * fmag * rr;
-      }
-      if (line == kLines) break;
-    }
-    f[3 * row_i] = fx;
-    f[3 * row_i + 1] = fy;
-    f[3 * row_i + 2] = fz;
-    if (kVirial) vir[row_i] = vsum;
-  }
+__global__ void __launch_bounds__(tiles::kTileMaxThreads)
+pair_dpd_v3_kernel(const __grid_constant__ K1Args p) {
+  const BucketRows src{p.valid, p.x, p.nx};
+  K1Visitor<kTea, kVirial> vis{p};
+  tiles::run_tile<kMinImage ? tiles::kImageAll : tiles::kShift>(
+      src, vis, p.table, p.k, p.xr, p.width, p.list_cap, p.box_lo,
+      p.box_hi);
 }
 
 // The general case of _v3_kernel (pair_dpd_v3.py:197-212, 227-228,
-// 245-248, 324-356), the same full traversal as pair_dpd_v3_kernel:
-// - per-type-pair tables (T x T, row-major, indexed typ_i * T + typ_j):
-//   a, gamma, sigma / sqrt(dt), rc and 1/rc per pair; the walk tests the
-//   table's largest rc^2 (the cells are sized on it), the visitor the
-//   pair's own rc^2;
-// - s_exp != 1: wr = max(w, 0)^s_exp and fmag = a w - gamma wr^2 ev +
-//   s wr theta (the conservative part keeps w); s_exp = 1 takes
-//   pair_dpd_v3_kernel's factored form;
-// - exclusions: fmag (and so the virial) times excl_w when tag_j is one of
-//   the n_excl tags of excl[tag_i]; excl has excl_rows rows;
-// - debug: fx = the in-range partners, fy = the sum of their keys
-//   h_j >> 18 (14 bits, exact in fp32), fz = 0, no virial. h is the
-//   per-particle hash in both RNG tiers in this mode.
-// The visitor recomputes r^2 without fused multiply-adds (__fmul_rn,
-// __fadd_rn), as the plain version sums it, and the walk's test has a
-// 1e-4 margin on the largest rc^2: both then take exactly the same pairs,
-// which the bitwise debug counts need.
-// Run-time flags (s_exp, n_excl, debug, need_virial) keep it to four
-// instantiations; the main path's kernel above stays as it was.
-// What bounds it: as pair_dpd_v3_kernel, the walk's candidate loads, whose
-// latency resident warps hide; and a warp runs the in-range visitor
-// whenever one of its 32 lanes has an in-range candidate (~1 in 4
-// candidate steps at rho 3), so the visitor's extra table, type and
-// exclusion loads cost it 1.3-1.4x K1's time on the same rows (H100).
-// Occupancy decides the rest: unbounded, ptxas gives it 55-61 registers (4
-// blocks of kThreads per SM); holding the row's tables and exclusions in
-// registers took it to 76 (3 blocks) and 1.2x slower; asking for 5 blocks
-// caps it at 48 with 20-48 bytes of spills and runs ~2% faster.
-constexpr int kGeneralMinBlocks = 5;
-
-template <bool kMinImage, bool kTea>
-__global__ void __launch_bounds__(kThreads, kGeneralMinBlocks)
-pair_dpd_v3_general_kernel(
-    const float* __restrict__ x, const float* __restrict__ v,
-    const int32_t* __restrict__ tag, const int32_t* __restrict__ typ,
-    const uint8_t* __restrict__ valid, const uint32_t* __restrict__ h,
-    const float* __restrict__ a_tab, const float* __restrict__ gamma_tab,
-    const float* __restrict__ sigma_tab, const float* __restrict__ rc_tab,
-    int n_types, const int32_t* __restrict__ excl, int excl_rows,
-    int n_excl, const float* __restrict__ excl_w,
-    const float* __restrict__ box_lo, const float* __restrict__ box_hi,
-    float* __restrict__ f, float* __restrict__ vir, int nx, int ny, int nz,
-    int k, int xr, float dt_inv_sqrt, float s_exp, int debug,
-    int need_virial, uint32_t step, uint32_t seed, int rounds) {
-  const int nr = nx * ny * nz * k;
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= nr) return;
-
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f, vsum = 0.0f;
-  if (valid[row]) {
-    float rc2_max = 0.0f;
-    for (int p = 0; p < n_types * n_types; ++p) {
-      rc2_max = fmaxf(rc2_max, rc_tab[p] * rc_tab[p]);
-    }
-    const int t_row = typ[row] * n_types;
-    const float vxi = v[3 * row], vyi = v[3 * row + 1], vzi = v[3 * row + 2];
-    const int32_t tag_i = tag[row];
-    const uint32_t h_i = (kTea && !debug) ? 0u : h[row];
-    const bool has_excl = n_excl > 0 && tag_i >= 0 && tag_i < excl_rows;
-    const int32_t* ex_i = excl + static_cast<size_t>(has_excl ? tag_i : 0) *
-                                     static_cast<size_t>(n_excl);
-    const float w_excl = n_excl > 0 ? excl_w[0] : 1.0f;
-    for_each_pair<kMinImage>(
-        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr,
-        rc2_max * 1.0001f,
-        [&](int j, float drx, float dry, float drz, float) {
-          const float r2 = __fadd_rn(
-              __fadd_rn(__fmul_rn(drx, drx), __fmul_rn(dry, dry)),
-              __fmul_rn(drz, drz));
-          const int p = n_types == 1 ? 0 : t_row + typ[j];
-          const float rc = rc_tab[p];
-          if (!(r2 < rc * rc)) return;
-          if (debug) {
-            fx += 1.0f;
-            fy += static_cast<float>(h[j] >> 18);
-            return;
-          }
-          const float a = a_tab[p];
-          const float gamma = gamma_tab[p];
-          const float s = sigma_tab[p] * dt_inv_sqrt;
-          const float rinv = rsqrtf(r2);
-          const float rr = r2 * rinv;
-          const float w = 1.0f - rr * (1.0f / rc);
-          const float ev = (drx * (vxi - v[3 * j]) +
-                            dry * (vyi - v[3 * j + 1]) +
-                            drz * (vzi - v[3 * j + 2])) * rinv;
-          const uint32_t hp = pair_hash<kTea>(tag_i, kTea ? tag[j] : 0,
-                                              h_i, kTea ? 0u : h[j], step,
-                                              seed, rounds);
-          const float theta = u32_to_symmetric_uniform(hp);
-          float fmag;
-          if (s_exp == 1.0f) {
-            fmag = w * (a - (gamma * w) * ev + s * theta);
-          } else {
-            const float wr = powf(fmaxf(w, 0.0f), s_exp);
-            fmag = a * w - gamma * (wr * wr) * ev + s * wr * theta;
-          }
-          if (has_excl) {
-            const int32_t tag_j = tag[j];
-            for (int e = 0; e < n_excl; ++e) {
-              if (ex_i[e] == tag_j) {
-                fmag *= w_excl;
-                break;
-              }
-            }
-          }
-          const float fr = fmag * rinv;
-          fx += fr * drx;
-          fy += fr * dry;
-          fz += fr * drz;
-          if (need_virial) vsum += 0.5f * fmag * rr;
-        });
-  }
-  f[3 * row] = fx;
-  f[3 * row + 1] = fy;
-  f[3 * row + 2] = fz;
-  if (vir != nullptr) vir[row] = vsum;
+// 245-248, 324-356) on K1's cell tiles and table, with the classic visitor
+// of pair_visitor.cuh (kDpd; kDebug for debug_pairs) over per-row arrays:
+// per-type-pair tables (T x T, row-major, typ_i * T + typ_j; kTypes), s_exp
+// != 1, special-bonds exclusions (excl (excl_rows, n_excl) by tag, weight
+// excl_w), debug_pairs (f = partners, the sum of their keys h_j >> 18, 0;
+// h is the per-particle hash in both RNG tiers in this mode). The walk
+// tests the table's largest rc^2 with a 1e-4 margin; the visitor sums r^2
+// again without fused multiply-adds and tests the pair's own rc_ij, so the
+// kernel takes exactly the plain version's pairs (the bitwise debug counts
+// need it). Without the minimum image dr = (xi - xj) - shift as in K1;
+// with it the walk tests the raw difference and takes the minimum image
+// only where an axis wraps (the brick kernel's rule). The per-row virial is
+// always written but in debug mode (the wrapper sums it where asked).
+template <int kModel, bool kMinImage, bool kTea, bool kTypes>
+__global__ void __launch_bounds__(tiles::kTileMaxThreads)
+pair_dpd_v3_general_kernel(const __grid_constant__ RowArgs p) {
+  const BucketRows src{p.valid, p.x, p.nx};
+  PairVisitor<kModel, kTea, kTypes, 1, RowFields, RowArgs> vis(p,
+                                                              p.fields());
+  tiles::run_tile<kMinImage ? tiles::kImageRaw : tiles::kShift>(
+      src, vis, p.table, p.k, p.xr, p.width, p.list_cap, p.box_lo,
+      p.box_hi);
 }
 
 template <bool kMinImage, bool kTea, bool kVirial>
 cudaError_t launch_pair(const K1Args& args, int n_blocks, int threads,
                         int smem, cudaStream_t stream) {
-  auto kernel = pair_dpd_v3_kernel<kMinImage, kTea, kVirial>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<n_blocks, threads, smem, stream>>>(args);
-  return cudaGetLastError();
+  return tiles::launch_tile(pair_dpd_v3_kernel<kMinImage, kTea, kVirial>,
+                            args, dim3(n_blocks), threads, smem, stream);
 }
 
-template <bool kMinImage, bool kTea>
-void launch_general(dim3 grid, cudaStream_t stream, const float* x,
-                    const float* v, const int32_t* tag, const int32_t* typ,
-                    const uint8_t* valid, const uint32_t* h,
-                    const float* a_tab, const float* gamma_tab,
-                    const float* sigma_tab, const float* rc_tab, int n_types,
-                    const int32_t* excl, int excl_rows, int n_excl,
-                    const float* excl_w, const float* box_lo,
-                    const float* box_hi, float* f, float* vir, int nx,
-                    int ny, int nz, int k, int xr, float dt_inv_sqrt,
-                    float s_exp, int debug, int need_virial, uint32_t step,
-                    uint32_t seed, int rounds) {
-  pair_dpd_v3_general_kernel<kMinImage, kTea><<<grid, kThreads, 0, stream>>>(
-      x, v, tag, typ, valid, h, a_tab, gamma_tab, sigma_tab, rc_tab, n_types,
-      excl, excl_rows, n_excl, excl_w, box_lo, box_hi, f, vir, nx, ny, nz, k,
-      xr, dt_inv_sqrt, s_exp, debug, need_virial, step, seed, rounds);
+template <int kModel, bool kMinImage, bool kTea, bool kTypes>
+cudaError_t launch_general(const RowArgs& args, int n_blocks, int threads,
+                           int smem, cudaStream_t stream) {
+  return tiles::launch_tile(
+      pair_dpd_v3_general_kernel<kModel, kMinImage, kTea, kTypes>, args,
+      dim3(n_blocks), threads, smem, stream);
+}
+
+// The instance for the run-time flags (debug_pairs passes tea false: it
+// reads the per-particle hash in both RNG tiers).
+template <int kModel>
+cudaError_t dispatch_general(const RowArgs& args, int n_blocks, int threads,
+                             int smem, cudaStream_t st, bool min_image,
+                             bool tea, bool types) {
+#define MESO_GENERAL(mi, te, ty)                                          \
+  if (min_image == mi && tea == te && types == ty)                        \
+    return launch_general<kModel, mi, te, ty>(args, n_blocks, threads,   \
+                                              smem, st);
+  MESO_GENERAL(false, false, false)
+  MESO_GENERAL(false, false, true)
+  MESO_GENERAL(true, false, false)
+  MESO_GENERAL(true, false, true)
+  if constexpr (kModel != kDebug) {
+    MESO_GENERAL(false, true, false)
+    MESO_GENERAL(false, true, true)
+    MESO_GENERAL(true, true, false)
+    MESO_GENERAL(true, true, true)
+  }
+#undef MESO_GENERAL
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -636,12 +331,12 @@ extern "C" int meso_particle_hash(const void* tag, void* h, int n,
 }
 
 // K1 on the cell tiles of kernels/cell_tiles.py: ``table`` is the plan's
-// tile table, (n_blocks, tile_table_width(width + 2 xr)) int32 on the
-// card; width, threads, list_cap and smem_bytes are the plan's.
+// tile table, (n_blocks, BucketRows::table_width(width + 2 xr)) int32 on
+// the card; width, threads, list_cap and smem_bytes are the plan's.
 // Refused (cudaErrorInvalidValue, nothing launched): a block of more than
 // kTileMaxThreads threads or not whole warps, more than 32 source
 // columns, more staged slots than the lists' uint16 index reaches, or a
-// smem_bytes that differs from tile_layout's.
+// smem_bytes that differs from the layout's (tiles::tile_launch_refused).
 extern "C" int meso_pair_dpd_v3(
     const void* x, const void* v, const void* h, const void* valid,
     const void* a_tab, const void* gamma_tab, const void* sigma_tab,
@@ -652,10 +347,8 @@ extern "C" int meso_pair_dpd_v3(
     float dt_inv_sqrt, uint32_t step, uint32_t seed, int rounds,
     void* stream) {
   if (n_blocks <= 0) return static_cast<int>(cudaGetLastError());
-  const int ncols = width + 2 * xr;
-  if (threads <= 0 || threads > kTileMaxThreads || threads % 32 != 0 ||
-      ncols > 32 || kLines * ncols * k > (1 << 16) || list_cap <= 0 ||
-      tile_layout(ncols, k, threads, list_cap).total != smem_bytes)
+  if (tiles::tile_launch_refused<BucketRows>(width, xr, k, threads, list_cap,
+                                             smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   K1Args args;
   args.x = static_cast<const float*>(x);
@@ -698,42 +391,61 @@ extern "C" int meso_pair_dpd_v3(
   return static_cast<int>(e);
 }
 
+// K1's general variant on the same tiles as meso_pair_dpd_v3 (the plan and
+// table of kernels/cell_tiles.py::plan); refused as it is. vir: nr rows,
+// written unless debug.
 extern "C" int meso_pair_dpd_v3_general(
     const void* x, const void* v, const void* tag, const void* typ,
     const void* valid, const void* h, const void* a_tab,
     const void* gamma_tab, const void* sigma_tab, const void* rc_tab,
     int n_types, const void* excl, int excl_rows, int n_excl,
-    const void* excl_w, const void* box_lo, const void* box_hi, void* f,
-    void* vir, int nx, int ny, int nz, int k, int xr, int min_image, int tea,
-    int debug, int need_virial, float dt_inv_sqrt, float s_exp,
-    uint32_t step, uint32_t seed, int rounds, void* stream) {
-  const int nr = nx * ny * nz * k;
-  if (nr <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((nr + kThreads - 1) / kThreads);
-#define MESO_GENERAL_ARGS                                                    \
-  grid, static_cast<cudaStream_t>(stream), static_cast<const float*>(x),    \
-      static_cast<const float*>(v), static_cast<const int32_t*>(tag),       \
-      static_cast<const int32_t*>(typ), static_cast<const uint8_t*>(valid), \
-      static_cast<const uint32_t*>(h), static_cast<const float*>(a_tab),    \
-      static_cast<const float*>(gamma_tab),                                 \
-      static_cast<const float*>(sigma_tab),                                 \
-      static_cast<const float*>(rc_tab), n_types,                           \
-      static_cast<const int32_t*>(excl), excl_rows, n_excl,                 \
-      static_cast<const float*>(excl_w), static_cast<const float*>(box_lo), \
-      static_cast<const float*>(box_hi), static_cast<float*>(f),            \
-      static_cast<float*>(vir), nx, ny, nz, k, xr, dt_inv_sqrt, s_exp,      \
-      debug, need_virial, step, seed, rounds
-  if (min_image) {
-    if (tea) {
-      launch_general<true, true>(MESO_GENERAL_ARGS);
-    } else {
-      launch_general<true, false>(MESO_GENERAL_ARGS);
-    }
-  } else if (tea) {
-    launch_general<false, true>(MESO_GENERAL_ARGS);
-  } else {
-    launch_general<false, false>(MESO_GENERAL_ARGS);
-  }
-#undef MESO_GENERAL_ARGS
-  return static_cast<int>(cudaGetLastError());
+    const void* excl_w, const void* box_lo, const void* box_hi,
+    const void* table, void* f, void* vir, int nx, int k, int xr, int width,
+    int n_blocks, int threads, int list_cap, int smem_bytes, int min_image,
+    int tea, int debug, float dt_inv_sqrt, float s_exp, uint32_t step,
+    uint32_t seed, int rounds, void* stream) {
+  if (n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  if (tiles::tile_launch_refused<BucketRows>(width, xr, k, threads, list_cap,
+                                             smem_bytes) ||
+      (!debug && vir == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowArgs args = {};
+  args.x = static_cast<const float*>(x);
+  args.v = static_cast<const float*>(v);
+  args.tag = static_cast<const int32_t*>(tag);
+  args.typ = static_cast<const int32_t*>(typ);
+  args.valid = static_cast<const uint8_t*>(valid);
+  args.h = static_cast<const uint32_t*>(h);
+  args.a_tab = static_cast<const float*>(a_tab);
+  args.gamma_tab = static_cast<const float*>(gamma_tab);
+  args.x3_tab = static_cast<const float*>(sigma_tab);
+  args.rc_tab = static_cast<const float*>(rc_tab);
+  args.n_types = n_types;
+  args.excl = static_cast<const int32_t*>(excl);
+  args.excl_rows = excl_rows;
+  args.n_excl = n_excl;
+  args.excl_w = static_cast<const float*>(excl_w);
+  args.ns = 0;
+  args.box_lo = static_cast<const float*>(box_lo);
+  args.box_hi = static_cast<const float*>(box_hi);
+  args.table = static_cast<const int32_t*>(table);
+  args.f = static_cast<float*>(f);
+  args.vir = static_cast<float*>(vir);
+  args.nx = nx;
+  args.k = k;
+  args.xr = xr;
+  args.width = width;
+  args.list_cap = list_cap;
+  args.dt_inv_sqrt = dt_inv_sqrt;
+  args.s_exp = s_exp;
+  args.step = step;
+  args.seed = seed;
+  args.rounds = rounds;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      debug ? dispatch_general<kDebug>(args, n_blocks, threads, smem_bytes,
+                                       st, min_image, false, n_types > 1)
+            : dispatch_general<kDpd>(args, n_blocks, threads, smem_bytes, st,
+                                     min_image, tea, n_types > 1);
+  return static_cast<int>(e);
 }

@@ -5,14 +5,12 @@
 // (line 75) with model="edpd" (K2, bucket_forces_pallas_v3_edpd, :871) and
 // model="tdpd" (K3, bucket_forces_pallas_v3_tdpd, :896).
 //
-// Design: K1's (pair_dpd_v3.cu). One thread per target row walks the 27
-// (strict) or 45 (spill) slot-cell stencil with for_each_pair
-// (dpd_common.cuh) and sums its own force, virial and flux in registers: a
-// full traversal. The TPU kernel visits each pair once (Newton folding)
-// and so has to split eDPD's heat into a part both sides gain (q^V) and a
-// part they exchange (q^C + q^R), returned through a reaction plane. Here
-// row i computes q(i <- j) directly, as the dense oracles do
-// (meso_tpu/ops/edpd.py:68-99, ops/tdpd.py:72-86): no atomics and no split.
+// Both compute a full traversal: each row sums its own force, virial and
+// flux in registers, no atomics. The TPU kernel visits each pair once
+// (Newton folding) and so has to split eDPD's heat into a part both sides
+// gain (q^V) and a part they exchange (q^C + q^R), returned through a
+// reaction plane. Here row i computes q(i <- j) directly, as the dense
+// oracles do (meso_tpu/ops/edpd.py:68-99, ops/tdpd.py:72-86).
 //
 // eDPD, per pair (w = 1 - r/rc, sign = +1 if tag_i < tag_j else -1):
 //   sigma^2 = 4 gamma T_i T_j / (T_i + T_j),  theta = uniform_stream(hp, 0)
@@ -26,43 +24,46 @@
 // w_dc = (1 - r/rcc)^s1,
 //   dC_i,s/dt = sum_j -kappa_s w_dc (C_i,s - C_j,s)
 //               + eps_s sqrt(w_dc) sign uniform_stream(hp, 2 + s) / sqrt(dt).
-// The species ride in blocks of kSpeciesBlock: the per-row sums of one
-// block stay in registers (unrolled loops guarded by S), grid.y walks the
-// blocks, and only block 0 writes f and the virial, so any S takes one
-// launch. Up to kSpeciesBlock species take an instantiation whose block
-// offset is the constant 0 (kBlocks false), so the species streams' salts
-// fold into constants as they did before the blocks. rcc <= rc_ij for
-// every type pair is required (the visitor sees a pair only inside its own
-// rc_ij; ROADMAP Queue 3, R9); the wrapper checks it.
-// Per-type-pair tables (T x T, row-major, typ_i * T + typ_j), as
-// pair_dpd_v3_general_kernel takes them: with T > 1 the walk tests the
-// table's largest rc^2 with a 1e-4 margin and the visitor the pair's own
-// rc_ij on r^2 summed without fused multiply-adds (the plain version's
-// order); a, gamma and kappa (eDPD) or sigma (tDPD) are read per pair. A
-// template flag (kTypes) keeps the one-type instantiations as they were,
-// coefficients in registers (a run-time test alone took K2 from 64 to 108
-// registers).
+// rcc <= rc_ij for every type pair is required (the visitor sees a pair
+// only inside its own rc_ij; ROADMAP Queue 3, R9); the wrapper checks it.
+// Per-type-pair tables (T x T, row-major, typ_i * T + typ_j): with T > 1
+// the walk tests the table's largest rc^2 with a 1e-4 margin and the
+// visitor the pair's own rc_ij on r^2 summed without fused multiply-adds
+// (the plain version's order); a template flag (kTypes) keeps the one-type
+// instantiations' coefficients in registers.
 //
-// What bounds it: at the 1M-particle shape (ncell 50^3, K = 16,
-// nr = 2,000,000, spill) a row sees 720 candidates, ~1.4e9 candidate tests
-// per call, as in K1; ~12.9M ordered pairs are inside rc (N rho 4 pi / 3).
-// The distinct bytes (x, v, T or C, tag, mask, h in; f, dT/dt or dC/dt and
-// the per-row virial out) are 114 MB for eDPD and 130 MB for two tDPD
-// species, 34-39 us at 3.35 TB/s; the in-range arithmetic (eDPD: 74 fp32
-// operations a pair, three of them divisions and two sqrt, and 33 integer
-// ones for the hash streams) is ~1.4e9 operations, ~21 us at 67 TFLOP/s.
-// Neither bounds it: the candidate loads and compares do, served by L1 and
-// L2 since the threads of a warp read neighbouring rows. Shared-memory
-// cell tiles and Newton folding (half the candidates) are left to later
-// work.
+// K3 (pair_tdpd_v3_kernel) works on K1's cell tiles (cell_tiles.cuh with
+// the BucketRows source policy, kernels/cell_tiles.py::plan and its table)
+// with the tDPD visitor of pair_visitor.cuh over per-row arrays, the one
+// the brick kernel runs over its planes: a block stages its tile's valid
+// sources in shared memory and a thread a valid target walks only the
+// occupied slots, culls into a list and evaluates it; the species ride in
+// blocks of kSpeciesBlock registers (one for one species, as the tDPD path
+// runs it), grid.y walks the blocks, each staging its tile again, and
+// species block 0 writes f and the virial. kappa, eps and the target's C
+// are read at the flux. Without the minimum image dr = (xi - xj) - shift
+// (K1's rule); with it the raw-difference walk.
+//
+// K2 (pair_edpd_v3_kernel) still walks as PR 6's K1 did: one thread per
+// target row over the 27 (strict) or 45 (spill) slot-cells with
+// for_each_pair (dpd_common.cuh). What bounds it: at the 1M-particle
+// shape (ncell 50^3, K = 16, nr = 2,000,000, spill) a row sees 720
+// candidates, ~1.4e9 candidate tests per call; ~12.9M ordered pairs are
+// inside rc (N rho 4 pi / 3). The distinct bytes (x, v, T, tag, mask, h
+// in; f, dT/dt and the per-row virial out) are 114 MB, 34 us at 3.35
+// TB/s; the in-range arithmetic (74 fp32 operations a pair, three of them
+// divisions and two sqrt, and 33 integer ones for the hash streams) is
+// ~1.4e9 operations, ~21 us at 67 TFLOP/s. Neither bounds it: the
+// candidate loads and compares do. Its move onto the tiles is the eDPD
+// visitor of pair_visitor.cuh over RowFields in the same run_tile.
 
-#include "dpd_common.cuh"
+#include "cell_tiles.cuh"
+#include "pair_visitor.cuh"
 
 namespace {
 
 using namespace meso;
-
-constexpr int kSpeciesBlock = 8;
+using tiles::BucketRows;
 
 __global__ void uniform_stream_kernel(const uint32_t* __restrict__ h,
                                       float* __restrict__ out, int n,
@@ -178,116 +179,22 @@ pair_edpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
   vir[row] = vsum;
 }
 
-template <bool kMinImage, bool kTea, bool kTypes, bool kBlocks>
-__global__ void __launch_bounds__(kThreads)
-pair_tdpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                    const float* __restrict__ c,
-                    const int32_t* __restrict__ tag,
-                    const int32_t* __restrict__ typ,
-                    const uint8_t* __restrict__ valid,
-                    const uint32_t* __restrict__ h,
-                    const float* __restrict__ a_tab,
-                    const float* __restrict__ gamma_tab,
-                    const float* __restrict__ sigma_tab,
-                    const float* __restrict__ rc_tab, int n_types,
-                    const float* __restrict__ kappa_c,
-                    const float* __restrict__ eps_c,
-                    const float* __restrict__ box_lo,
-                    const float* __restrict__ box_hi,
-                    float* __restrict__ f, float* __restrict__ dcdt,
-                    float* __restrict__ vir, int nx, int ny, int nz, int k,
-                    int xr, int ns, float dt_inv_sqrt, float rcc, float s1,
-                    uint32_t step, uint32_t seed, int rounds) {
-  const int nr = nx * ny * nz * k;
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= nr) return;
-  const int s0 = kBlocks ? static_cast<int>(blockIdx.y) * kSpeciesBlock : 0;
-
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f, vsum = 0.0f;
-  float qs[kSpeciesBlock];
-#pragma unroll
-  for (int s = 0; s < kSpeciesBlock; ++s) qs[s] = 0.0f;
-  if (valid[row]) {
-    // one type: the coefficients stay in registers
-    const float a0 = a_tab[0], gamma0 = gamma_tab[0];
-    const float sdt0 = sigma_tab[0] * dt_inv_sqrt;
-    const float inv_rc0 = 1.0f / rc_tab[0];
-    const int t_row = kTypes ? typ[row] * n_types : 0;
-    const float rcc2 = rcc * rcc;
-    const float vxi = v[3 * row], vyi = v[3 * row + 1], vzi = v[3 * row + 2];
-    const int32_t tag_i = tag[row];
-    const uint32_t h_i = kTea ? 0u : h[row];
-    float kap[kSpeciesBlock], eps[kSpeciesBlock], ci[kSpeciesBlock];
-#pragma unroll
-    for (int s = 0; s < kSpeciesBlock; ++s) {
-      const bool on = s0 + s < ns;
-      kap[s] = on ? kappa_c[s0 + s] : 0.0f;
-      eps[s] = on ? eps_c[s0 + s] : 0.0f;
-      ci[s] = on ? c[row * ns + s0 + s] : 0.0f;
-    }
-    for_each_pair<kMinImage>(
-        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr,
-        walk_rc2(rc_tab, n_types),
-        [&](int j, float drx, float dry, float drz, float r2) {
-          float a = a0, gamma = gamma0, sdt = sdt0, inv_rc = inv_rc0;
-          if (kTypes) {
-            const int p = t_row + typ[j];
-            r2 = unfused_r2(drx, dry, drz);
-            if (!(r2 < rc_tab[p] * rc_tab[p])) return;
-            a = a_tab[p];
-            gamma = gamma_tab[p];
-            sdt = sigma_tab[p] * dt_inv_sqrt;
-            inv_rc = 1.0f / rc_tab[p];
-          }
-          const float rinv = rsqrtf(r2);
-          const float rr = r2 * rinv;
-          const float w = 1.0f - rr * inv_rc;
-          const float ev = (drx * (vxi - v[3 * j]) +
-                            dry * (vyi - v[3 * j + 1]) +
-                            drz * (vzi - v[3 * j + 2])) * rinv;
-          const int32_t tag_j = tag[j];
-          const uint32_t hp = pair_hash<kTea>(tag_i, tag_j, h_i,
-                                              kTea ? 0u : h[j], step, seed,
-                                              rounds);
-          const float theta = uniform_stream(hp, 0u);
-          const float fmag = a * w - gamma * (w * w) * ev + sdt * w * theta;
-          const float fr = fmag * rinv;
-          fx += fr * drx;
-          fy += fr * dry;
-          fz += fr * drz;
-          vsum += 0.5f * fmag * rr;
-          if (r2 < rcc2) {
-            // r as the plain version takes it: r2 summed without fused
-            // multiply-adds, then a correctly rounded root. Near rcc,
-            // sqrt(w_dc) (s1 = 1) turns an ulp of r into a flux error of
-            // ~1e-5 of the largest flux (measured at L=70 with r2 * rsqrtf)
-            const float r2n = unfused_r2(drx, dry, drz);
-            const float base = fmaxf(1.0f - sqrtf(r2n) / rcc, 0.0f);
-            const float wdc = s1 == 1.0f ? base : powf(base, s1);
-            const float wrc = sqrtf(wdc);
-            const float sign = tag_i < tag_j ? 1.0f : -1.0f;
-#pragma unroll
-            for (int s = 0; s < kSpeciesBlock; ++s) {
-              if (s0 + s < ns) {
-                const float xi = sign * uniform_stream(
-                    hp, 2u + static_cast<uint32_t>(s0 + s));
-                qs[s] += -kap[s] * wdc * (ci[s] - c[j * ns + s0 + s]) +
-                         eps[s] * wrc * xi * dt_inv_sqrt;
-              }
-            }
-          }
-        });
-  }
-  if (s0 == 0) {
-    f[3 * row] = fx;
-    f[3 * row + 1] = fy;
-    f[3 * row + 2] = fz;
-    vir[row] = vsum;
-  }
-#pragma unroll
-  for (int s = 0; s < kSpeciesBlock; ++s) {
-    if (s0 + s < ns) dcdt[row * ns + s0 + s] = qs[s];
-  }
+// K3 on K1's cell tiles and table (cell_tiles.cuh over bucket rows) with
+// the tDPD visitor of pair_visitor.cuh over per-row arrays; kSb species a
+// register block (1 for one species, else kSpeciesBlock; grid.y walks the
+// blocks, each staging its tile again, and block 0 writes f and the
+// virial). Without the minimum image dr = (xi - xj) - shift as in K1;
+// with it the walk tests the raw difference and takes the minimum image
+// only where an axis wraps.
+template <bool kMinImage, bool kTea, bool kTypes, int kSb>
+__global__ void __launch_bounds__(tiles::kTileMaxThreads)
+pair_tdpd_v3_kernel(const __grid_constant__ RowArgs p) {
+  const BucketRows src{p.valid, p.x, p.nx};
+  PairVisitor<kTdpd, kTea, kTypes, kSb, RowFields, RowArgs> vis(p,
+                                                              p.fields());
+  tiles::run_tile<kMinImage ? tiles::kImageRaw : tiles::kShift>(
+      src, vis, p.table, p.k, p.xr, p.width, p.list_cap, p.box_lo,
+      p.box_hi);
 }
 
 template <bool kMinImage, bool kTea, bool kTypes, typename... Args>
@@ -296,15 +203,25 @@ void launch_edpd(dim3 grid, cudaStream_t stream, Args... args) {
       <<<grid, kThreads, 0, stream>>>(args...);
 }
 
-template <bool kMinImage, bool kTea, bool kTypes, typename... Args>
-void launch_tdpd(dim3 grid, cudaStream_t stream, Args... args) {
-  if (grid.y > 1) {
-    pair_tdpd_v3_kernel<kMinImage, kTea, kTypes, true>
-        <<<grid, kThreads, 0, stream>>>(args...);
-  } else {
-    pair_tdpd_v3_kernel<kMinImage, kTea, kTypes, false>
-        <<<grid, kThreads, 0, stream>>>(args...);
-  }
+// The instance for the run-time flags.
+template <int kSb>
+cudaError_t launch_tdpd(const RowArgs& args, dim3 grid, int threads,
+                        int smem, cudaStream_t st, bool min_image, bool tea,
+                        bool types) {
+#define MESO_TDPD(mi, te, ty)                                               \
+  if (min_image == mi && tea == te && types == ty)                          \
+    return tiles::launch_tile(pair_tdpd_v3_kernel<mi, te, ty, kSb>, args,   \
+                              grid, threads, smem, st);
+  MESO_TDPD(false, false, false)
+  MESO_TDPD(false, false, true)
+  MESO_TDPD(false, true, false)
+  MESO_TDPD(false, true, true)
+  MESO_TDPD(true, false, false)
+  MESO_TDPD(true, false, true)
+  MESO_TDPD(true, true, false)
+  MESO_TDPD(true, true, true)
+#undef MESO_TDPD
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -357,45 +274,65 @@ extern "C" int meso_pair_edpd_v3(
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 on the cell tiles of kernels/cell_tiles.py::plan (K1's plan and
+// table, the same staged record); refused as meso_pair_dpd_v3 is, or
+// with no species.
 extern "C" int meso_pair_tdpd_v3(
     const void* x, const void* v, const void* c, const void* tag,
     const void* typ, const void* valid, const void* h, const void* a_tab,
     const void* gamma_tab, const void* sigma_tab, const void* rc_tab,
     int n_types, const void* kappa_c, const void* eps_c,
-    const void* box_lo, const void* box_hi, void* f, void* dcdt, void* vir,
-    int nx, int ny, int nz, int k, int xr, int ns, int min_image, int tea,
-    float dt_inv_sqrt,
-    float rcc, float s1, uint32_t step, uint32_t seed, int rounds,
-    void* stream) {
-  const int nr = nx * ny * nz * k;
-  if (nr <= 0) return static_cast<int>(cudaGetLastError());
-  if (ns < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((nr + kThreads - 1) / kThreads,
-                  (ns + kSpeciesBlock - 1) / kSpeciesBlock);
+    const void* box_lo, const void* box_hi, const void* table, void* f,
+    void* dcdt, void* vir, int nx, int k, int xr, int ns, int width,
+    int n_blocks, int threads, int list_cap, int smem_bytes, int min_image,
+    int tea, float dt_inv_sqrt, float rcc, float s1, uint32_t step,
+    uint32_t seed, int rounds, void* stream) {
+  if (n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  if (ns < 1 || tiles::tile_launch_refused<BucketRows>(
+                    width, xr, k, threads, list_cap, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowArgs args = {};
+  args.x = static_cast<const float*>(x);
+  args.v = static_cast<const float*>(v);
+  args.tag = static_cast<const int32_t*>(tag);
+  args.typ = static_cast<const int32_t*>(typ);
+  args.valid = static_cast<const uint8_t*>(valid);
+  args.h = static_cast<const uint32_t*>(h);
+  args.fld = static_cast<const float*>(c);
+  args.a_tab = static_cast<const float*>(a_tab);
+  args.gamma_tab = static_cast<const float*>(gamma_tab);
+  args.x3_tab = static_cast<const float*>(sigma_tab);
+  args.rc_tab = static_cast<const float*>(rc_tab);
+  args.n_types = n_types;
+  args.ns = ns;
+  args.kappa_c = static_cast<const float*>(kappa_c);
+  args.eps_c = static_cast<const float*>(eps_c);
+  args.box_lo = static_cast<const float*>(box_lo);
+  args.box_hi = static_cast<const float*>(box_hi);
+  args.table = static_cast<const int32_t*>(table);
+  args.f = static_cast<float*>(f);
+  args.extra = static_cast<float*>(dcdt);
+  args.vir = static_cast<float*>(vir);
+  args.nx = nx;
+  args.k = k;
+  args.xr = xr;
+  args.width = width;
+  args.list_cap = list_cap;
+  args.dt_inv_sqrt = dt_inv_sqrt;
+  args.s_exp = 1.0f;
+  args.rcc = rcc;
+  args.s1 = s1;
+  args.step = step;
+  args.seed = seed;
+  args.rounds = rounds;
+  // one species (the tDPD path) keeps one register; more take blocks
+  const int sb = ns > 1 ? kSpeciesBlock : 1;
+  const dim3 grid(n_blocks, (ns + sb - 1) / sb);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MESO_TDPD_ARGS                                                       \
-  grid, st, static_cast<const float*>(x), static_cast<const float*>(v),      \
-      static_cast<const float*>(c), static_cast<const int32_t*>(tag),        \
-      static_cast<const int32_t*>(typ),                                      \
-      static_cast<const uint8_t*>(valid), static_cast<const uint32_t*>(h),   \
-      static_cast<const float*>(a_tab), static_cast<const float*>(gamma_tab), \
-      static_cast<const float*>(sigma_tab),                                  \
-      static_cast<const float*>(rc_tab), n_types,                            \
-      static_cast<const float*>(kappa_c),                                    \
-      static_cast<const float*>(eps_c), static_cast<const float*>(box_lo),   \
-      static_cast<const float*>(box_hi), static_cast<float*>(f),             \
-      static_cast<float*>(dcdt), static_cast<float*>(vir), nx, ny, nz, k,    \
-      xr, ns, dt_inv_sqrt, rcc, s1, step, seed, rounds
-  switch ((min_image ? 4 : 0) | (tea ? 2 : 0) | (n_types > 1 ? 1 : 0)) {
-    case 0: launch_tdpd<false, false, false>(MESO_TDPD_ARGS); break;
-    case 1: launch_tdpd<false, false, true>(MESO_TDPD_ARGS); break;
-    case 2: launch_tdpd<false, true, false>(MESO_TDPD_ARGS); break;
-    case 3: launch_tdpd<false, true, true>(MESO_TDPD_ARGS); break;
-    case 4: launch_tdpd<true, false, false>(MESO_TDPD_ARGS); break;
-    case 5: launch_tdpd<true, false, true>(MESO_TDPD_ARGS); break;
-    case 6: launch_tdpd<true, true, false>(MESO_TDPD_ARGS); break;
-    default: launch_tdpd<true, true, true>(MESO_TDPD_ARGS); break;
-  }
-#undef MESO_TDPD_ARGS
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      sb == 1 ? launch_tdpd<1>(args, grid, threads, smem_bytes, st,
+                               min_image, tea, n_types > 1)
+              : launch_tdpd<kSpeciesBlock>(args, grid, threads, smem_bytes,
+                                           st, min_image, tea, n_types > 1);
+  return static_cast<int>(e);
 }

@@ -41,11 +41,11 @@ SIGNATURES = {
     # tea, need_virial, dt_inv_sqrt, step, seed, rounds, stream
     "meso_pair_dpd_v3": (_P,) * 13 + (_I,) * 11 + (_F, _U, _U, _I, _P),
     # x, v, tag, typ, valid, h, a, gamma, sigma, rc, n_types, excl,
-    # excl_rows, n_excl, excl_w, box_lo, box_hi, f, vir, nx, ny, nz, k, xr,
-    # min_image, tea, debug, need_virial, dt_inv_sqrt, s_exp, step, seed,
-    # rounds, stream
-    "meso_pair_dpd_v3_general": (_P,) * 10 + (_I, _P, _I, _I) + (_P,) * 5
-    + (_I,) * 9 + (_F, _F, _U, _U, _I, _P),
+    # excl_rows, n_excl, excl_w, box_lo, box_hi, table, f, vir, nx, k, xr,
+    # width, n_blocks, threads, list_cap, smem_bytes, min_image, tea, debug,
+    # dt_inv_sqrt, s_exp, step, seed, rounds, stream
+    "meso_pair_dpd_v3_general": (_P,) * 10 + (_I, _P, _I, _I) + (_P,) * 6
+    + (_I,) * 11 + (_F, _F, _U, _U, _I, _P),
     # h, out, n, salt, stream
     "meso_uniform_stream": (_P, _P, _I, _U, _P),
     # x, v, t, tag, typ, valid, h, a, gamma, kappa, rc, n_types, box_lo,
@@ -54,9 +54,10 @@ SIGNATURES = {
     "meso_pair_edpd_v3": (_P,) * 11 + (_I,) + (_P,) * 5 + (_I,) * 7
     + (_F,) * 3 + (_U, _U, _I, _P),
     # x, v, c, tag, typ, valid, h, a, gamma, sigma, rc, n_types, kappa_c,
-    # eps_c, box_lo, box_hi, f, dcdt, vir, nx, ny, nz, k, xr, ns, min_image,
-    # tea, dt_inv_sqrt, rcc, s1, step, seed, rounds, stream
-    "meso_pair_tdpd_v3": (_P,) * 11 + (_I,) + (_P,) * 7 + (_I,) * 8
+    # eps_c, box_lo, box_hi, table, f, dcdt, vir, nx, k, xr, ns, width,
+    # n_blocks, threads, list_cap, smem_bytes, min_image, tea, dt_inv_sqrt,
+    # rcc, s1, step, seed, rounds, stream
+    "meso_pair_tdpd_v3": (_P,) * 11 + (_I,) + (_P,) * 8 + (_I,) * 11
     + (_F,) * 3 + (_U, _U, _I, _P),
     # model, tea, fb, ib, box_lo, box_hi, a, gamma, x3, rc, n_types, ch_h,
     # ch_typ, ch_ex, n_excl, excl_w, ns, kappa_c, eps_c, f, extra, vir, nx,

@@ -1,8 +1,11 @@
-"""The cell tiles of the Hopper pair kernels: K1's (``csrc/pair_dpd_v3.cu``,
-``pair_dpd_v3_kernel``) over bucket rows and the brick kernel's
-(``csrc/pair_brick.cu``, ``pair_brick_kernel``: K4-K7 and K6-halo) over a
-padded brick of channel planes; their launch plans and the tables each
-block reads.
+"""The cell tiles of the Hopper pair kernels, one device machinery
+(``csrc/cell_tiles.cuh``) under two source policies: over bucket rows,
+K1 (``pair_dpd_v3_kernel``), K1's general variant
+(``pair_dpd_v3_general_kernel``) and K3 (``pair_tdpd_v3_kernel``), all on
+K1's plan and table (``plan``, ``tile_table``); over a padded brick of
+channel planes, the brick kernel (``csrc/pair_brick.cu``,
+``pair_brick_kernel``: K4-K7 and K6-halo; ``brick_plan``, ``brick_table``).
+Here: their launch plans and the tables each block reads.
 
 A block owns a tile of target cells: one (cy, cz) and a run of up to W
 consecutive cx. It stages the sources of its stencil in shared memory: the
@@ -21,9 +24,10 @@ side in y and z and by xr cells on each side in x, so its tiles need no
 wrap codes: a brick block stages the same 3 x 3 lines x (W + 2 xr)
 columns from the brick's own coordinates, and its table holds, for each
 line, the brick index of the block's first source column in slot 0
-(``brick_table``). What it stages differs from K1's (no row indices: the
-brick index rides in the position's fourth word, and no shifts), so its
-plan sizes W on its own shared-memory layout (``brick_smem_bytes``).
+(``brick_table``). What it stages differs from the bucket rows' (no row
+indices: the brick index rides in the position's fourth word, and no
+shifts), so its plan sizes W on its own shared-memory layout
+(``brick_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -105,14 +109,15 @@ def _threads(width: int, k: int) -> int:
 
 
 def smem_bytes(ncols: int, k: int, threads: int, list_cap: int) -> int:
-    """The block's dynamic shared memory, in the kernel's order
-    (``tile_layout`` in csrc/pair_dpd_v3.cu computes the same and the
-    launch refuses a mismatch): staged positions (float4: x, y, z, the x
-    wrap shift), each staged source's row (int32; v and the hash are
-    gathered from device memory for the in-range pairs only), the
-    slot-cells' first staged indices (ncols + 1 a line, the last the
-    line's end), the slot masks (one 32-bit word a 32 slots), the block's
-    table row, the 9 lines' (y, z) shifts, the lists (uint16)."""
+    """The block's dynamic shared memory over bucket rows, in the kernels'
+    order (``tiles::layout_of<BucketRows>`` in csrc/cell_tiles.cuh
+    computes the same and the launch refuses a mismatch): staged
+    positions (float4: x, y, z, the x wrap shift), each staged source's
+    row (int32; v and the hash are gathered from device memory for the
+    in-range pairs only), the slot-cells' first staged indices (ncols + 1
+    a line, the last the line's end), the slot masks (one 32-bit word a
+    32 slots), the block's table row, the 9 lines' (y, z) shifts, the
+    lists (uint16)."""
     s = len(LINES) * ncols * k
     words = -(-k // 32)
     b = 16 * s
@@ -127,12 +132,12 @@ def smem_bytes(ncols: int, k: int, threads: int, list_cap: int) -> int:
 
 def brick_smem_bytes(ncols: int, k: int, threads: int, list_cap: int) -> int:
     """The brick kernel's dynamic shared memory, in its order
-    (``tile_layout`` in csrc/pair_brick.cu computes the same and the
-    launch refuses a mismatch): staged positions (float4: x, y, z and the
-    source's brick index as the fourth word; v, tag, the hash, the type
-    and the field are gathered from the brick for the in-range pairs
-    only), the slot-cells' first staged indices, the slot masks, the
-    block's table row, the lists (uint16)."""
+    (``tiles::layout_of<BrickPlanes>`` in csrc/cell_tiles.cuh computes the
+    same and the launch refuses a mismatch): staged positions (float4: x,
+    y, z and the source's brick index as the fourth word; v, tag, the
+    hash, the type and the field are gathered from the brick for the
+    in-range pairs only), the slot-cells' first staged indices, the slot
+    masks, the block's table row, the lists (uint16)."""
     s = len(LINES) * ncols * k
     words = -(-k // 32)
     b = 16 * s
@@ -145,7 +150,8 @@ def brick_smem_bytes(ncols: int, k: int, threads: int, list_cap: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def plan(capacity: int, xr: int, ncell: tuple) -> TilePlan:
-    """K1's plan: the widest W whose block lets BLOCKS_PER_SM blocks share
+    """K1's plan, which its general variant and K3 share (they stage the
+    same record): the widest W whose block lets BLOCKS_PER_SM blocks share
     an SM, or, where no W does (capacities above ~118 spill, ~190 strict),
     one block an SM; then W evened out over the runs of cx: ceil(ncx / W)
     runs of ceil(ncx / runs). A block has W + 2 xr <= 32 source columns

@@ -11,6 +11,12 @@ raises. On a CPU tensor, and only there, it runs its plain torch version
 ``bucket_forces_v3_tdpd_plain``), which computes the same function. There
 is no fallback from one to the other.
 
+K1, its general variant and K3 run on the cell tiles of
+``csrc/cell_tiles.cuh`` with K1's plan and table
+(``kernels/cell_tiles.py::plan``, ``table_on``), the general variant and
+K3 with the visitor of ``csrc/pair_visitor.cuh``; K2 still walks every slot
+of its stencil, a thread a row.
+
 Covered: the fast and TEA RNG tiers, spill and strict layouts, the
 min-image and no-min-image (``cfg.wrap_at_rebuild``) modes, and
 per-type-pair tables. K1 covers every case of the TPU kernel:
@@ -189,11 +195,12 @@ def _launch_general(lib, x, v, typ, tag, mask, box: Box, step: int,
     # debug_pairs reads the per-particle hash's keys in both RNG tiers
     h = _hash_or_tag(lib, tag, step_u, params.seed,
                      "fast" if debug_pairs else rng_mode, rng_rounds)
+    plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
+    table = cell_tiles.table_on(plan, x.device)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
-    virial = need_virial and not debug_pairs
-    vir_rows = (torch.empty((nr,), dtype=torch.float32, device=x.device)
-                if virial else None)
-    nx, ny, nz = cfg.ncell
+    # the kernel writes every row's virial but in debug mode
+    vir_rows = (None if debug_pairs else
+                torch.empty((nr,), dtype=torch.float32, device=x.device))
     code = lib.meso_pair_dpd_v3_general(
         x.data_ptr(), v.data_ptr(), tag.data_ptr(), typ.data_ptr(),
         mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
@@ -201,15 +208,17 @@ def _launch_general(lib, x, v, typ, tag, mask, box: Box, step: int,
         params.rc.data_ptr(), params.n_types,
         None if params.excl is None else params.excl.data_ptr(), excl_rows,
         n_excl, None if params.excl_w is None else params.excl_w.data_ptr(),
-        box.lo.data_ptr(), box.hi.data_ptr(), f.data_ptr(),
+        box.lo.data_ptr(), box.hi.data_ptr(), table.data_ptr(), f.data_ptr(),
         None if vir_rows is None else vir_rows.data_ptr(),
-        nx, ny, nz, cfg.capacity, xr, int(not cfg.wrap_at_rebuild),
-        int(rng_mode == "tea"), int(debug_pairs), int(virial),
-        1.0 / math.sqrt(dt), params.s_exp, step_u, params.seed, rng_rounds,
+        cfg.ncell[0], cfg.capacity, plan.xr, plan.width, plan.n_blocks,
+        plan.threads, plan.list_cap, plan.smem_bytes,
+        int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
+        int(debug_pairs), 1.0 / math.sqrt(dt), params.s_exp, step_u,
+        params.seed, rng_rounds,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "pair_dpd_v3_general")
     LAUNCHES["pair_dpd_v3_general"] += 1
-    if virial:
+    if need_virial and not debug_pairs:
         return f, torch.sum(vir_rows)
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -280,22 +289,24 @@ def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
                  "eps_c": (params.eps_c, torch.float32, (ns,))})
     step_u = step & 0xFFFFFFFF
     h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
+    table = cell_tiles.table_on(plan, x.device)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     dcdt = torch.empty((nr, ns), dtype=torch.float32, device=x.device)
     vir_rows = torch.empty((nr,), dtype=torch.float32, device=x.device)
-    nx, ny, nz = cfg.ncell
     code = lib.meso_pair_tdpd_v3(
         x.data_ptr(), v.data_ptr(), c.data_ptr(), tag.data_ptr(),
         _typ_ptr(params, typ), mask.data_ptr(), h.data_ptr(),
         params.a.data_ptr(), params.gamma.data_ptr(),
         params.sigma.data_ptr(), params.rc.data_ptr(), params.n_types,
-        params.kappa_c.data_ptr(),
-        params.eps_c.data_ptr(), box.lo.data_ptr(), box.hi.data_ptr(),
+        params.kappa_c.data_ptr(), params.eps_c.data_ptr(),
+        box.lo.data_ptr(), box.hi.data_ptr(), table.data_ptr(),
         f.data_ptr(), dcdt.data_ptr(), vir_rows.data_ptr(),
-        nx, ny, nz, cfg.capacity, xr, ns, int(not cfg.wrap_at_rebuild),
-        int(rng_mode == "tea"), 1.0 / math.sqrt(dt), params.rcc, params.s1,
-        step_u, params.seed, rng_rounds,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cfg.ncell[0], cfg.capacity, plan.xr, ns, plan.width, plan.n_blocks,
+        plan.threads, plan.list_cap, plan.smem_bytes,
+        int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
+        1.0 / math.sqrt(dt), params.rcc, params.s1, step_u, params.seed,
+        rng_rounds, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "pair_tdpd_v3")
     LAUNCHES["pair_tdpd_v3"] += 1
     return f, dcdt, torch.sum(vir_rows)

@@ -172,7 +172,9 @@ def test_build_paths_stay_inside_the_checkout():
                                                   "pair_dpd_v3.cu",
                                                   "pair_transport_v3.cu",
                                                   "probes.cu"]
-    assert [p.name for p in _build.headers()] == ["dpd_common.cuh"]
+    assert [p.name for p in _build.headers()] == ["cell_tiles.cuh",
+                                                  "dpd_common.cuh",
+                                                  "pair_visitor.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS
 
