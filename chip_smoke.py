@@ -27,15 +27,17 @@ Phases, one line of output each (any failure raises and exits non-zero):
    dense oracles in every covered case (fast/tea x spill/strict x
    min-image/no-min-image), K3 both with two species (rcc 0.8, s1 2) and
    with one species, rcc = rc = 1, s1 = 1, as the tDPD path runs it; then
-   K3's cell tiles (TDPD_TILE_CASES): ragged runs of cx (l=41), dense
-   fluids that fill the lists (rho 9 at K 128 spill and 192 strict, rho 32
-   at K 216, one block an SM), TEA, both wrap modes, ten species with one
-   and two types;
+   K2's and K3's cell tiles (EDPD_TILE_CASES, TDPD_TILE_CASES): ragged
+   runs of cx (l=41), dense fluids that fill the lists (rho 9 at K 128
+   spill and 192 strict, rho 32 at K 216, one block an SM), TEA, both wrap
+   modes, one type and two (eDPD with an asymmetric kappa), ten species
+   with one and two types;
 5. kernels-transport-l70: K2 and both K3 cases at the 1M shape against
    their plain versions, with their times, the plain times and K1's time
    on the same rows; then K2 and K3 on each 1M path's own inputs (its
    builder's state at set-up, its capacity and its coefficients), whose
-   numbers the kernels' record reports;
+   numbers the kernels' record reports with their tile plans, slot tests
+   a valid row and the registers ptxas gave each instance;
 6. main path: classic_fluid(l=70) through run_bucket_chunked, 399
    equilibration steps, 201 timed steps (timed in TIMED_BLOCKS blocks, each
    block's ms/step reported), then a traced window, in rounds
@@ -133,9 +135,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
    against its plain version (T1, T3, T4 bitwise; T2's products within
    1e-5 of max |ref|, its pair tile within 4x the float32 plain version's
    error against float64), then their times: T2 at 8,192 tiles beside
-   torch.bmm with TF32 off and K1's time per candidate test, T4 at K1's 1M
-   view for zc 1, 5, 10 and 25 (the card's streaming rate, which gives
-   each byte-bound kernel's measured floor in the kernels' record);
+   torch.bmm with TF32 off and K1's time per candidate test (the pair tile
+   also alone, with its own design's bound beside the row's), T3 through
+   its wrapper and alone, T4 at K1's 1M view for zc 1, 5, 10 and 25 (the
+   card's streaming rate, which gives each byte-bound kernel's measured
+   floor in the kernels' record);
 23. nlist-path: classic_fluid(l=70) with the JAX package's defaults
    (force_path "nlist", skin 0.3, cells and lists rebuilt every 10 steps,
    the TEA tier) from the main path's end state, through ``run``: ms/step,
@@ -158,8 +162,9 @@ rates stored beside them (see phase_decay_from). ``--ab PARENT_DIR`` runs
 only phases 1-2 and phase_ab: this tree and the one at PARENT_DIR (an
 unpacked checkout of another commit inside the repository, e.g. ``git
 archive HEAD~1`` under build/) alternating, a process a run, each timing
-the main path in blocks, K1 and the brick kernel alone, and saving their
-kernels' outputs, which must agree bitwise.
+the main path in blocks, the eDPD path, K1 and the brick kernel alone and
+K1's general variant, K2 and K3 through their wrappers, and saving the
+outputs of all but K2, which must agree bitwise.
 
 Launch counts are set to 0 just before each path (6, each model of 8, each
 path of 13 and 16, phase 17, each rank of each path of 21, the probes'
@@ -261,6 +266,8 @@ SMS = 132
 SM_CLOCK_HZ = FP32_OPS_PER_S / (2 * 128 * SMS)
 ISSUE_PER_S = 128 * SMS * SM_CLOCK_HZ
 ALU_PER_S = IMAD_PER_S = 64 * SMS * SM_CLOCK_HZ
+# the MUFU (rsqrt, sqrt, exp): 16 lanes an SM a clock
+MUFU_PER_S = 16 * SMS * SM_CLOCK_HZ
 # the tensor cores' dense TF32 rate (the same data sheet): the probe T2's
 # products run there, three or six TF32 products for each float32 one
 TF32_OPS_PER_S = 495e12
@@ -840,7 +847,8 @@ def phase_kernels(ptxas=()):
                   "capacity": cfg.capacity, "pairs_in_rc": n_rc,
                   "candidates": candidates,
                   # slot tests a valid row: the tile walk's (occupied
-                  # slots only) and for_each_pair's (all 45 K slots)
+                  # slots only) and the former one-thread-a-row walk's
+                  # (all 45 K slots)
                   "tests_per_valid_row": (candidates + n_valid) / n_valid,
                   "slot_tests_per_row_pr6": 45 * cfg.capacity,
                   "plan": dataclasses.asdict(plan),
@@ -895,12 +903,32 @@ def max_partners(bst, cfg):
     return int(counts.max())
 
 
+def tile_case_inputs(model, coef, bst, params):
+    """(state, coefficients, the kernel's field) of a transport tile case:
+    eDPD "1type" (the transport checks') or "2types" (edpd_two_types),
+    T from with_fields; tDPD "S2" (two
+    species), "S1" (the tDPD path's one), "S10" or "S10-2types" (ten)."""
+    if model == "edpd":
+        bst = with_fields(bst)
+        return bst, params["edpd"] if coef == "1type" else \
+            edpd_two_types(), bst.T
+    if coef == "S2":
+        bst, p = with_fields(bst), params["tdpd"]
+    elif coef == "S1":
+        bst, p = with_fields(bst), params["tdpd_1species"]
+        bst = bst.replace(C=bst.C[:, :1].contiguous())
+    else:
+        bst = with_species(bst, 10)
+        p = tdpd_params(10, coef == "S10-2types")
+    return bst, p, bst.C
+
+
 def phase_transport_kernels(ptxas=()):
     """K2 and K3 against their plain versions and the port's dense oracles
-    at l=8, K3 on its cell tiles' cases (TDPD_TILE_CASES), then at the 1M
-    shape with their times and K1's on the same rows; ``ptxas`` is the
-    build's register report, whose K3 lines the tDPD path's record
-    keeps."""
+    at l=8, on their cell tiles' cases (EDPD_TILE_CASES, TDPD_TILE_CASES),
+    then at the 1M shape with their times and K1's on the same rows;
+    ``ptxas`` is the build's register report, whose K2 and K3 lines the
+    paths' records keep."""
     import torch
     from meso_tpu_torch.core import rng
     from meso_tpu_torch.kernels.pair_dpd_v3 import (bucket_forces_pallas_v3,
@@ -962,35 +990,32 @@ def phase_transport_kernels(ptxas=()):
         worst_dense_rel=max(c["dense_rel"] for c in out["l8"]),
         worst_dense_flux_rel=max(c["dense_flux_rel"] for c in out["l8"]))
 
-    # K3's cell tiles (TDPD_TILE_CASES)
-    fn, plain, _, _ = transport_fns("tdpd")
+    # K2's and K3's cell tiles (EDPD_TILE_CASES, TDPD_TILE_CASES)
     out["tiles"] = []
-    for l, n, spill, min_image, rng_mode, capacity, coef, kind in \
-            TDPD_TILE_CASES:
-        bst, cfg = bucket_case(l, n, spill, min_image, capacity=capacity)
-        if coef == "S2":
-            bst, p = with_fields(bst), params["tdpd"]
-        elif coef == "S1":
-            bst, p = with_fields(bst), params["tdpd_1species"]
-            bst = bst.replace(C=bst.C[:, :1].contiguous())
-        else:
-            bst = with_species(bst, 10)
-            p = tdpd_params(10, coef == "S10-2types")
-        bst = bst.replace(typ=(bst.tag % p.n_types).to(torch.int32))
-        label = (f"{kind} {coef} l={l:g} n={n} K={cfg.capacity} {rng_mode} "
-                 f"spill={spill} min_image={min_image}")
-        got = fn(bst.x, bst.v, bst.C, bst.typ, bst.tag, bst.mask, bst.box,
-                 step, p, 0.01, cfg, rng_mode=rng_mode)
-        torch.cuda.synchronize()
-        want = plain(bst.x, bst.v, bst.C, bst.tag, bst.mask, bst.box, step, p,
-                     0.01, cfg, rng_mode, typ=bst.typ)
-        rec = {"case": label, "species": p.n_species,
-               **compare_transport(got, want, bst.mask, min_image, label),
-               "max_partners": max_partners(bst, cfg),
-               **row_tile_fields(bst, cfg)}
-        check_tile_case(label, kind, cfg, rec)
-        out["tiles"].append(rec)
-        del bst, got, want
+    for model, cases in (("edpd", EDPD_TILE_CASES),
+                         ("tdpd", TDPD_TILE_CASES)):
+        fn, plain, _, _ = transport_fns(model)
+        for l, n, spill, min_image, rng_mode, capacity, coef, kind in cases:
+            bst, cfg = bucket_case(l, n, spill, min_image, capacity=capacity)
+            bst, p, fld = tile_case_inputs(model, coef, bst, params)
+            bst = bst.replace(typ=(bst.tag % p.n_types).to(torch.int32))
+            label = (f"{model} {kind} {coef} l={l:g} n={n} "
+                     f"K={cfg.capacity} {rng_mode} spill={spill} "
+                     f"min_image={min_image}")
+            got = fn(bst.x, bst.v, fld, bst.typ, bst.tag, bst.mask, bst.box,
+                     step, p, 0.01, cfg, rng_mode=rng_mode)
+            torch.cuda.synchronize()
+            want = plain(bst.x, bst.v, fld, bst.tag, bst.mask, bst.box, step,
+                         p, 0.01, cfg, rng_mode, typ=bst.typ)
+            rec = {"case": label, "model": model,
+                   "species": getattr(p, "n_species", 0),
+                   **compare_transport(got, want, bst.mask, min_image,
+                                       label),
+                   "max_partners": max_partners(bst, cfg),
+                   **row_tile_fields(bst, cfg)}
+            check_tile_case(label, kind, cfg, rec)
+            out["tiles"].append(rec)
+            del bst, fld, got, want
     say("kernels-transport-tiles", cases=len(out["tiles"]),
         worst_rel=max(c["rel"] for c in out["tiles"]),
         worst_flux_rel=max(c["flux_rel"] for c in out["tiles"]),
@@ -1059,10 +1084,9 @@ def phase_transport_kernels(ptxas=()):
         prec["bound_ms"], prec["bound_by"] = row_bound(
             st.mask, [st.x, st.v, fld, st.tag, st.tag], [got[0], got[1]],
             ops, virial=True)
-        prec.update(nr=st.n, capacity=cfg_p.capacity, pairs_in_rc=p_rc)
-        if model == "tdpd":
-            prec.update(row_tile_fields(st, cfg_p),
-                        ptxas=ptxas_of(ptxas, "pair_tdpd_v3_kernel"))
+        prec.update(nr=st.n, capacity=cfg_p.capacity, pairs_in_rc=p_rc,
+                    **row_tile_fields(st, cfg_p),
+                    ptxas=ptxas_of(ptxas, f"pair_{model}_v3_kernel"))
         rec[f"{model}_path"] = prec
         del system, sparams, st, fld, got, want, args
     dpd = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0, seed=77,
@@ -1695,6 +1719,15 @@ GENERAL_TILE_CASES = (
     (8.0, 16384, True, False, "tea", None, "two_types", "one-block"),
     (8.0, 1536, True, True, "tea", None, "excl6", "l8"),
     (8.0, 1536, False, False, "fast", None, "excl6", "l8"))
+EDPD_TILE_CASES = (
+    (41.0, 206763, True, False, "fast", None, "1type", "ragged"),
+    (41.0, 206763, False, True, "tea", None, "2types", "ragged"),
+    (8.0, 4608, True, True, "tea", 128, "1type", "dense"),
+    (8.0, 4608, False, False, "fast", 192, "2types", "dense"),
+    (8.0, 16384, True, True, "fast", None, "1type", "one-block"),
+    (8.0, 16384, True, False, "tea", None, "2types", "one-block"),
+    (8.0, 1536, True, False, "fast", None, "2types", "l8"),
+    (8.0, 1536, False, True, "tea", None, "1type", "l8"))
 TDPD_TILE_CASES = (
     (41.0, 206763, True, False, "fast", None, "S1", "ragged"),
     (41.0, 206763, False, True, "tea", None, "S10", "ragged"),
@@ -1717,8 +1750,8 @@ def general_coefs(coef, n):
 
 
 def row_tile_fields(bst, cfg):
-    """The bucket-row tile plan (K1's, which K1's general variant and K3
-    share) for these cells and the slot tests a valid row its walk makes
+    """The bucket-row tile plan (K1's, which K1's general variant, K2 and
+    K3 share) for these cells and the slot tests a valid row its walk makes
     on these rows (the valid slots of its stencil, itself included)."""
     from meso_tpu_torch.kernels import cell_tiles
     p = cell_tiles.plan(cfg.capacity, 2 if cfg.spill else 1, cfg.ncell)
@@ -2329,6 +2362,13 @@ def tdpd_params(ns, two_types):
                             s1=2.0, seed=5, device=DEVICE, **kw)
 
 
+def edpd_two_types():
+    """eDPD over TWO_TYPES' tables with an asymmetric kappa."""
+    from meso_tpu_torch.ops.edpd import EDPDParams
+    return EDPDParams.build(gamma=4.5, kappa=[[1.5, 1.0], [1.2, 0.5]],
+                            cv=10.0, seed=7, device=DEVICE, **TWO_TYPES)
+
+
 def selector_params():
     """The selector checks' coefficients by model: (label, params, uses two
     types, species) cases. Classic: one type, and K1's general case
@@ -2337,16 +2377,13 @@ def selector_params():
     one species (tdpd_diffusion's rcc = rc = 1), three with two types and
     ten with one."""
     from meso_tpu_torch.ops.dpd import DPDParams
-    from meso_tpu_torch.ops.edpd import EDPDParams
     tp = transport_params()
     return {"dpd": [("1type", DPDParams.build(a=25.0, gamma=4.5, rc=1.0,
                                               kt=1.0, seed=77,
                                               device=DEVICE), False, 0),
                     ("general", general_params(1536), True, 0)],
             "edpd": [("1type", tp["edpd"], False, 0),
-                     ("2types", EDPDParams.build(
-                         gamma=4.5, kappa=[[1.5, 1.0], [1.2, 0.5]], cv=10.0,
-                         seed=7, device=DEVICE, **TWO_TYPES), True, 0)],
+                     ("2types", edpd_two_types(), True, 0)],
             "tdpd": [("S1", tp["tdpd_1species"], False, 1),
                      ("S3-2types", tdpd_params(3, True), True, 3),
                      ("S10", tdpd_params(10, False), False, 10)]}
@@ -3526,6 +3563,41 @@ def probe_record(name, launches, err, ms, plain_ms, bnd, library_ms=None,
             **extra}
 
 
+def tile_design_bound(pairs):
+    """(ms, by) of T2c's n-body design on ``pairs`` pairs, counted from its
+    source (csrc/probes.cu::tile_kernel): per pair 13 instructions on the
+    CUDA cores (3 differences, r^2 in a multiply and two FMAs, two cutoff
+    compares and a select, rsqrt - 1, three force FMAs) and one MUFU
+    rsqrt, and a quarter of a shared load (one float4 broadcast for a
+    lane's four rows); instructions at the issue rate (one warp
+    instruction a clock for each of an SM's four schedulers), the rsqrt at
+    the MUFU's 16 a clock an SM."""
+    t_issue = 1e3 * pairs * (13 + 1 + 0.25) / ISSUE_PER_S
+    t_mufu = 1e3 * pairs / MUFU_PER_S
+    return (t_issue, "issue") if t_issue >= t_mufu else (t_mufu, "mufu")
+
+
+def profiled_kernel_ms(fn, kernel, reps):
+    """Device ms a launch of the kernels whose name holds ``kernel``, from
+    torch.profiler over ``reps`` calls of fn() (the kernel alone, without
+    the host work of its wrapper)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(ms, c) for k, (ms, c) in device_times(prof, 1).items()
+            if kernel in k]
+    calls = sum(c for _, c in hits)
+    if not calls:
+        raise AssertionError(f"the profile lists no {kernel}")
+    return sum(ms for ms, _ in hits) / calls
+
+
 def phase_probes(k1):
     """T1-T4 on the card. Each probe's own run (its module's ``run``, as
     ``python -m meso_tpu_torch.probes.<name>`` runs it) with the launch
@@ -3533,7 +3605,7 @@ def phase_probes(k1):
     its plain version (T1, T3, T4 bitwise; T2's products within 1e-5 of
     max |ref|; T2's tile within max(1e-5, 4x the float32 plain version's
     error) of its float64 plain version). Then the times: T1 and T3 at the
-    probes' shapes; T2 at PROBE_BATCH tiles against its plain version and
+    probes' shapes (T3 also alone, its kernel's device time); T2 at PROBE_BATCH tiles against its plain version and
     torch.bmm (TF32 off), with the tile's ns per candidate pair beside K1's
     per candidate test (``k1``: K1's time and candidate count at the
     main-path shape); T4 at K1's 1M view for every zc of T4_ZCS, its
@@ -3590,12 +3662,22 @@ def phase_probes(k1):
         want = plain(*args)
         rec = {"rel": toy_mxu_tile.rel_err(got, want),
                "max_abs_err": float((got - want).abs().max())}
+        extra = {}
         if key == "tile":
             rec.update(toy_mxu_tile.tile_check(got, *args))
             m, n = 128, 128
-            # the tile's split takes six TF32 products a float32 one
+            # the bound as counted for the tensor-core design, kept as the
+            # yardstick of both designs: its two products in 6xTF32 (six
+            # TF32 products a float32 one) and 12 fp32 operations a pair
             tc = 6 * (2 * m * n * 3 + 2 * m * 5 * n) * PROBE_BATCH
             bnd = bound(args, [got], 12 * m * n * PROBE_BATCH, tc)
+            rec["design_bound_ms"], rec["design_bound_by"] = \
+                tile_design_bound(m * n * PROBE_BATCH)
+            rec["kernel_ms"] = profiled_kernel_ms(lambda: fn(*args),
+                                                  "tile_kernel", 20)
+            extra = {k: rec[k] for k in ("rel_f64", "plain_rel_f64",
+                                         "design_bound_ms",
+                                         "design_bound_by", "kernel_ms")}
         else:
             rec["ok"] = rec["rel"] < toy_mxu_tile.TOL
             (bsz, r, s), n = args[0].shape, args[1].shape[2]
@@ -3609,7 +3691,8 @@ def phase_probes(k1):
         run_err = runs["toy_mxu_tile"][key]["max_abs_err"]
         rows.append(probe_record(
             f"probe_{key}", launches, max(run_err, rec["max_abs_err"]), ms,
-            timed_ms(lambda: plain(*args), 3), bnd, lib, batch=PROBE_BATCH))
+            timed_ms(lambda: plain(*args), 3), bnd, lib, batch=PROBE_BATCH,
+            **extra))
         t2[key] = {**rec, "ms": ms, "library_ms": lib,
                    "vs_library": None if lib is None else ms / lib}
     pairs = PROBE_BATCH * 128 * 128
@@ -3618,12 +3701,17 @@ def phase_probes(k1):
     t2["k1_candidates_per_valid_row"] = k1["candidates"] / k1["n"]
     say("probes-t2", batch=PROBE_BATCH, **t2)
 
-    # T3 at the probe's shape, the base variant timed; its bound counts a
-    # site's 8-round TEA as a hash row's instructions less the xor that
-    # makes the hash's v1 (T3 takes v1 from the other tag)
+    # T3 at the probe's shape, the base variant timed through its wrapper
+    # (a host-to-device copy of its offsets a call) and alone (the
+    # profiler's device time of its kernel); its bound counts a site's
+    # 8-round TEA as a hash row's instructions less the xor that makes the
+    # hash's v1 (T3 takes v1 from the other tag)
     stack, iscal = toy_tea_roll.inputs(DEVICE)
     out = toy_tea_roll.tea_roll(stack, iscal, "base")
     n_sites = stack.shape[-1] * stack.shape[-2] * len(toy_tea_roll.OFFS)
+    t3_alone = profiled_kernel_ms(
+        lambda: toy_tea_roll.tea_roll(stack, iscal, "base"),
+        "tea_roll_kernel", 50)
     rows.append(probe_record(
         "probe_tea_roll", launches,
         max(r["max_abs_err"] for r in runs["toy_tea_roll"].values()),
@@ -3632,7 +3720,7 @@ def phase_probes(k1):
                  5),
         bound([stack, iscal], [out],
               n_sites * (Ops(**k1["hash_ops_per_row"]) - Ops(0, 1, 1))),
-        variants=len(toy_tea_roll.VARIANTS)))
+        variants=len(toy_tea_roll.VARIANTS), kernel_ms=t3_alone))
 
     # T4 at K1's 1M view
     t4 = {}
@@ -4029,12 +4117,13 @@ def ab_one(out_path):
     put first on sys.path): the main path (set-up, EQUIL_CHUNKS, then
     TIMED_CHUNKS in TIMED_BLOCKS blocks, each timed), K1 through its
     wrapper at the main-path shape, the brick kernel alone (K5 classic, K6)
-    on its 1M path's inputs, K1's general variant (walls, polymers) and K3
-    through their wrappers on their paths' inputs; and the kernel outputs
-    the trees must share
-    bitwise, saved to ``out_path``: K1 on kernels-l8's cases and at the
-    main-path shape, the brick kernel on BRICK_TILE_CASES and on the v2 and
-    banded classic paths' inputs."""
+    on its 1M path's inputs, K1's general variant (walls, polymers), K2 and
+    K3 through their wrappers on their paths' inputs, and the eDPD path
+    (transport-full's equilibration, then its timed steps); and the kernel
+    outputs the trees must share bitwise, saved to ``out_path``: K1 on
+    kernels-l8's cases and at the main-path shape, the brick kernel on
+    BRICK_TILE_CASES and on the v2 and banded classic paths' inputs, K1's
+    general variant and K3 on their paths' inputs."""
     import torch
     import meso_tpu_torch
     from meso_tpu_torch.core.system import run_bucket_chunked
@@ -4089,21 +4178,40 @@ def ab_one(out_path):
             name, lib, brick, st.box, 1, sparams.pair, system.dt,
             system.cells)
         del system, sparams, st, brick
-    # K1's general variant and K3 through their wrappers on their paths'
-    # inputs at set-up (the parent's may be another design)
+    # K1's general variant, K2 and K3 through their wrappers on their
+    # paths' inputs at set-up (the parent's may be another design), their
+    # outputs kept but K2's (a redesign may move it by ulps)
     for label, build in (("walls", walls_path), ("polymer", polymer_path),
-                         ("tdpd", lambda: transport_path("tdpd"))):
+                         ("tdpd", lambda: transport_path("tdpd")),
+                         ("edpd", lambda: transport_path("edpd"))):
         system, sparams, st = build()
-        if label == "tdpd":
-            fn = transport_fns("tdpd")[0]
-            args = (st.x, st.v, st.C, st.typ, st.tag, st.mask, st.box, 1,
-                    sparams.pair, system.dt, system.cells)
+        if label in ("edpd", "tdpd"):
+            fn = transport_fns(label)[0]
+            args = (st.x, st.v, st.T if label == "edpd" else st.C, st.typ,
+                    st.tag, st.mask, st.box, 1, sparams.pair, system.dt,
+                    system.cells)
         else:
             fn = bucket_forces_pallas_v3
             args = (st.x, st.v, st.typ, st.tag, st.mask, st.box, 1,
                     sparams.pair, system.dt, system.cells)
+        if label != "edpd":
+            outputs[f"{label} path kernel"] = fn(*args)
         res[f"{label}_kernel_ms"] = timed_ms(lambda: fn(*args), 20)
-        del system, sparams, st, args
+        del args
+        if label == "edpd":
+            # the eDPD path as transport-full times it
+            st, _ = advance(system, sparams, st,
+                            TRANSPORT_EQUIL_CHUNKS * TRANSPORT_EVERY,
+                            TRANSPORT_EVERY)
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            st, _ = advance(system, sparams, st,
+                            TRANSPORT_TIMED_CHUNKS * TRANSPORT_EVERY,
+                            TRANSPORT_EVERY)
+            torch.cuda.synchronize()
+            res["edpd_ms_per_step"] = 1e3 * (time.perf_counter() - tb) / (
+                TRANSPORT_TIMED_CHUNKS * TRANSPORT_EVERY)
+        del system, sparams, st
     torch.save({k: [t.cpu() for t in (v if isinstance(v, tuple) else (v,))
                     if t is not None] for k, v in outputs.items()}, out_path)
     say("ab-run", **res)
@@ -4152,7 +4260,8 @@ def phase_ab(parent, rounds=AB_ROUNDS):
                 for k in ("main_ms_per_step", "k1_ms",
                           "pair_fused_dpd_kernel_ms",
                           "pair_banded_dpd_kernel_ms", "walls_kernel_ms",
-                          "polymer_kernel_ms", "tdpd_kernel_ms")}
+                          "polymer_kernel_ms", "tdpd_kernel_ms",
+                          "edpd_kernel_ms", "edpd_ms_per_step")}
         for which in ("parent", "change")}
     say("ab-summary", outputs=len(ref), differ=differ, **summary)
     # the main path's end state may differ by the rebuild's own
@@ -4200,8 +4309,9 @@ def in_path_ms(profiles, name):
 
 
 def tile_row_fields(rec):
-    """What a bucket-row tile kernel's row (K1's general variant, K3) adds
-    to the contract's keys: its tile plan and slot tests a valid row."""
+    """What a bucket-row tile kernel's row (K1's general variant, K2, K3)
+    adds to the contract's keys: its tile plan and slot tests a valid
+    row."""
     return {k: rec[k] for k in ("width", "smem_bytes", "blocks_per_sm",
                                 "tests_per_valid_row")}
 
@@ -4277,7 +4387,7 @@ def kernel_records(record):
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": None,
-             **(tile_row_fields(rec) if model == "tdpd" else {})})
+             **tile_row_fields(rec), "ptxas": rec["ptxas"]})
     # K5, K6 and K7: the numbers at their own 1M path's inputs, the
     # launches of that path's run
     sk = record["selector_kernels_l70"]

@@ -1,7 +1,8 @@
 // The cell-tile machinery of the Hopper pair kernels (sm_90a), shared by
-// K1 (pair_dpd_v3_kernel), K1's general variant (pair_dpd_v3_general_kernel)
-// and K3 (pair_tdpd_v3_kernel) over bucket rows, and by the brick kernel
-// (pair_brick_kernel: K4-K7, K6-halo) over a padded brick of channel planes.
+// K1 (pair_dpd_v3_kernel), K1's general variant (pair_dpd_v3_general_kernel),
+// K2 (pair_edpd_v3_kernel) and K3 (pair_tdpd_v3_kernel) over bucket rows,
+// and by the brick kernel (pair_brick_kernel: K4-K7, K6-halo) over a padded
+// brick of channel planes.
 //
 // A block owns a tile of target cells: one (cy, cz) and a run of up to W
 // consecutive cx (kernels/cell_tiles.py plans W, the threads and the

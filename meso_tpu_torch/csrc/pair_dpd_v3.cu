@@ -37,7 +37,7 @@
 // 23 bits into a zero-mean unit-variance uniform (rng.py:67-75).
 //
 // What bounds it: at the 1M-particle main path (ncell 50^3, K = 16,
-// nr = 2,000,000, spill) the one-thread-a-row walk of for_each_pair made
+// nr = 2,000,000, spill) the former one-thread-a-row walk made
 // 720 slot tests a row, half of them on empty slots, each a byte load of
 // valid and, for a valid slot, three scalar loads of x through L1/L2; and
 // a warp ran the in-range visitor whenever one of its 32 lanes had an

@@ -32,30 +32,28 @@
 // (the plain version's order); a template flag (kTypes) keeps the one-type
 // instantiations' coefficients in registers.
 //
-// K3 (pair_tdpd_v3_kernel) works on K1's cell tiles (cell_tiles.cuh with
-// the BucketRows source policy, kernels/cell_tiles.py::plan and its table)
-// with the tDPD visitor of pair_visitor.cuh over per-row arrays, the one
-// the brick kernel runs over its planes: a block stages its tile's valid
-// sources in shared memory and a thread a valid target walks only the
-// occupied slots, culls into a list and evaluates it; the species ride in
-// blocks of kSpeciesBlock registers (one for one species, as the tDPD path
-// runs it), grid.y walks the blocks, each staging its tile again, and
-// species block 0 writes f and the virial. kappa, eps and the target's C
-// are read at the flux. Without the minimum image dr = (xi - xj) - shift
-// (K1's rule); with it the raw-difference walk.
+// K2 (pair_edpd_v3_kernel) and K3 (pair_tdpd_v3_kernel) work on K1's cell
+// tiles (cell_tiles.cuh with the BucketRows source policy,
+// kernels/cell_tiles.py::plan and its table) with the model's visitor of
+// pair_visitor.cuh over per-row arrays, the one the brick kernel runs over
+// its planes: a block stages its tile's valid sources in shared memory and
+// a thread a valid target walks only the occupied slots, culls into a
+// list and evaluates it. K2 gathers v, the tag, h and T of each in-range
+// source and holds the target's T and 1/T across the walk. K3's species ride in blocks of kSpeciesBlock
+// registers (one for one species, as the tDPD path runs it), grid.y walks
+// the blocks, each staging its tile again, and species block 0 writes f
+// and the virial; kappa, eps and the target's C are read at the flux.
+// Without the minimum image dr = (xi - xj) - shift (K1's rule); with it
+// the raw-difference walk.
 //
-// K2 (pair_edpd_v3_kernel) still walks as PR 6's K1 did: one thread per
-// target row over the 27 (strict) or 45 (spill) slot-cells with
-// for_each_pair (dpd_common.cuh). What bounds it: at the 1M-particle
-// shape (ncell 50^3, K = 16, nr = 2,000,000, spill) a row sees 720
-// candidates, ~1.4e9 candidate tests per call; ~12.9M ordered pairs are
-// inside rc (N rho 4 pi / 3). The distinct bytes (x, v, T, tag, mask, h
-// in; f, dT/dt and the per-row virial out) are 114 MB, 34 us at 3.35
-// TB/s; the in-range arithmetic (74 fp32 operations a pair, three of them
-// divisions and two sqrt, and 33 integer ones for the hash streams) is
-// ~1.4e9 operations, ~21 us at 67 TFLOP/s. Neither bounds it: the
-// candidate loads and compares do. Its move onto the tiles is the eDPD
-// visitor of pair_visitor.cuh over RowFields in the same run_tile.
+// What bounds them: at the 1M-particle eDPD shape (ncell 50^3, K = 16,
+// nr = 2,000,000, spill) ~12.9M ordered pairs are inside rc; the distinct
+// bytes (x, v, T, tag, mask, h in; f, dT/dt and the per-row virial out)
+// are ~71 MB, ~21 us at 3.35 TB/s, and the in-range arithmetic (74 fp32
+// operations a pair, 33 integer ones for the hash streams) less. Neither
+// bounds them: the walk does, 371 slot tests a valid row from shared
+// memory (the former one-thread-a-row walk made 720 from device memory),
+// then the in-range visitor, as for K1 (PERF.md).
 
 #include "cell_tiles.cuh"
 #include "pair_visitor.cuh"
@@ -72,111 +70,18 @@ __global__ void uniform_stream_kernel(const uint32_t* __restrict__ h,
   if (i < n) out[i] = uniform_stream(h[i], salt);
 }
 
-// The walk's cutoff: rc^2 for one type; the table's largest rc^2 with a
-// 1e-4 margin for several (the visitor then tests the pair's own rc_ij).
-__device__ __forceinline__ float walk_rc2(const float* __restrict__ rc_tab,
-                                          int n_types) {
-  if (n_types == 1) return rc_tab[0] * rc_tab[0];
-  float rc2 = 0.0f;
-  for (int p = 0; p < n_types * n_types; ++p) {
-    rc2 = fmaxf(rc2, rc_tab[p] * rc_tab[p]);
-  }
-  return rc2 * 1.0001f;
-}
-
-// r^2 summed in x, y, z order without fused multiply-adds, as the plain
-// versions sum it.
-__device__ __forceinline__ float unfused_r2(float drx, float dry, float drz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(drx, drx), __fmul_rn(dry, dry)),
-                   __fmul_rn(drz, drz));
-}
-
+// K2 on K1's cell tiles and table (cell_tiles.cuh over bucket rows) with
+// the eDPD visitor of pair_visitor.cuh over per-row arrays: fld is T,
+// x3_tab kappa, extra dT/dt. Without the minimum image dr = (xi - xj) -
+// shift as in K1; with it the raw-difference walk.
 template <bool kMinImage, bool kTea, bool kTypes>
-__global__ void __launch_bounds__(kThreads)
-pair_edpd_v3_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                    const float* __restrict__ temp,
-                    const int32_t* __restrict__ tag,
-                    const int32_t* __restrict__ typ,
-                    const uint8_t* __restrict__ valid,
-                    const uint32_t* __restrict__ h,
-                    const float* __restrict__ a_tab,
-                    const float* __restrict__ gamma_tab,
-                    const float* __restrict__ kappa_tab,
-                    const float* __restrict__ rc_tab, int n_types,
-                    const float* __restrict__ box_lo,
-                    const float* __restrict__ box_hi,
-                    float* __restrict__ f, float* __restrict__ dtdt,
-                    float* __restrict__ vir, int nx, int ny, int nz, int k,
-                    int xr, float dt_inv_sqrt, float mass, float cv,
-                    uint32_t step, uint32_t seed, int rounds) {
-  const int nr = nx * ny * nz * k;
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= nr) return;
-
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f, q = 0.0f, vsum = 0.0f;
-  if (valid[row]) {
-    // one type: the coefficients stay in registers
-    const float a0 = a_tab[0], gamma0 = gamma_tab[0], kappa0 = kappa_tab[0];
-    const float inv_rc0 = 1.0f / rc_tab[0];
-    const int t_row = kTypes ? typ[row] * n_types : 0;
-    const float vxi = v[3 * row], vyi = v[3 * row + 1], vzi = v[3 * row + 2];
-    const float ti = temp[row];
-    const float inv_ti = 1.0f / fmaxf(ti, 1e-12f);
-    const int32_t tag_i = tag[row];
-    const uint32_t h_i = kTea ? 0u : h[row];
-    for_each_pair<kMinImage>(
-        x, valid, box_lo, box_hi, row, nx, ny, nz, k, xr,
-        walk_rc2(rc_tab, n_types),
-        [&](int j, float drx, float dry, float drz, float r2) {
-          float a = a0, gamma = gamma0, kappa = kappa0, inv_rc = inv_rc0;
-          if (kTypes) {
-            const int p = t_row + typ[j];
-            r2 = unfused_r2(drx, dry, drz);
-            if (!(r2 < rc_tab[p] * rc_tab[p])) return;
-            a = a_tab[p];
-            gamma = gamma_tab[p];
-            kappa = kappa_tab[p];
-            inv_rc = 1.0f / rc_tab[p];
-          }
-          const float rinv = rsqrtf(r2);
-          const float rr = r2 * rinv;
-          const float w = 1.0f - rr * inv_rc;
-          const float w2 = w * w;
-          const float ev = (drx * (vxi - v[3 * j]) +
-                            dry * (vyi - v[3 * j + 1]) +
-                            drz * (vzi - v[3 * j + 2])) * rinv;
-          const int32_t tag_j = tag[j];
-          const uint32_t hp = pair_hash<kTea>(tag_i, tag_j, h_i,
-                                              kTea ? 0u : h[j], step, seed,
-                                              rounds);
-          const float theta = uniform_stream(hp, 0u);
-          const float tj = temp[j];
-          const float tsum = ti + tj;
-          const float sigma2 = 4.0f * gamma * ti * tj / fmaxf(tsum, 1e-12f);
-          const float sigma = sqrtf(fmaxf(sigma2, 0.0f));
-          const float noise = sigma * w * theta * dt_inv_sqrt;
-          const float fmag = a * w - gamma * w2 * ev + noise;
-          const float k_ij = kappa * 0.25f * (tsum * tsum);
-          const float q_c = k_ij * w2 * (inv_ti - 1.0f / fmaxf(tj, 1e-12f));
-          const float q_v =
-              0.5f * (w2 * (gamma * ev * ev - sigma2 / mass) - noise * ev);
-          const float zeta =
-              (tag_i < tag_j ? 1.0f : -1.0f) * uniform_stream(hp, 1u);
-          const float q_r =
-              sqrtf(fmaxf(2.0f * k_ij, 0.0f)) * w * zeta * dt_inv_sqrt;
-          q += q_c + q_v + q_r;
-          const float fr = fmag * rinv;
-          fx += fr * drx;
-          fy += fr * dry;
-          fz += fr * drz;
-          vsum += 0.5f * fmag * rr;
-        });
-  }
-  f[3 * row] = fx;
-  f[3 * row + 1] = fy;
-  f[3 * row + 2] = fz;
-  dtdt[row] = q / cv;
-  vir[row] = vsum;
+__global__ void __launch_bounds__(tiles::kTileMaxThreads)
+pair_edpd_v3_kernel(const __grid_constant__ RowArgs p) {
+  const BucketRows src{p.valid, p.x, p.nx};
+  PairVisitor<kEdpd, kTea, kTypes, 1, RowFields, RowArgs> vis(p, p.fields());
+  tiles::run_tile<kMinImage ? tiles::kImageRaw : tiles::kShift>(
+      src, vis, p.table, p.k, p.xr, p.width, p.list_cap, p.box_lo,
+      p.box_hi);
 }
 
 // K3 on K1's cell tiles and table (cell_tiles.cuh over bucket rows) with
@@ -197,13 +102,27 @@ pair_tdpd_v3_kernel(const __grid_constant__ RowArgs p) {
       p.box_hi);
 }
 
-template <bool kMinImage, bool kTea, bool kTypes, typename... Args>
-void launch_edpd(dim3 grid, cudaStream_t stream, Args... args) {
-  pair_edpd_v3_kernel<kMinImage, kTea, kTypes>
-      <<<grid, kThreads, 0, stream>>>(args...);
+// K2's instance for the run-time flags.
+cudaError_t launch_edpd(const RowArgs& args, dim3 grid, int threads,
+                        int smem, cudaStream_t st, bool min_image, bool tea,
+                        bool types) {
+#define MESO_EDPD(mi, te, ty)                                               \
+  if (min_image == mi && tea == te && types == ty)                          \
+    return tiles::launch_tile(pair_edpd_v3_kernel<mi, te, ty>, args, grid,  \
+                              threads, smem, st);
+  MESO_EDPD(false, false, false)
+  MESO_EDPD(false, false, true)
+  MESO_EDPD(false, true, false)
+  MESO_EDPD(false, true, true)
+  MESO_EDPD(true, false, false)
+  MESO_EDPD(true, false, true)
+  MESO_EDPD(true, true, false)
+  MESO_EDPD(true, true, true)
+#undef MESO_EDPD
+  return cudaErrorInvalidValue;
 }
 
-// The instance for the run-time flags.
+// K3's instance for the run-time flags.
 template <int kSb>
 cudaError_t launch_tdpd(const RowArgs& args, dim3 grid, int threads,
                         int smem, cudaStream_t st, bool min_image, bool tea,
@@ -236,42 +155,57 @@ extern "C" int meso_uniform_stream(const void* h, void* out, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 on the cell tiles of kernels/cell_tiles.py::plan (K1's plan and
+// table, the same staged record); refused as meso_pair_dpd_v3 is.
 extern "C" int meso_pair_edpd_v3(
     const void* x, const void* v, const void* t, const void* tag,
     const void* typ, const void* valid, const void* h, const void* a_tab,
     const void* gamma_tab, const void* kappa_tab, const void* rc_tab,
-    int n_types, const void* box_lo, const void* box_hi, void* f,
-    void* dtdt, void* vir, int nx, int ny, int nz, int k, int xr,
-    int min_image, int tea, float dt_inv_sqrt, float mass, float cv,
-    uint32_t step, uint32_t seed, int rounds, void* stream) {
-  const int nr = nx * ny * nz * k;
-  if (nr <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((nr + kThreads - 1) / kThreads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MESO_EDPD_ARGS                                                       \
-  grid, st, static_cast<const float*>(x), static_cast<const float*>(v),      \
-      static_cast<const float*>(t), static_cast<const int32_t*>(tag),        \
-      static_cast<const int32_t*>(typ),                                      \
-      static_cast<const uint8_t*>(valid), static_cast<const uint32_t*>(h),   \
-      static_cast<const float*>(a_tab), static_cast<const float*>(gamma_tab), \
-      static_cast<const float*>(kappa_tab),                                  \
-      static_cast<const float*>(rc_tab), n_types,                            \
-      static_cast<const float*>(box_lo),                                     \
-      static_cast<const float*>(box_hi), static_cast<float*>(f),             \
-      static_cast<float*>(dtdt), static_cast<float*>(vir), nx, ny, nz, k,    \
-      xr, dt_inv_sqrt, mass, cv, step, seed, rounds
-  switch ((min_image ? 4 : 0) | (tea ? 2 : 0) | (n_types > 1 ? 1 : 0)) {
-    case 0: launch_edpd<false, false, false>(MESO_EDPD_ARGS); break;
-    case 1: launch_edpd<false, false, true>(MESO_EDPD_ARGS); break;
-    case 2: launch_edpd<false, true, false>(MESO_EDPD_ARGS); break;
-    case 3: launch_edpd<false, true, true>(MESO_EDPD_ARGS); break;
-    case 4: launch_edpd<true, false, false>(MESO_EDPD_ARGS); break;
-    case 5: launch_edpd<true, false, true>(MESO_EDPD_ARGS); break;
-    case 6: launch_edpd<true, true, false>(MESO_EDPD_ARGS); break;
-    default: launch_edpd<true, true, true>(MESO_EDPD_ARGS); break;
-  }
-#undef MESO_EDPD_ARGS
-  return static_cast<int>(cudaGetLastError());
+    int n_types, const void* box_lo, const void* box_hi, const void* table,
+    void* f, void* dtdt, void* vir, int nx, int k, int xr, int width,
+    int n_blocks, int threads, int list_cap, int smem_bytes, int min_image,
+    int tea, float dt_inv_sqrt, float mass, float cv, uint32_t step,
+    uint32_t seed, int rounds, void* stream) {
+  if (n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  if (tiles::tile_launch_refused<BucketRows>(width, xr, k, threads, list_cap,
+                                             smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowArgs args = {};
+  args.x = static_cast<const float*>(x);
+  args.v = static_cast<const float*>(v);
+  args.tag = static_cast<const int32_t*>(tag);
+  args.typ = static_cast<const int32_t*>(typ);
+  args.valid = static_cast<const uint8_t*>(valid);
+  args.h = static_cast<const uint32_t*>(h);
+  args.fld = static_cast<const float*>(t);
+  args.a_tab = static_cast<const float*>(a_tab);
+  args.gamma_tab = static_cast<const float*>(gamma_tab);
+  args.x3_tab = static_cast<const float*>(kappa_tab);
+  args.rc_tab = static_cast<const float*>(rc_tab);
+  args.n_types = n_types;
+  args.ns = 1;
+  args.box_lo = static_cast<const float*>(box_lo);
+  args.box_hi = static_cast<const float*>(box_hi);
+  args.table = static_cast<const int32_t*>(table);
+  args.f = static_cast<float*>(f);
+  args.extra = static_cast<float*>(dtdt);
+  args.vir = static_cast<float*>(vir);
+  args.nx = nx;
+  args.k = k;
+  args.xr = xr;
+  args.width = width;
+  args.list_cap = list_cap;
+  args.dt_inv_sqrt = dt_inv_sqrt;
+  args.s_exp = 1.0f;
+  args.mass = mass;
+  args.cv = cv;
+  args.step = step;
+  args.seed = seed;
+  args.rounds = rounds;
+  return static_cast<int>(launch_edpd(args, dim3(n_blocks), threads,
+                                      smem_bytes,
+                                      static_cast<cudaStream_t>(stream),
+                                      min_image, tea, n_types > 1));
 }
 
 // K3 on the cell tiles of kernels/cell_tiles.py::plan (K1's plan and

@@ -1,7 +1,7 @@
 // The per-pair visitor of the cell-tile kernels (cell_tiles.cuh) for the
 // three pair models over per-type-pair tables, shared by the brick kernel
-// (pair_brick.cu: K4-K7, K6-halo), K1's general variant (pair_dpd_v3.cu)
-// and K3 (pair_transport_v3.cu). What differs between them is where an
+// (pair_brick.cu: K4-K7, K6-halo), K1's general variant (pair_dpd_v3.cu),
+// K2 and K3 (pair_transport_v3.cu). What differs between them is where an
 // entry's fields lie, the Fields accessor: channel planes of the brick
 // (BrickFields, gather index = brick index) or per-row arrays (RowFields,
 // gather index = row).
@@ -131,7 +131,7 @@ struct RowFields {
 };
 
 // The argument struct of the tile kernels over bucket rows (K1's general
-// variant, K3): the rows, the coefficient tables, the outputs (f (nr, 3),
+// variant, K2, K3): the rows, the coefficient tables, the outputs (f (nr, 3),
 // extra: dT/dt (nr,) or dC/dt (nr, S), the per-row virial (nr,)) and the
 // plan's table, width and list capacity (kernels/cell_tiles.py::plan).
 struct RowArgs {

@@ -9,16 +9,23 @@
 //   T4  probe_null_stage tools/r5a_stage.py:74 null_pallas
 //
 // Each computes what its TPU kernel computes, not how Mosaic lowered it.
-// T2 runs on the tensor cores: mma.sync m16n8k8 in TF32. The products
-// take the 3xTF32 split (a = a_hi + a_lo, each a TF32 value; a.b ~ a_hi
-// b_hi + a_hi b_lo + a_lo b_hi), which keeps ~2^-21 of each product where
-// plain TF32 keeps ~3 digits. The pair tile cancels twice (r^2 = |xi|^2 +
-// |xj|^2 - 2 xi.xj; F = xi sum g - sum g xj), and its closest pairs
-// magnify r^2's error ~1/r^3, beyond what 2^-21 allows: it splits each
-// value into three TF32 pieces (the last exact) and sums the six products
-// above 2^-24 (6xTF32). The probes are launch-bound at their own shapes;
-// T2 is timed at 8,192 tiles and T4 at K1's 1M view (bound by bytes: it
-// measures the card's streaming rate).
+// T2's products run on the tensor cores: mma.sync m16n8k8 in TF32 with
+// the 3xTF32 split (a = a_hi + a_lo, each a TF32 value; a.b ~ a_hi b_hi +
+// a_hi b_lo + a_lo b_hi), which keeps ~2^-21 of each product where plain
+// TF32 keeps ~3 digits. T2's pair tile runs on the CUDA cores as an n-body
+// tile: as two tensor-core products (r^2 = |xi|^2 + |xj|^2 - 2 xi.xj, F =
+// xi sum g - sum g xj, each split into three TF32 pieces to survive the
+// cancellation) it used a sixteenth of the tensor cores' products (K = 3
+// of 8, N = 5 of 8) and spent the CUDA cores on the splits and on a shared
+// round trip of g, 7.4x its bound on an H100 (PERF.md). The probes are
+// launch-bound at their own shapes; T2 is timed at 8,192 tiles and T4 at
+// K1's 1M view (bound by bytes: it measures the card's streaming rate).
+//
+// T2c at 8,192 tiles, 134M pairs: per pair ~12 fp32-pipe instructions
+// (three differences, r^2, the cutoff test and select, rsqrt - 1, three
+// force FMAs) and one MUFU rsqrt, bound by the fp32 pipes (128 lanes a
+// clock an SM) before the MUFU (16 a clock an SM); each input byte is read
+// once and each output written once.
 //
 // T2's products (gemm_kernel) at 8,192 tiles are bound by bytes: T2a and
 // T2d by their 537 MB of output (128 x 128 a tile, from 8 KB of input),
@@ -125,47 +132,6 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const float a[4],
   mma_tf32(c, al, bh);
   mma_tf32(c, ah, bl);
   mma_tf32(c, ah, bh);
-}
-
-// The same step to float32 accuracy: each value is the sum of three TF32
-// pieces (p0 = tf32(a), p1 = tf32(a - p0), p2 = tf32(a - p0 - p1), the
-// last exact), and the six products whose size is above 2^-24 of the
-// product are summed, the smallest first. Each product runs from a zero
-// accumulator and is added to c on the CUDA cores, which round to
-// nearest: the tensor core's own accumulation truncates, and six of its
-// roundings per step would add up.
-__device__ __forceinline__ void split3_tf32(float f, uint32_t p[3]) {
-  p[0] = to_tf32(f);
-  const float r = f - __uint_as_float(p[0]);
-  p[1] = to_tf32(r);
-  p[2] = to_tf32(r - __uint_as_float(p[1]));
-}
-
-__device__ __forceinline__ void mma_6xtf32(float c[4], const float a[4],
-                                           const float b[2]) {
-  uint32_t ap[3][4], bp[3][2], q[3];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    split3_tf32(a[i], q);
-    ap[0][i] = q[0];
-    ap[1][i] = q[1];
-    ap[2][i] = q[2];
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    split3_tf32(b[i], q);
-    bp[0][i] = q[0];
-    bp[1][i] = q[1];
-    bp[2][i] = q[2];
-  }
-  const int order[6][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};
-#pragma unroll
-  for (int t = 0; t < 6; ++t) {
-    float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_tf32(z, ap[order[t][0]], bp[order[t][1]]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += z[e];
-  }
 }
 
 // 16-byte copy from device to shared memory that bypasses the registers
@@ -280,83 +246,71 @@ gemm_kernel(const float* __restrict__ a, const float* __restrict__ bm,
   }
 }
 
-// T2c, one tile of 128 i-rows x 128 j per block, 8 warps of 16 i-rows:
-// ai (128, 8) = [x, |x|^2, pad], bj (8, 128) = [x^T; |x|^2; ones; pad].
-// cross = ai[:, :3] . bj[:3, :] on the tensor cores (6xTF32), then in registers
-// r2 = (ai3 + bj3) - 2 cross, ok = 1e-12 < r2 < 1, w = 1 - r2 rsqrt(r2),
-// g = 25 w rsqrt(r2) (0 where not ok), staged 32 columns at a time through
-// the warp's shared buffer as the A operand of red = g . bj[:5, :]^T; out =
-// ai[:, :3] red[:, 4] - red[:, :3].
-constexpr int kTileRows = 128, kTileCols = 128, kChunk = 32;
-__global__ void tile_kernel(const float* __restrict__ ai,
-                            const float* __restrict__ bj,
-                            float* __restrict__ out) {
-  __shared__ float bs[8 * kTileCols];
-  __shared__ float gs[8][16][kChunk + 1];
-  __shared__ float rs[8][16][8];
-  const float* aib = ai + static_cast<size_t>(blockIdx.x) * kTileRows * 8;
-  const float* bjb = bj + static_cast<size_t>(blockIdx.x) * 8 * kTileCols;
-  for (int i = threadIdx.x; i < 8 * kTileCols; i += blockDim.x)
-    bs[i] = bjb[i];
-  __syncthreads();
+// T2c, an n-body tile on the CUDA cores: one warp a tile of 128 i-rows x
+// 128 j, kTileWarps tiles a block. ai (128, 8) = [x, |x|^2, pad], bj (8,
+// 128) = [x^T; |x|^2; ones; pad]: the tile reads x alone. The warp stages
+// its tile's x_j in shared memory as float4 (read back as broadcasts: every
+// lane takes the same j at once); lane l holds the rows l + 32 r (r <
+// kTileLaneRows), their x and force sums in registers. Per pair, dr = x_i
+// - x_j, r^2 = dr.dr as the float32 sum of squared differences (fused, z
+// last), ok = 1e-12 < r^2 < 1, g / 25 = rsqrt(r^2) - 1 = (1 - r) / r where
+// ok, else 0 (MUFU rsqrt), and F_i += (g / 25) dr, j in order; out = 25 F_i
+// = x_i sum_j g - sum_j g x_j. No cancellation: r^2 and F are sums of
+// differences, not of products.
+constexpr int kTileRows = 128, kTileCols = 128, kTileWarps = 4;
+constexpr int kTileLaneRows = kTileRows / 32;
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__global__ void __launch_bounds__(32 * kTileWarps)
+tile_kernel(const float* __restrict__ ai, const float* __restrict__ bj,
+            float* __restrict__ out, int batch) {
+  __shared__ float4 xs[kTileWarps][kTileCols];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = warp * 16;
-  // A operand of the first product, fixed for the warp: x of rows g, g+8
-  float a1[4];
-  a1[0] = t < 3 ? aib[(m0 + g) * 8 + t] : 0.0f;
-  a1[1] = t < 3 ? aib[(m0 + g + 8) * 8 + t] : 0.0f;
-  a1[2] = 0.0f;  // columns t + 4 >= 3
-  a1[3] = 0.0f;
-  const float sq_lo = aib[(m0 + g) * 8 + 3], sq_hi = aib[(m0 + g + 8) * 8 + 3];
-  float red[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int c0 = 0; c0 < kTileCols; c0 += kChunk) {
+  const int tile = blockIdx.x * kTileWarps + warp;
+  if (tile >= batch) return;  // the warp's own tile: no block barrier
+  const float* aib = ai + static_cast<size_t>(tile) * kTileRows * 8;
+  const float* bjb = bj + static_cast<size_t>(tile) * 8 * kTileCols;
+  float4* xw = xs[warp];
+  for (int c = lane; c < kTileCols; c += 32)
+    xw[c] = make_float4(bjb[c], bjb[kTileCols + c], bjb[2 * kTileCols + c],
+                        0.0f);
+  float xi[kTileLaneRows], yi[kTileLaneRows], zi[kTileLaneRows];
+  float fx[kTileLaneRows], fy[kTileLaneRows], fz[kTileLaneRows];
 #pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-      const int n0 = c0 + nt * 8;
-      float cross[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float bv[2];
-      bv[0] = t < 3 ? bs[t * kTileCols + n0 + g] : 0.0f;
-      bv[1] = 0.0f;
-      mma_6xtf32(cross, a1, bv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = g + (e >> 1) * 8;
-        const int col = n0 + 2 * t + (e & 1);
-        const float r2 = ((e >> 1) ? sq_hi : sq_lo) + bs[3 * kTileCols + col] -
-                         2.0f * cross[e];
-        const bool ok = (r2 < 1.0f) && (r2 > 1e-12f);
-        const float r2s = ok ? r2 : 1.0f;
-        const float rinv = rsqrtf(r2s);
-        const float w = 1.0f - r2s * rinv;
-        gs[warp][row][col - c0] = ok ? 25.0f * w * rinv : 0.0f;
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int k0 = 0; k0 < kChunk; k0 += 8) {
-      float av[4], bv[2];
-      av[0] = gs[warp][g][k0 + t];
-      av[1] = gs[warp][g + 8][k0 + t];
-      av[2] = gs[warp][g][k0 + t + 4];
-      av[3] = gs[warp][g + 8][k0 + t + 4];
-      // B(k, n) = bj[n, c0 + k0 + k] for n < 5, else 0
-      bv[0] = g < 5 ? bs[g * kTileCols + c0 + k0 + t] : 0.0f;
-      bv[1] = g < 5 ? bs[g * kTileCols + c0 + k0 + t + 4] : 0.0f;
-      mma_6xtf32(red, av, bv);
-    }
-    __syncwarp();
+  for (int r = 0; r < kTileLaneRows; ++r) {
+    const float* a = aib + (lane + 32 * r) * 8;
+    xi[r] = a[0];
+    yi[r] = a[1];
+    zi[r] = a[2];
+    fx[r] = fy[r] = fz[r] = 0.0f;
   }
-  rs[warp][g][2 * t] = red[0];
-  rs[warp][g][2 * t + 1] = red[1];
-  rs[warp][g + 8][2 * t] = red[2];
-  rs[warp][g + 8][2 * t + 1] = red[3];
   __syncwarp();
-  float* ob = out + static_cast<size_t>(blockIdx.x) * kTileRows * 3;
-  for (int e = lane; e < 16 * 3; e += 32) {
-    const int row = e / 3, d = e % 3;
-    ob[(m0 + row) * 3 + d] =
-        aib[(m0 + row) * 8 + d] * rs[warp][row][4] - rs[warp][row][d];
+#pragma unroll 4
+  for (int c = 0; c < kTileCols; ++c) {
+    const float4 q = xw[c];
+#pragma unroll
+    for (int r = 0; r < kTileLaneRows; ++r) {
+      const float dx = xi[r] - q.x, dy = yi[r] - q.y, dz = zi[r] - q.z;
+      const float r2 = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+      const float g =
+          r2 < 1.0f && r2 > 1e-12f ? rsqrt_approx(r2) - 1.0f : 0.0f;
+      fx[r] = __fmaf_rn(g, dx, fx[r]);
+      fy[r] = __fmaf_rn(g, dy, fy[r]);
+      fz[r] = __fmaf_rn(g, dz, fz[r]);
+    }
+  }
+  float* ob = out + static_cast<size_t>(tile) * kTileRows * 3;
+#pragma unroll
+  for (int r = 0; r < kTileLaneRows; ++r) {
+    float* o = ob + (lane + 32 * r) * 3;
+    o[0] = 25.0f * fx[r];
+    o[1] = 25.0f * fy[r];
+    o[2] = 25.0f * fz[r];
   }
 }
 
@@ -487,9 +441,10 @@ extern "C" int meso_probe_gemm(const void* a, const void* b, void* c,
 extern "C" int meso_probe_tile(const void* ai, const void* bj, void* out,
                                int batch, void* stream) {
   if (batch > 0)
-    tile_kernel<<<batch, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+    tile_kernel<<<(batch + kTileWarps - 1) / kTileWarps, 32 * kTileWarps, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ai), static_cast<const float*>(bj),
-        static_cast<float*>(out));
+        static_cast<float*>(out), batch);
   return static_cast<int>(cudaGetLastError());
 }
 

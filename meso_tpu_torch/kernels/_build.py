@@ -49,9 +49,10 @@ SIGNATURES = {
     # h, out, n, salt, stream
     "meso_uniform_stream": (_P, _P, _I, _U, _P),
     # x, v, t, tag, typ, valid, h, a, gamma, kappa, rc, n_types, box_lo,
-    # box_hi, f, dtdt, vir, nx, ny, nz, k, xr, min_image, tea, dt_inv_sqrt,
-    # mass, cv, step, seed, rounds, stream
-    "meso_pair_edpd_v3": (_P,) * 11 + (_I,) + (_P,) * 5 + (_I,) * 7
+    # box_hi, table, f, dtdt, vir, nx, k, xr, width, n_blocks, threads,
+    # list_cap, smem_bytes, min_image, tea, dt_inv_sqrt, mass, cv, step,
+    # seed, rounds, stream
+    "meso_pair_edpd_v3": (_P,) * 11 + (_I,) + (_P,) * 6 + (_I,) * 10
     + (_F,) * 3 + (_U, _U, _I, _P),
     # x, v, c, tag, typ, valid, h, a, gamma, sigma, rc, n_types, kappa_c,
     # eps_c, box_lo, box_hi, table, f, dcdt, vir, nx, k, xr, ns, width,

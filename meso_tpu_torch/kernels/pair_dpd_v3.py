@@ -11,11 +11,11 @@ raises. On a CPU tensor, and only there, it runs its plain torch version
 ``bucket_forces_v3_tdpd_plain``), which computes the same function. There
 is no fallback from one to the other.
 
-K1, its general variant and K3 run on the cell tiles of
+K1, its general variant, K2 and K3 run on the cell tiles of
 ``csrc/cell_tiles.cuh`` with K1's plan and table
-(``kernels/cell_tiles.py::plan``, ``table_on``), the general variant and
-K3 with the visitor of ``csrc/pair_visitor.cuh``; K2 still walks every slot
-of its stencil, a thread a row.
+(``kernels/cell_tiles.py::plan``, ``table_on``), all but K1 with the
+visitor of ``csrc/pair_visitor.cuh``. A capacity the tiles cannot take
+(above 237 spill, 396 strict) raises ``ValueError`` from the plan.
 
 Covered: the fast and TEA RNG tiers, spill and strict layouts, the
 min-image and no-min-image (``cfg.wrap_at_rebuild``) modes, and
@@ -229,8 +229,9 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
                                  rng_rounds: int = 8, interpret=None,
                                  z_chunks: int = 0, lane_pad: int = 0,
                                  w_pad: int = 0):
-    """eDPD forces and heat on bucket rows (K2). Returns (f (nr, 3),
-    dTdt (nr,), virial). ``typ`` is read with more than one type."""
+    """eDPD forces and heat on bucket rows (K2, on K1's cell tiles).
+    Returns (f (nr, 3), dTdt (nr,), virial). ``typ`` is read with more
+    than one type."""
     xr = half_window(cfg, rng_mode)
     if x.device.type == "cpu":
         return bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box, step,
@@ -244,21 +245,23 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
                  **tables(params, ("a", "gamma", "kappa", "rc"))})
     step_u = step & 0xFFFFFFFF
     h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
+    table = cell_tiles.table_on(plan, x.device)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     dtdt = torch.empty((nr,), dtype=torch.float32, device=x.device)
     vir_rows = torch.empty((nr,), dtype=torch.float32, device=x.device)
-    nx, ny, nz = cfg.ncell
     code = lib.meso_pair_edpd_v3(
         x.data_ptr(), v.data_ptr(), t.data_ptr(), tag.data_ptr(),
         _typ_ptr(params, typ), mask.data_ptr(), h.data_ptr(),
         params.a.data_ptr(), params.gamma.data_ptr(),
         params.kappa.data_ptr(), params.rc.data_ptr(), params.n_types,
-        box.lo.data_ptr(), box.hi.data_ptr(),
+        box.lo.data_ptr(), box.hi.data_ptr(), table.data_ptr(),
         f.data_ptr(), dtdt.data_ptr(), vir_rows.data_ptr(),
-        nx, ny, nz, cfg.capacity, xr, int(not cfg.wrap_at_rebuild),
-        int(rng_mode == "tea"), 1.0 / math.sqrt(dt), params.mass, params.cv,
-        step_u, params.seed, rng_rounds,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cfg.ncell[0], cfg.capacity, plan.xr, plan.width, plan.n_blocks,
+        plan.threads, plan.list_cap, plan.smem_bytes,
+        int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
+        1.0 / math.sqrt(dt), params.mass, params.cv, step_u, params.seed,
+        rng_rounds, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "pair_edpd_v3")
     LAUNCHES["pair_edpd_v3"] += 1
     return f, dtdt, torch.sum(vir_rows)

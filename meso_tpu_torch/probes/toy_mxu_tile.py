@@ -1,19 +1,18 @@
-"""T2: matrix-unit tile products and a DPD pair tile built on them (port of
-``tools/toy_mxu_tile.py``: ``k_dot_a``, ``k_dot_b``, ``k_tile``, ``k_dot_c``).
+"""T2: matrix-unit tile products and a DPD pair tile (port of
+``tools/toy_mxu_tile.py``: ``k_dot_a``, ``k_dot_b``, ``k_tile``,
+``k_dot_c``).
 
-The TPU probe asked whether Mosaic lowers these shapes onto the MXU. The
-Hopper question is whether a DPD pair tile done as tensor-core products
-pays: the four products run on ``mma.sync.aligned.m16n8k8`` in TF32.
-Plain TF32 keeps about three digits, and ``tile``'s r^2 = |xi|^2 + |xj|^2 -
-2 xi.xj cancels near the cutoff (x in [0, 3), r^2 < 1), which would flip
-cutoff tests. The three products take the 3xTF32 split (hi.hi + hi.lo +
-lo.hi). ``tile`` cancels twice (r^2, and F_i = x_i sum g - sum g x_j)
-and its closest pairs magnify the error of r^2, so its products split
-each value into three TF32 pieces and sum six products (6xTF32). ``tile``
-computes rsqrt, the mask and the weights in registers between its two
-products (``csrc/probes.cu``).
+The TPU probe asked whether Mosaic lowers these shapes onto the MXU. On
+Hopper the three products run on ``mma.sync.aligned.m16n8k8`` in TF32 with
+the 3xTF32 split (hi.hi + hi.lo + lo.hi): plain TF32 keeps about three
+digits. ``tile``, the DPD pair tile, runs on the CUDA cores as an n-body
+tile (``csrc/probes.cu``): r^2 as the float32 sum of squared differences,
+g / 25 = rsqrt(r^2) - 1 = (1 - r) / r, and F_i = sum_j g (x_i - x_j) summed
+in registers, j in order. The tile done as two tensor-core products
+cancelled twice (r^2 = |xi|^2 + |xj|^2 - 2 xi.xj; F = x_i sum g - sum g x_j)
+and needed 6xTF32 to survive it (PERF.md has both designs' times).
 
-Every function takes a leading batch of independent tiles (one block per
+Every function takes a leading batch of independent tiles (one warp a
 tile for ``tile``); the probe is batch 1, and chip_smoke.py times 8,192
 tiles. Tolerance, the JAX tool's own: max |out - ref| / max |ref| < 1e-5
 against the plain version, for the three products. ``tile`` cannot be held
@@ -24,9 +23,8 @@ by more than 1e-5 of its largest value, and two float32 evaluations that
 round r^2 differently differ by that much. So ``tile`` is held against the
 plain version in float64: its error there must be at most 1e-5 or four
 times the float32 plain version's own error against float64, whichever is
-larger (``tile_check``): the tensor cores round each product's sum toward
-zero, which costs the split products a few times float32's error
-(PERF.md).
+larger (``tile_check``). The tile reads only x: r^2 by differences has no
+cancellation and is closer to float64 than the plain version's expansion.
 
     python -m meso_tpu_torch.probes.toy_mxu_tile
 """
@@ -117,6 +115,8 @@ def tile_plain(ai: torch.Tensor, bj: torch.Tensor) -> torch.Tensor:
 
 
 def tile(ai: torch.Tensor, bj: torch.Tensor) -> torch.Tensor:
+    """The pair tile through the n-body kernel (``tile_plain``'s function);
+    ai (..., 128, 8), bj (..., 8, 128) -> (..., 128, 3)."""
     if probes.on_cpu(ai, bj):
         return tile_plain(ai, bj)
     (ai, bj), one = _batched(ai, bj)

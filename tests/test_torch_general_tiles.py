@@ -1,5 +1,6 @@
 """The bucket-row walk of the cell-tile kernels that K1's general variant
-(``pair_dpd_v3_general_kernel``) and K3 (``pair_tdpd_v3_kernel``) run on
+(``pair_dpd_v3_general_kernel``), K2 (``pair_edpd_v3_kernel``, its own
+file: ``test_torch_edpd_tiles.py``) and K3 (``pair_tdpd_v3_kernel``) run on
 K1's tiles (``csrc/cell_tiles.cuh`` with the visitor of
 ``csrc/pair_visitor.cuh``), held here on the CPU. The kernels run only on
 the card (chip_smoke.py holds them against their plain versions there);
@@ -317,10 +318,10 @@ def test_tdpd_pairs_inside_rcc(min_image, ns):
 
 @pytest.mark.parametrize("k,xr", [(16, 2), (17, 2), (18, 2), (28, 1)])
 def test_paths_share_k1s_plan(k, xr):
-    """K1's general variant and K3 stage K1's record (x, y, z, the x shift
-    and the row): K1's plan and table unchanged, two blocks an SM at the
-    walls' (16), polymers' (17) and tDPD path's (18) spill capacities and
-    at 28 strict."""
+    """K1's general variant, K2 and K3 stage K1's record (x, y, z, the x
+    shift and the row): K1's plan and table unchanged, two blocks an SM at
+    the walls' and the eDPD path's (16), polymers' (17) and tDPD path's
+    (18) spill capacities and at 28 strict."""
     p = cell_tiles.plan(k, xr, (50, 50, 50))
     assert p.blocks_per_sm() >= 2
     assert p.smem_bytes == cell_tiles.smem_bytes(p.ncols, k, p.threads,
