@@ -2,7 +2,7 @@
 """Smoke run of meso_tpu_torch on one NVIDIA card (built for the H100).
 
     python3 chip_smoke.py [--kernels-only | --dd-only | --sweep-only |
-                           --decay-from FILE | --ab PARENT_DIR]
+                           --cli-only | --decay-from FILE | --ab PARENT_DIR]
 
 Phases, one line of output each (any failure raises and exits non-zero):
 
@@ -150,25 +150,45 @@ Phases, one line of output each (any failure raises and exits non-zero):
    states, with transport-full's gates; ``run_adaptive`` on the neighbour
    lists from the classic end state;
 25. dd-bucket: the classic sweep under the 1-D decomposition on two gloo
-   ranks sharing the card, with dd-paths' harness and gates.
+   ranks sharing the card, with dd-paths' harness and gates;
+26. cli: ``meso_tpu_torch.__main__.main`` in this process (the launch
+   counts set to 0 after each deck's build, just before its loop, and
+   read just after), every run's output under build/cli/: the 8 golden
+   decks as shipped at their own run.steps, then copies on the kernels
+   (force_path "pallas") with every force evaluation through K1, K1
+   general, K2 or K3 and ``--validate`` within 1e-4 on JAX's six
+   validate decks; the classic pallas copy once more through ``python -m
+   meso_tpu_torch`` in a subprocess; the main path at L=70 through a deck
+   (900 steps, a row every 150, kT within 1% of 1 from step 600, K1's
+   launches equal to the steps, a dump, a binary frame and a restart;
+   ms/step from the footer beside phase 6's); that restart resumed
+   bitwise by tag (30 steps straight against 15, save, load, 15);
+   ``--dd 2`` on the membrane deck (bonded_missing 0, N and tags kept);
+   ``--autotune`` on a relaxed L=20 start read with ``create =
+   "read_data"`` (its choice inside its skin); ``--profile``; rdf (20,000
+   particles), msd and pressure_profile at the 1M end state against a
+   CPU copy (computed meanwhile in a process pinned to all but two
+   cores), within 1e-5.
 
-Phases 9, 10, 14, 15 and 22 run after phase 5, phases 11-13 and 16-17
-after phase 8, phases 20-21 after 17, phases 23-25 after 21.
+Phases 9, 10, 14, 15 and 22 run after phase 5, phases 26 and 11-13 and
+16-17 after phase 8, phases 20-21 after 17, phases 23-25 after 21.
 ``--kernels-only`` stops after phase 19; ``--dd-only`` runs phases 1, 2
 and 19-21; ``--sweep-only`` runs phases 1-3, 22, 6, 8 (for the end
-states) and 23-25. ``--decay-from FILE`` runs only
-the tDPD decay from the JAX package's starts in FILE, against the JAX
-rates stored beside them (see phase_decay_from). ``--ab PARENT_DIR`` runs
-only phases 1-2 and phase_ab: this tree and the one at PARENT_DIR (an
-unpacked checkout of another commit inside the repository, e.g. ``git
-archive HEAD~1`` under build/) alternating, a process a run, each timing
-the main path in blocks, the eDPD path, K1 and the brick kernel alone and
-K1's general variant, K2 and K3 through their wrappers, and saving the
-outputs of all but K2, which must agree bitwise.
+states) and 23-25; ``--cli-only`` runs phases 1, 2 and 26.
+``--decay-from FILE`` runs only the tDPD decay from the JAX package's
+starts in FILE, against the JAX rates stored beside them (see
+phase_decay_from). ``--ab PARENT_DIR`` runs only phases 1-2 and
+phase_ab: this tree and the one at PARENT_DIR (an unpacked checkout of
+another commit inside the repository, e.g. ``git archive HEAD~1`` under
+build/) alternating, a process a run, each timing the main path in
+blocks, the eDPD path, K1 and the brick kernel alone and K1's general
+variant, K2 and K3 through their wrappers, and saving the outputs of all
+but K2, which must agree bitwise.
 
 Launch counts are set to 0 just before each path (6, each model of 8, each
 path of 13 and 16, phase 17, each rank of each path of 21, the probes'
-runs of 22, and each path of 23-25) is driven and read just after. The
+runs of 22, each path of 23-25 and each deck's loop of 26) is driven and
+read just after. The
 last three lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Every number is also written to
@@ -176,6 +196,7 @@ build/chip_smoke.json.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3605,7 +3626,9 @@ def phase_probes(k1):
     its plain version (T1, T3, T4 bitwise; T2's products within 1e-5 of
     max |ref|; T2's tile within max(1e-5, 4x the float32 plain version's
     error) of its float64 plain version). Then the times: T1 and T3 at the
-    probes' shapes (T3 also alone, its kernel's device time); T2 at PROBE_BATCH tiles against its plain version and
+    probes' shapes, through their wrappers and alone (the kernel's device
+    time, torch.profiler); T2 at PROBE_BATCH tiles against its plain
+    version and
     torch.bmm (TF32 off), with the tile's ns per candidate pair beside K1's
     per candidate test (``k1``: K1's time and candidate count at the
     main-path shape); T4 at K1's 1M view for every zc of T4_ZCS, its
@@ -3642,12 +3665,15 @@ def phase_probes(k1):
             ("probe_cond", toy_dynroll.cond, toy_dynroll.cond_plain,
              (x1, jm), x1.numel() * (14 * int((jm > 4).sum()) + 1))):
         out = fn(*args)
+        kernel = {"probe_dynroll": "dynroll_kernel",
+                  "probe_cond": "cond_kernel"}[name]
         rows.append(probe_record(
             name, launches,
             runs["toy_dynroll"][name.split("_")[1]]["max_abs_err"],
             timed_ms(lambda: fn(*args), 200), timed_ms(lambda: plain(*args),
                                                        50),
-            bound(args, [out], ops)))
+            bound(args, [out], ops),
+            kernel_ms=profiled_kernel_ms(lambda: fn(*args), kernel, 50)))
 
     # T2 at PROBE_BATCH tiles
     batch = toy_mxu_tile.inputs(PROBE_BATCH, seed=1, device=DEVICE)
@@ -4107,6 +4133,623 @@ def phase_dd_bucket():
     return res
 
 
+# ---------------------------------------------------------------------------
+# cli: the golden decks, the 1M main path, a resume, --dd, --autotune,
+# --profile and the observables through python -m meso_tpu_torch
+# ---------------------------------------------------------------------------
+
+CLI_DIR = ROOT / "build" / "cli"
+GOLDEN_DECKS = ("classic_fluid", "couette", "edpd_slab",
+                "membrane_suspension", "poiseuille", "polymer_melt",
+                "polymer_special", "tdpd_diffusion")
+# JAX's validate decks (tests/unit/test_golden_decks.py:50-53)
+VALIDATE_DECKS = ("classic_fluid", "poiseuille", "edpd_slab",
+                  "tdpd_diffusion", "polymer_special", "membrane_suspension")
+VALIDATE_TOL = 1e-4
+# the kernels that take a force evaluation of a pallas deck
+CLI_PAIR_KERNELS = ("pair_dpd_v3", "pair_dpd_v3_general", "pair_edpd_v3",
+                    "pair_tdpd_v3")
+# the main path through a deck: config 1 at L=70, 900 steps, a thermo row
+# every 150; from step 600 on every row's kT within 1% of 1 (the random
+# start runs hot for its first ~400 steps)
+CLI_L, CLI_STEPS, CLI_THERMO = 70.0, 900, 150
+CLI_KT_FROM, CLI_KT_TOL = 600, 0.01
+CLI_RESUME_STEPS = 30
+# --dd 2 on the membrane deck: two of its thermo intervals
+CLI_DD_STEPS = 200
+CLI_AUTOTUNE_L = 20.0
+AUTOTUNE_RELAX_STEPS = 600
+RDF_SUBSET, RDF_R_MAX, RDF_BINS = 20_000, 3.0, 60
+OBS_REL_TOL = 1e-5
+
+MAIN_DECK = """# config 1 at L={l} through the deck loader (chip_smoke.py)
+[box]
+lengths = [{l}, {l}, {l}]
+[atoms]
+density = 3.0
+kt = 1.0
+create = "random"
+init_seed = 0
+[pair.dpd]
+a = 25.0
+gamma = 4.5
+rc = 1.0
+kt = 1.0
+seed = 928459
+[integrate]
+dt = 0.01
+lambda_ = 0.65
+[neighbor]
+skin = 0.4
+rebuild_every = 3
+[rng]
+mode = "fast"
+[engine]
+force_path = "pallas"
+spill = true
+rebuild = "sort"
+wrap_mode = "rebuild"
+[run]
+steps = {steps}
+thermo_every = {thermo}
+dump_every = {steps}
+dump_path = "{out}/main.lammpstrj"
+restart_every = {steps}
+restart_path = "{out}/main_restart.npz"
+"""
+
+AUTOTUNE_DECK = """# config 1 at L={l} for --autotune (chip_smoke.py)
+[box]
+lengths = [{l}, {l}, {l}]
+[atoms]
+density = 3.0
+kt = 1.0
+{start}
+[pair.dpd]
+a = 25.0
+gamma = 4.5
+rc = 1.0
+kt = 1.0
+seed = 928459
+[integrate]
+dt = 0.01
+lambda_ = 0.65
+[neighbor]
+skin = 0.4
+rebuild_every = 3
+[rng]
+mode = "fast"
+[engine]
+force_path = "pallas"
+rebuild = "sort"
+[run]
+{run}
+"""
+
+
+class CliRun:
+    """``meso_tpu_torch.__main__.main(argv)`` in this process, its standard
+    output kept (and written to build/cli/<label>.out), with the loop's
+    arguments and end state captured and the launch counts set to 0 just
+    before the loop (after the deck's build and set-up) and read just
+    after it."""
+
+    def __init__(self, label, argv):
+        import contextlib
+        import io
+
+        import meso_tpu_torch.__main__ as cli
+        self.label = label
+        self.loop = None
+        real = cli.run_loop
+
+        def spy(system, params, state, plan, logger, timer, runner=None):
+            reset_launches()
+            code, end = real(system, params, state, plan, logger, timer,
+                             runner)
+            self.loop = {"system": system, "params": params, "state": end,
+                         "launches": read_launches()}
+            return code, end
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        cli.run_loop = spy
+        try:
+            with contextlib.redirect_stdout(buf):
+                self.code = cli.main([*map(str, argv), "--device", DEVICE])
+        finally:
+            cli.run_loop = real
+        self.seconds = time.perf_counter() - t0
+        self.out = buf.getvalue()
+        (CLI_DIR / f"{label}.out").write_text(self.out)
+        if self.code != 0:
+            raise AssertionError(f"cli {label}: exit {self.code}:\n"
+                                 f"{self.out[-2000:]}")
+
+    def footer(self, phase):
+        """Seconds of one phase of the timing footer."""
+        for ln in self.out.splitlines():
+            parts = ln.split()
+            if len(parts) == 4 and parts[0] == phase:
+                return float(parts[1])
+        raise AssertionError(f"cli {self.label}: no {phase} in the footer")
+
+
+def jsonl(path):
+    return [json.loads(ln) for ln in Path(path).read_text().splitlines()]
+
+
+def thermo_rows_ok(rows, steps, every, label):
+    """A row at step 0 and every ``every`` steps to ``steps``, each finite."""
+    import math
+    want = list(range(0, steps + 1, every))
+    if want[-1] != steps:
+        want.append(steps)
+    got = [r["step"] for r in rows]
+    bad = [r for r in rows
+           if not all(math.isfinite(r[k]) for k in ("temp", "px"))]
+    if got != want or bad:
+        raise AssertionError(f"cli {label}: thermo steps {got} (want "
+                             f"{want}), non-finite rows {bad}")
+
+
+def state_finite(state):
+    import torch
+    fields = [state.x, state.v, state.f] + [
+        t for t in (state.T, state.C) if t is not None]
+    return all(bool(torch.isfinite(t).all()) for t in fields)
+
+
+def deck_steps(name):
+    import tomllib
+    with open(ROOT / "tests" / "golden_decks" / f"{name}.toml", "rb") as fh:
+        run = tomllib.load(fh)["run"]
+    return run["steps"], run["thermo_every"]
+
+
+def pallas_copy(name):
+    """The golden deck on the kernels, written into build/cli/: builder
+    decks get force_path "pallas" in [model.args], the explicit deck in
+    [engine]."""
+    text = (ROOT / "tests" / "golden_decks" / f"{name}.toml").read_text()
+    if "[model.args]" in text:
+        lines = [ln for ln in text.splitlines()
+                 if not ln.strip().startswith("force_path")]
+        text = "\n".join(lines).replace(
+            "[model.args]", '[model.args]\nforce_path = "pallas"') + "\n"
+    else:
+        text = text.replace("[run]", '[engine]\nforce_path = "pallas"\n\n'
+                            "[run]")
+    path = CLI_DIR / f"{name}_pallas.toml"
+    path.write_text(text)
+    return path
+
+
+def validate_report(out):
+    line = [ln for ln in out.splitlines() if ln.startswith("validate:")][0]
+    rep = {}
+    for kv in line.split()[1:]:
+        k, v = kv.split("=")
+        rep[k] = v == "True" if v in ("True", "False") else float(v)
+    return rep
+
+
+def cli_golden(name, pallas):
+    """One golden deck through the CLI: exit 0 (no overflow), a finite
+    thermo row every thermo_every steps, a finite end state; on the
+    kernels, every force evaluation of the loop through K1, K1 general, K2
+    or K3 by the launch counters, and --validate on JAX's validate decks
+    within VALIDATE_TOL of the dense oracle."""
+    steps, every = deck_steps(name)
+    label = f"{name}{'_pallas' if pallas else ''}"
+    deck = pallas_copy(name) if pallas else \
+        ROOT / "tests" / "golden_decks" / f"{name}.toml"
+    log = CLI_DIR / f"{label}.jsonl"
+    log.unlink(missing_ok=True)
+    argv = [deck, "--log", log]
+    validate = pallas and name in VALIDATE_DECKS
+    if validate:
+        argv.append("--validate")
+    run = CliRun(label, argv)
+    thermo_rows_ok(jsonl(log), steps, every, label)
+    if not state_finite(run.loop["state"]):
+        raise AssertionError(f"cli {label}: end state not finite")
+    res = {"seconds": run.seconds, "steps": steps,
+           "run_s": run.footer("run"),
+           "force_path": run.loop["system"].force_path,
+           "launches": {k: v for k, v in run.loop["launches"].items() if v}}
+    if pallas:
+        pairs = pair_launches(run.loop["launches"])
+        ours = sum(pairs.get(k, 0) for k in CLI_PAIR_KERNELS)
+        others = {k: n for k, n in pairs.items()
+                  if n and k not in CLI_PAIR_KERNELS}
+        if ours != steps or others:
+            raise AssertionError(f"cli {label}: {ours} launches of "
+                                 f"{CLI_PAIR_KERNELS} for {steps} steps, "
+                                 f"others {others}")
+    if validate:
+        rep = validate_report(run.out)
+        res["validate"] = rep
+        bad = [k for k in ("max_rel", "dTdt_max_rel", "dCdt_max_rel",
+                           "bonded_momentum_rel")
+               if k in rep and not rep[k] < VALIDATE_TOL]
+        if rep.get("bonded_missing", 0) or not rep.get("bonded_finite",
+                                                       True):
+            bad.append("bonded")
+        if bad:
+            raise AssertionError(f"cli {label}: validate {bad}: {rep}")
+    return res
+
+
+def cli_main_path(main_ms):
+    """The 1M main path through a deck of config 1: K1's launches equal
+    the steps, every row's kT from CLI_KT_FROM on within CLI_KT_TOL of 1,
+    a dump, a binary frame and a restart of the end state, ms/step from
+    the footer's run phase beside phase 6's."""
+    from meso_tpu_torch.io.dump import read_frames_bin, write_frame_bin
+    deck = CLI_DIR / "main.toml"
+    deck.write_text(MAIN_DECK.format(l=CLI_L, steps=CLI_STEPS,
+                                     thermo=CLI_THERMO, out=CLI_DIR))
+    log = CLI_DIR / "main.jsonl"
+    log.unlink(missing_ok=True)
+    (CLI_DIR / "main.lammpstrj").unlink(missing_ok=True)
+    run = CliRun("main", [deck, "--log", log])
+    rows = jsonl(log)
+    thermo_rows_ok(rows, CLI_STEPS, CLI_THERMO, "main")
+    state = run.loop["state"]
+    n = int(state.n_valid())
+    write_frame_bin(str(CLI_DIR / "main.bin"), state, append=False)
+    (frame,) = read_frames_bin(str(CLI_DIR / "main.bin"))
+    dump_atoms = int((CLI_DIR / "main.lammpstrj").read_text(
+        ).split("ITEM: NUMBER OF ATOMS\n")[1].split("\n")[0])
+    launches = run.loop["launches"]
+    run_s = run.footer("run")
+    kts = {r["step"]: r["temp"] for r in rows}
+    late = {s: t for s, t in kts.items() if s >= CLI_KT_FROM}
+    res = {"n_particles": n, "steps": CLI_STEPS, "seconds": run.seconds,
+           "run_s": run_s, "ms_per_step": 1e3 * run_s / CLI_STEPS,
+           "phase6_ms_per_step": main_ms, "kT_rows": kts,
+           "skin_ratio_rows": [r.get("skin_ratio") for r in rows[1:]],
+           "capacity": run.loop["system"].cells.capacity,
+           "launches": {k: v for k, v in launches.items() if v},
+           "dump_atoms": dump_atoms, "bin_atoms": int(frame["tag"].size)}
+    say("cli-main", **res)
+    checks = {
+        "pair_dpd_v3 launches == steps, no other pair kernel":
+            pair_launches(launches) == {
+                **{k: 0 for k in pair_launches(launches)},
+                "pair_dpd_v3": CLI_STEPS},
+        "hash launches == steps": launches["particle_hash"] == CLI_STEPS,
+        f"kT within {CLI_KT_TOL} of 1 from step {CLI_KT_FROM}":
+            bool(late) and all(abs(t - 1.0) <= CLI_KT_TOL
+                               for t in late.values()),
+        "state finite": state_finite(state),
+        "dump and frame hold every particle": dump_atoms == n == int(
+            frame["tag"].size),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cli main failed: {failed}: {res}")
+    return res, run.loop
+
+
+def cli_resume(loop):
+    """The 1M restart resumed through the library, as JAX's
+    test_restart_resume_is_deterministic: CLI_RESUME_STEPS straight
+    through against half, a save and a load, and the other half; the end
+    states bitwise equal by tag."""
+    import torch
+    from meso_tpu_torch.core.system import run_bucket_chunked
+    from meso_tpu_torch.io.restart import load_restart, save_restart
+    system, params = loop["system"], loop["params"]
+    every = system.cells.rebuild_every
+    half = CLI_RESUME_STEPS // 2 // every
+
+    def run(st, chunks):
+        return run_bucket_chunked(system, params, st, chunks, every,
+                                  thermo_trace=False)[0]
+
+    start = load_restart(str(CLI_DIR / "main_restart.npz"), device=DEVICE)
+    t0 = time.perf_counter()
+    straight = run(start, 2 * half)
+    mid = run(start, half)
+    save_restart(str(CLI_DIR / "resume_mid.npz"), mid)
+    resumed = run(load_restart(str(CLI_DIR / "resume_mid.npz"),
+                               device=DEVICE), half)
+
+    def by_tag(st):
+        order = torch.argsort(st.tag[st.mask])
+        return [t[st.mask][order] for t in (st.x, st.v, st.f, st.image)]
+
+    same = all(torch.equal(a, b) for a, b in zip(by_tag(straight),
+                                                 by_tag(resumed)))
+    res = {"from_step": start.step, "steps": 2 * half * every,
+           "end_step": resumed.step, "bitwise_by_tag": same,
+           "seconds": time.perf_counter() - t0}
+    say("cli-resume", **res)
+    if not same or resumed.step != straight.step:
+        raise AssertionError(f"cli resume not bitwise: {res}")
+    return res, straight
+
+
+def cli_dd():
+    """--dd 2 on the membrane deck (its l = 10.4 gives 8 cell columns, 4 a
+    rank): two gloo ranks sharing the card; exit 0, bonded_missing 0 in
+    every row, N and the tags kept (the restart written from the gathered
+    end state)."""
+    import torch
+    from meso_tpu_torch.io.restart import load_restart
+    steps, every = CLI_DD_STEPS, deck_steps("membrane_suspension")[1]
+    text = (ROOT / "tests" / "golden_decks" /
+            "membrane_suspension.toml").read_text()
+    deck = CLI_DIR / "membrane_dd.toml"
+    deck.write_text(text + f'restart_every = {steps}\n'
+                    f'restart_path = "{CLI_DIR}/membrane_dd.npz"\n')
+    log = CLI_DIR / "membrane_dd.jsonl"
+    log.unlink(missing_ok=True)
+    run = CliRun("membrane_dd", [deck, "--dd", "2", "--log", log,
+                                 "--steps", steps])
+    rows = jsonl(log)
+    thermo_rows_ok(rows, steps, every, "membrane_dd")
+    end = load_restart(str(CLI_DIR / "membrane_dd.npz"), device="cpu")
+    tags = end.tag[end.mask]
+    n0 = int(round(3.0 * 10.4 ** 3))
+    res = {"ranks": 2, "steps": steps, "seconds": run.seconds,
+           "run_s": run.footer("run"),
+           "bonded_missing": [r["bonded_missing"] for r in rows[1:]],
+           "n_particles": int(tags.numel()), "n_start": n0,
+           "tags_unique": int(torch.unique(tags).numel()) == tags.numel(),
+           "end_step": end.step, "kT_rows": [r["temp"] for r in rows]}
+    say("cli-dd", **res)
+    if any(res["bonded_missing"]) or res["n_particles"] != n0 or \
+            not res["tags_unique"] or end.step != steps:
+        raise AssertionError(f"cli dd failed: {res}")
+    return res
+
+
+def cli_autotune_profile():
+    """--autotune on a classic deck at CLI_AUTOTUNE_L on the kernels, from
+    a relaxed start that the deck reads with ``create = "read_data"`` (a
+    random start runs hot for its first hundreds of steps, and no
+    candidate stays inside its skin there): the chosen candidate's skin
+    ratio <= 1. --profile on the golden classic deck on the kernels (two
+    thermo intervals, the second traced): a trace in build/cli/prof."""
+    import numpy as np
+
+    import meso_tpu_torch.utils.autotune as at
+    from meso_tpu_torch.io.restart import load_restart
+    l = CLI_AUTOTUNE_L
+    relax = CLI_DIR / "autotune_relax.toml"
+    relax.write_text(AUTOTUNE_DECK.format(
+        l=l, start='create = "random"', run=(
+            f"steps = {AUTOTUNE_RELAX_STEPS}\nthermo_every = "
+            f"{AUTOTUNE_RELAX_STEPS}\nrestart_every = "
+            f"{AUTOTUNE_RELAX_STEPS}\n"
+            f'restart_path = "{CLI_DIR}/autotune_relaxed.npz"')))
+    CliRun("autotune_relax", [relax])
+    st = load_restart(str(CLI_DIR / "autotune_relaxed.npz"), device="cpu")
+    np.savez(CLI_DIR / "autotune_start.npz",
+             x=st.box.wrap(st.x)[0][st.mask].numpy(),
+             v=st.v[st.mask].numpy(), box_hi=st.box.hi.numpy())
+    text = AUTOTUNE_DECK.format(
+        l=l, start=f'create = "read_data"\nfile = "{CLI_DIR}/'
+        'autotune_start.npz"', run="steps = 30\nthermo_every = 30")
+    deck = CLI_DIR / "autotune.toml"
+    deck.write_text(text)
+    chosen = []
+    real = at.autotune_fluid
+
+    def spy(*a, **kw):
+        best, results = real(*a, **kw)
+        chosen.append((best, results))
+        return best, results
+
+    at.autotune_fluid = spy
+    try:
+        tune = CliRun("autotune", [deck, "--autotune"])
+    finally:
+        at.autotune_fluid = real
+    best, results = chosen[0]
+    prof_dir = CLI_DIR / "prof"
+    trace = prof_dir / "trace.json"
+    trace.unlink(missing_ok=True)
+    # two thermo intervals of the classic deck on the kernels: the second
+    # is traced
+    steps, every = deck_steps("classic_fluid")
+    prof = CliRun("profile", [pallas_copy("classic_fluid"), "--profile",
+                              prof_dir, "--steps", 2 * every])
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    res = {"autotune": {"seconds": tune.seconds,
+                        "candidates_measured": len(results),
+                        "best": {k: getattr(best, k) for k in (
+                            "skin", "rebuild_every", "ms_per_step",
+                            "skin_ratio", "spill", "pair_kernel",
+                            "rebuild", "capacity", "wrap_mode")}},
+           "profile": {"seconds": prof.seconds,
+                       "trace_bytes": trace.stat().st_size,
+                       "events": len(events), "kernel_events": kernels}}
+    say("cli-autotune-profile", **res)
+    if not best.skin_ratio <= 1.0 or not events or (
+            DEVICE == "cuda" and not kernels):
+        raise AssertionError(f"cli autotune/profile failed: {res}")
+    return res
+
+
+def cli_observables(inputs, system, params):
+    """rdf of the RDF_SUBSET rows, msd of ``b`` against ``a`` and the
+    pressure profile along x of the strict re-laid state (the inputs of
+    ``cli_observables_inputs``), on the inputs' device."""
+    from meso_tpu_torch.obs import msd, rdf, unwrapped
+    from meso_tpu_torch.obs.stress import pressure_profile
+    a, b, sub = inputs["a"], inputs["b"], inputs["sub"]
+    return {"rdf": rdf(sub.x, sub.mask, sub.box, RDF_R_MAX, RDF_BINS),
+            "msd": msd(b.x, b.image, unwrapped(a.x, a.image, a.box), b.mask,
+                       b.box),
+            "pressure": pressure_profile(system, params, inputs["relaid"],
+                                         0, 10)}
+
+
+def cli_observables_inputs(loop, later):
+    """The observables' inputs from the 1M end state (``loop``) and the
+    state ``later`` (both in tag order): the first RDF_SUBSET particles
+    for rdf, both states for msd, and the end state re-laid on strict
+    buckets (the sweep's layout) at the least capacity that places it,
+    with the system on those cells."""
+    import torch
+    from meso_tpu_torch.core.state import PER_PARTICLE
+    from meso_tpu_torch.neighbor.bucket_layout import (rebuild_buckets,
+                                                       to_bucket_state)
+    from meso_tpu_torch.neighbor.cells import CellConfig
+
+    def by_tag(st):
+        rows = torch.nonzero(st.mask).squeeze(1)
+        rows = rows[torch.argsort(st.tag[rows])]
+        return st.replace(**{f: getattr(st, f)[rows] for f in PER_PARTICLE
+                             if getattr(st, f) is not None})
+
+    a, b = by_tag(loop["state"]), by_tag(later)
+    system = loop["system"]
+    sub = a.replace(x=a.box.wrap(a.x)[0][:RDF_SUBSET],
+                    mask=a.mask[:RDF_SUBSET])
+    x, image = a.box.wrap(a.x, a.image)
+    wrapped = a.replace(x=x, image=image)
+    strict = CellConfig.for_box([float(v) for v in a.box.lengths], 1.0, 3.0,
+                                skin=system.cells.skin)
+    # the sweep's work goes as K^2: take the least K that holds this state
+    k = next(k for k in range(4, strict.capacity + 1)
+             if int(rebuild_buckets(wrapped, strict.replace(capacity=k))[1])
+             == 0)
+    strict = strict.replace(capacity=k)
+    return ({"sub": sub, "a": a, "b": b,
+             "relaid": to_bucket_state(wrapped, strict)},
+            system.replace(cells=strict))
+
+
+def cli_observables_cpu(in_path, out_path):
+    """The CPU copy's observables, in a process of their own
+    (``--cli-obs-cpu IN OUT``): inputs and results through torch.save."""
+    import torch
+    data = torch.load(in_path, weights_only=False)
+    torch.set_num_threads(data["threads"])
+    t0 = time.perf_counter()
+    res = cli_observables(data["inputs"], data["system"], data["params"])
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, out_path)
+
+
+def cli_observables_compare(card, cpu):
+    """The card's observables against the CPU copy's: within OBS_REL_TOL
+    relative (rdf: counts within one pair a bin)."""
+    import numpy as np
+    res = {}
+    g_c, g_p = card["rdf"][1].cpu().numpy(), cpu["rdf"][1].numpy()
+    centers = cpu["rdf"][0].numpy()
+    n = RDF_SUBSET
+    ideal = n / (CLI_L ** 3) * 4.0 / 3.0 * np.pi * np.diff(
+        (np.arange(RDF_BINS + 1) * RDF_R_MAX / RDF_BINS) ** 3) * n
+    count_diff = np.abs(np.rint(g_c * ideal) - np.rint(g_p * ideal))
+    res["rdf_max_count_diff"] = float(count_diff.max())
+    res["rdf_max_rel"] = float(np.max(np.abs(g_c - g_p)) / np.max(
+        np.abs(g_p)))
+    res["rdf_peak"] = [float(centers[np.argmax(g_p)]), float(g_p.max())]
+    m_c, m_p = float(card["msd"]), float(cpu["msd"])
+    res["msd"], res["msd_rel"] = m_p, abs(m_c - m_p) / abs(m_p)
+    p_c, p_p = card["pressure"][1].cpu().numpy(), \
+        cpu["pressure"][1].numpy()
+    res["pressure_max_rel"] = float(np.max(np.abs(p_c - p_p)) / np.max(
+        np.abs(p_p)))
+    res["pressure_profile"] = [float(v) for v in p_p]
+    ok = (res["rdf_max_count_diff"] <= 1 and res["msd_rel"] <= OBS_REL_TOL
+          and res["pressure_max_rel"] <= OBS_REL_TOL)
+    return res, ok
+
+
+def phase_cli(main_ms=None):
+    """The CLI phase: the 1M main path through a deck, its restart resumed
+    bitwise, rdf, msd and pressure_profile on its end state on the card
+    (against a CPU copy computed in a process of its own while the card
+    runs the rest), the golden decks as shipped and on the kernels (with
+    --validate), the module entry point in a subprocess, --dd 2 on the
+    membrane deck, --autotune and --profile. Writes into build/cli/."""
+    import torch
+    from meso_tpu_torch.parallel.launch import on_device, params_on
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    rec = {"shipped": {}, "pallas": {}}
+    rec["main"], loop = cli_main_path(main_ms)
+    rec["resume"], later = cli_resume(loop)
+    inputs, strict_sys = cli_observables_inputs(loop, later)
+    t1 = time.perf_counter()
+    card = cli_observables(inputs, strict_sys, loop["params"])
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    # the CPU copy takes minutes at 1M: a process of its own on all but
+    # two of this process's cores, beside the card's steps that follow
+    cores = sorted(os.sched_getaffinity(0))
+    obs_in, obs_out = CLI_DIR / "obs_inputs.pt", CLI_DIR / "obs_cpu.pt"
+    obs_out.unlink(missing_ok=True)
+    torch.save({"inputs": {k: on_device(v, "cpu") for k, v in
+                           inputs.items()},
+                "system": strict_sys, "params": params_on(loop["params"],
+                                                          "cpu"),
+                "threads": max(1, len(cores) - 2)}, obs_in)
+    del loop, later, inputs
+    worker = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--cli-obs-cpu", str(obs_in), str(obs_out)])
+    try:
+        if len(cores) > 2:
+            os.sched_setaffinity(worker.pid, cores[2:])
+        for name in GOLDEN_DECKS:
+            rec["shipped"][name] = cli_golden(name, pallas=False)
+            say("cli-deck", deck=name, **rec["shipped"][name])
+        for name in GOLDEN_DECKS:
+            rec["pallas"][name] = cli_golden(name, pallas=True)
+            say("cli-deck-pallas", deck=name, **rec["pallas"][name])
+        # the module entry point in its own process
+        log = CLI_DIR / "subprocess.jsonl"
+        log.unlink(missing_ok=True)
+        ts = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "meso_tpu_torch",
+             str(CLI_DIR / "classic_fluid_pallas.toml"), "--log", str(log),
+             "--device", DEVICE],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"python -m meso_tpu_torch: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-2000:]}")
+        steps, every = deck_steps("classic_fluid")
+        thermo_rows_ok(jsonl(log), steps, every, "subprocess")
+        rec["subprocess"] = {"seconds": time.perf_counter() - ts,
+                             "rows": len(jsonl(log))}
+        say("cli-subprocess", **rec["subprocess"])
+        rec["dd"] = cli_dd()
+        rec["autotune_profile"] = cli_autotune_profile()
+        tw = time.perf_counter()
+        code = worker.wait(timeout=900)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+    if code:
+        raise AssertionError(f"cli observables: the CPU copy exited {code}")
+    cpu = torch.load(obs_out, weights_only=False)
+    obs, ok = cli_observables_compare(card, cpu)
+    rec["observables"] = {**obs, "card_s": card_s, "cpu_s": cpu["seconds"],
+                          "cpu_wait_s": time.perf_counter() - tw,
+                          "strict_capacity": strict_sys.cells.capacity}
+    say("cli-observables", **rec["observables"])
+    if not ok:
+        raise AssertionError(f"cli observables off: {rec['observables']}")
+    del card, cpu
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    say("cli", seconds=rec["seconds"])
+    return rec
+
+
 # --ab: two trees' kernels and main path on one card, a process a run, in
 # the order parent, change, change, parent per round
 AB_ROUNDS = 2
@@ -4426,6 +5069,14 @@ def kernel_records(record):
              "bound_by": rec["bound_by"], "library_ms": None,
              **brick_row_fields(rec)})
     rows += record["probes"]["rows"]
+    # the launches of the CLI phase's runs: the golden decks on the kernels
+    # and the 1M deck
+    cli_runs = [*record["cli"]["pallas"].values(), record["cli"]["main"]]
+    for row in rows:
+        if row["name"] in ("pair_dpd_v3", "pair_dpd_v3_general",
+                           "pair_edpd_v3", "pair_tdpd_v3", "particle_hash"):
+            row["cli_launches"] = sum(r["launches"].get(row["name"], 0)
+                                      for r in cli_runs)
     # the measured floor of each byte-bound kernel: its bytes over the
     # streaming rate the null stage (T4) reached on this card
     rate = record["probes"]["t4"]["best_rate_bytes_per_s"]
@@ -4438,6 +5089,10 @@ def kernel_records(record):
 
 def main(argv):
     import torch
+    if "--cli-obs-cpu" in argv:
+        i = argv.index("--cli-obs-cpu")
+        cli_observables_cpu(argv[i + 1], argv[i + 2])
+        return 0
     if "--ab-one" in argv:
         from meso_tpu_torch.kernels import _build
         _build.load_library()  # the other tree's, in its own build/
@@ -4450,7 +5105,9 @@ def main(argv):
         (ROOT / "build" / "chip_smoke_ab.json").write_text(
             json.dumps(record, indent=1, default=str))
         return 0
-    if "--decay-from" in argv:
+    if "--cli-only" in argv:
+        record["cli"] = phase_cli()
+    elif "--decay-from" in argv:
         record["decay_from"] = phase_decay_from(
             argv[argv.index("--decay-from") + 1])
     elif "--sweep-only" in argv:
@@ -4467,7 +5124,7 @@ def main(argv):
         record["brick_tiles"] = phase_brick_tiles()
         record["selector_kernels_l70"] = phase_selector_kernels_l70()
         record["probes"] = phase_probes(record["kernels"]["l70"])
-    if "--decay-from" not in argv and "--sweep-only" not in argv:
+    if not set(argv) & {"--decay-from", "--sweep-only", "--cli-only"}:
         record["dd_kernels"] = phase_dd_kernels()
     if "--dd-only" in argv:
         record["dd_ring_of_one"] = phase_dd_ring_of_one()
@@ -4479,11 +5136,12 @@ def main(argv):
         record["nlist_path"] = phase_nlist_path()
         record["bucket_paths"] = phase_bucket_paths()
         record["dd_bucket"] = phase_dd_bucket()
-    elif "--kernels-only" not in argv and "--decay-from" not in argv:
+    elif not set(argv) & {"--kernels-only", "--decay-from", "--cli-only"}:
         record["main_path"] = phase_main_path()
         record["transport_physics"] = phase_transport_physics()
         record["transport_full"] = {m: phase_transport_full(m)
                                     for m in ("edpd", "tdpd")}
+        record["cli"] = phase_cli(record["main_path"]["ms_per_step"])
         record["walls_physics"] = phase_walls_physics()
         record["bonded_physics"] = phase_bonded_physics()
         record["walls_full"] = phase_walls_full()
@@ -4507,7 +5165,7 @@ def main(argv):
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if set(argv) & {"--kernels-only", "--decay-from", "--dd-only",
-                    "--sweep-only"}:
+                    "--sweep-only", "--cli-only"}:
         return 0
     print(json.dumps(kernel_records(record)), flush=True)
     print(info["card"], flush=True)

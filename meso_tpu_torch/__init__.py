@@ -14,8 +14,12 @@ path (K2, K3), the wall and bonded paths, the fused and banded kernel
 selectors (K5-K7), the 1-D domain decomposition over
 torch.distributed (``parallel``, with the halo kernels K4 and K6-halo),
 the neighbour-list and sweep force paths ("nlist", "bucket") with their
-loops, and the TPU probes T1-T4 (``probes``). See ROADMAP.md for the
-rest.
+loops, the TPU probes T1-T4 (``probes``), and what starts and steers a
+run: the deck loader, ``read_data``, restarts, dumps (with the native
+codec in ``native``), thermo logging (``io``), the utils (timer, checked
+invariants, force validation, autotuning), the observables ``msd``,
+``rdf`` and ``stress``, and the CLI, ``python -m meso_tpu_torch
+deck.toml``. See ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,9 @@
 """Start the ranks of a distributed run as processes on one host, and the
 rank side of a slab run; shared by the tests and ``chip_smoke.py``.
 
+``deck_rank`` and ``run_deck_distributed`` run a deck's CLI loop on the
+slabs (``python -m meso_tpu_torch deck.toml --dd N``).
+
 ``spawn`` starts ``world_size`` processes with the spawn start method (a
 process that already runs threads, such as a test process with JAX loaded,
 must not fork), joins them into a gloo process group through a
@@ -18,6 +21,7 @@ raises in its rank. Nothing here falls back to another device.
 
 from __future__ import annotations
 
+import sys
 import time
 from pathlib import Path
 
@@ -171,3 +175,80 @@ def call(ring, device: str, calls) -> list:
                 for a in per_rank_args[ring.rank]]
         out.append(fn(*args, ring))
     return out
+
+
+def deck_rank(ring, device: str, system, params, states, dcfg,
+              plan: dict) -> dict:
+    """The rank side of a deck run under the 1-D decomposition
+    (``python -m meso_tpu_torch deck.toml --dd N``): every rank runs the
+    CLI's loop (``__main__.run_loop``) over ``run_distributed`` on its
+    slab, and after each interval every rank gathers the whole state
+    (``collect_state``), so that the loop takes the same decisions on
+    every rank; rank 0 alone prints the thermo rows and writes the log,
+    dumps, restarts and the profile. Returns the exit code and the timer's
+    phases (seconds and calls)."""
+    import torch.distributed as dist
+
+    from meso_tpu_torch.__main__ import run_loop
+    from meso_tpu_torch.io.thermo import ThermoLogger
+    from meso_tpu_torch.parallel.domain import collect_state, run_distributed
+    from meso_tpu_torch.utils.timer import PhaseTimer
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    slab = on_device(states[ring.rank], device)
+    params = params_on(params, device)
+    every = dcfg.rebuild_every
+
+    def runner(sy, pa, st, n):
+        nonlocal slab
+        slab, diag = run_distributed(sy, pa, slab, max(n // every, 1), ring,
+                                     dcfg)
+        parts = [None] * ring.size
+        dist.all_gather_object(parts, on_device(slab, "cpu"))
+        return on_device(collect_state(parts), device), {
+            "bucket_overflow": diag["overflow"],
+            "bonded_missing": diag["bonded_missing"],
+            "worst_skin_ratio": diag["worst_skin_ratio"]}
+
+    lead = ring.rank == 0
+    if not lead:
+        plan = {**plan, "dump_every": 0, "restart_every": 0, "profile": None}
+    logger = ThermoLogger(every=plan["thermo_every"],
+                          stream=sys.stdout if lead else None,
+                          jsonl_path=plan["log"] if lead else None)
+    timer = PhaseTimer(sync=(lambda: torch.cuda.synchronize(dev))
+                       if cuda else None)
+    code, _ = run_loop(system, params, on_device(collect_state(states),
+                                                 device),
+                       plan, logger, timer, runner=runner)
+    timer.end()
+    return {"code": code, "acc": dict(timer.acc),
+            "counts": dict(timer.counts)}
+
+
+def run_deck_distributed(system, params, state, n_ranks: int, plan: dict,
+                         device) -> dict:
+    """A deck's run on ``n_ranks`` gloo ranks on ``device`` (on the card
+    the ranks share it): the spill layout switches to strict slots (the
+    decomposition re-buckets each slab), the capacity is raised where the
+    slabs need it (``fit_slab_capacity``), and the start is split into
+    slabs. Returns rank 0's result (``deck_rank``)."""
+    import tempfile
+
+    from meso_tpu_torch.parallel.domain import (build_domain,
+                                                distribute_state,
+                                                fit_slab_capacity)
+    if system.cells.spill:
+        system = system.replace(cells=system.cells.replace(spill=False))
+    lx = float(state.box.lengths[0])
+    system = fit_slab_capacity(system, state, n_ranks, lx)
+    dcfg = build_domain(system, n_ranks, lx_global=lx)
+    states = distribute_state(state, dcfg, device="cpu")
+    with tempfile.TemporaryDirectory(prefix="meso_dd_") as work:
+        outs = spawn(deck_rank, n_ranks, work,
+                     args=(system, params_on(params, "cpu"), states, dcfg,
+                           plan),
+                     device=str(torch.device(device)), timeout_s=1e6,
+                     op_timeout_s=600.0)
+    return outs[0]

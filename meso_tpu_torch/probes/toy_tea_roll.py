@@ -20,6 +20,7 @@ JAX package.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
@@ -90,6 +91,12 @@ def tea_roll_plain(stack: torch.Tensor, iscal: torch.Tensor,
     return acc[None, None]
 
 
+@functools.lru_cache(maxsize=None)
+def _offsets(device: torch.device) -> torch.Tensor:
+    """OFFS as an int32 tensor on ``device``, copied there once."""
+    return torch.tensor(OFFS, dtype=torch.int32, device=device)
+
+
 def tea_roll(stack: torch.Tensor, iscal: torch.Tensor,
              variant: str) -> torch.Tensor:
     """The variant's (1, 1, K, L) sum: the kernel on CUDA tensors, the
@@ -105,7 +112,7 @@ def tea_roll(stack: torch.Tensor, iscal: torch.Tensor,
         raise ValueError("tea_roll takes a (3, 1, K, L) stack, K % 8 == 0 "
                          "for grp8")
     mixer, rounds, ordering, all_rows = CASES[variant]
-    offs = torch.tensor(OFFS, dtype=torch.int32, device=stack.device)
+    offs = _offsets(stack.device)
     out = torch.empty((1, 1, k, n), dtype=torch.float32, device=stack.device)
     probes.launch("probe_tea_roll", "meso_probe_tea_roll", stack.data_ptr(),
                   iscal.data_ptr(), offs.data_ptr(), len(OFFS),

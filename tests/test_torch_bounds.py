@@ -11,6 +11,7 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from meso_tpu_torch.kernels import _build  # noqa: E402
+from test_torch_imports import one_torch_thread  # noqa: E402,F401
 
 
 def test_rates_follow_the_fp32_rate():

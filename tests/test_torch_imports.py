@@ -68,7 +68,14 @@ MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.probes.toy_dynroll",
            "meso_tpu_torch.probes.toy_mxu_tile",
            "meso_tpu_torch.probes.toy_tea_roll",
-           "meso_tpu_torch.probes.r5a_stage"]
+           "meso_tpu_torch.probes.r5a_stage", "meso_tpu_torch.io",
+           "meso_tpu_torch.io.deck", "meso_tpu_torch.io.data",
+           "meso_tpu_torch.io.dump", "meso_tpu_torch.io.restart",
+           "meso_tpu_torch.io.thermo", "meso_tpu_torch.native",
+           "meso_tpu_torch.utils", "meso_tpu_torch.utils.autotune",
+           "meso_tpu_torch.utils.debug", "meso_tpu_torch.obs",
+           "meso_tpu_torch.obs.msd", "meso_tpu_torch.obs.rdf",
+           "meso_tpu_torch.obs.stress", "meso_tpu_torch.__main__"]
 # top-level names that the port must never bring in: JAX, the JAX package,
 # and the JAX package's probes under tools/ (whether imported as a package
 # or by path)
