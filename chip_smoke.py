@@ -2,7 +2,8 @@
 """Smoke run of meso_tpu_torch on one NVIDIA card (built for the H100).
 
     python3 chip_smoke.py [--kernels-only | --dd-only | --sweep-only |
-                           --cli-only | --decay-from FILE | --ab PARENT_DIR]
+                           --cli-only | --bricks-only | --decay-from FILE |
+                           --ab PARENT_DIR]
 
 Phases, one line of output each (any failure raises and exits non-zero):
 
@@ -168,13 +169,28 @@ Phases, one line of output each (any failure raises and exits non-zero):
    "read_data"`` (its choice inside its skin); ``--profile``; rdf (20,000
    particles), msd and pressure_profile at the 1M end state against a
    CPU copy (computed meanwhile in a process pinned to all but two
-   cores), within 1e-5.
+   cores), within 1e-5;
+27. bricks: the 2-D and 3-D bricks, the replica ensemble and the dry run,
+   the ranks sharing the card through gloo, from the two-rank paths'
+   starts (phase 21's, kept): classic-2d (2 x 2 ranks, 25 x 25 x 50
+   cells a brick) and classic-3d (2 x 2 x 2) through K4 with ext ("x",
+   "y") and ("x", "y", "z"), polymer-2d through K4 with exclusions and
+   bonded ghost rows, edpd-2d and tdpd-2d through the sweep (strict,
+   K=28), each with the two-rank paths' gates (K4 launched once a step a
+   rank; kT within 1% of 1 over the traced chunks, without phase 21's
+   effective-sample count) and K4 held against its plain version on rank
+   0's real extended planes and timed; DP x SP (2 replicas x 2 slabs
+   through K4); run_ensemble (2 replicas on K1, replica 0 bitwise the
+   single-card run); ``dryrun_multichip(8)``.
 
 Phases 9, 10, 14, 15 and 22 run after phase 5, phases 26 and 11-13 and
-16-17 after phase 8, phases 20-21 after 17, phases 23-25 after 21.
+16-17 after phase 8, phases 20-21 after 17, phases 27 and 23-25 after
+21.
 ``--kernels-only`` stops after phase 19; ``--dd-only`` runs phases 1, 2
 and 19-21; ``--sweep-only`` runs phases 1-3, 22, 6, 8 (for the end
-states) and 23-25; ``--cli-only`` runs phases 1, 2 and 26.
+states) and 23-25; ``--cli-only`` runs phases 1, 2 and 26;
+``--bricks-only`` runs phases 1, 2 and 27 (building the two-rank starts
+itself).
 ``--decay-from FILE`` runs only the tDPD decay from the JAX package's
 starts in FILE, against the JAX rates stored beside them (see
 phase_decay_from). ``--ab PARENT_DIR`` runs only phases 1-2 and
@@ -186,9 +202,9 @@ variant, K2 and K3 through their wrappers, and saving the outputs of all
 but K2, which must agree bitwise.
 
 Launch counts are set to 0 just before each path (6, each model of 8, each
-path of 13 and 16, phase 17, each rank of each path of 21, the probes'
-runs of 22, each path of 23-25 and each deck's loop of 26) is driven and
-read just after. The
+path of 13 and 16, phase 17, each rank of each path of 21 and 27, the
+probes' runs of 22, each path of 23-25 and each deck's loop of 26) is
+driven and read just after. The
 last three lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and
 {"ok": true, "device": {...}}. Every number is also written to
@@ -3054,6 +3070,24 @@ def dd_path(label):
     return system.replace(dd_overlap=True), params, state
 
 
+# the two-rank paths' starts (dd_path), kept on the host for the brick
+# paths (phase_bricks) of the same run
+DD_STARTS = {}
+
+
+def dd_start(label):
+    """``dd_path(label)`` on the card, built once a run (later calls take
+    the host copy that the first one kept)."""
+    from meso_tpu_torch.parallel import launch
+    if label not in DD_STARTS:
+        system, params, state = dd_path(label)
+        DD_STARTS[label] = (system, launch.params_on(params, "cpu"),
+                            launch.on_device(state, "cpu"))
+    system, params, state = DD_STARTS[label]
+    return (system, launch.params_on(params, DEVICE),
+            launch.on_device(state, DEVICE))
+
+
 def dd_domain(system, state, n_dev):
     """(system, DomainConfig) of ``n_dev`` slabs for this start, with the
     least capacity from the builder's own up that places it
@@ -3239,7 +3273,7 @@ def phase_dd_ring_of_one():
     from meso_tpu_torch.parallel import (Ring, distribute_state,
                                          run_distributed)
     from meso_tpu_torch.parallel.domain import _halo_forces_pallas
-    single, params, state = dd_path("classic")
+    single, params, state = dd_start("classic")
     system, dcfg = dd_domain(single, state, 1)
     dcfg = dcfg.__class__(**{**dcfg.__dict__, "rebuild_every": 1})
     (slab,) = distribute_state(state, dcfg, device=DEVICE)
@@ -3306,7 +3340,8 @@ def dd_observe(ring, system, params, state, dcfg, label, chunks):
     numbers)."""
     import numpy as np
     import torch
-    from meso_tpu_torch.parallel import run_distributed
+    from meso_tpu_torch.parallel import launch
+    run_distributed = launch.domain_runner(dcfg)
     res = {"kts": [], "moms": []}
     traced = []
     for _ in range(chunks["rounds"]):
@@ -3344,7 +3379,8 @@ def dd_profiled_chunks(ring, system, params, state, dcfg, nchunks, cuda):
     the part of it in which none of rank 0's kernels ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from meso_tpu_torch.parallel import run_distributed
+    from meso_tpu_torch.parallel import launch
+    run_distributed = launch.domain_runner(dcfg)
     steps = nchunks * dcfg.rebuild_every
     if ring.rank != 0:
         state, _ = run_distributed(system, params, state, nchunks, ring,
@@ -3427,7 +3463,7 @@ def phase_dd_paths():
     jobs, starts = [], {}
     kernels = {}
     for label in labels:
-        system, params, state = dd_path(label)
+        system, params, state = dd_start(label)
         system, dcfg = dd_domain(system, state, DD_RANKS)
         slabs = distribute_state(state, dcfg, device=DEVICE)
         kernels[label] = dd_kernel_check(label, system, params, state, slabs,
@@ -3538,6 +3574,446 @@ def phase_dd_paths():
     if failures:
         raise AssertionError(f"dd paths failed: {failures}")
     out["spawn_s"] = spawn_s
+    return out, kernels
+
+
+# ---------------------------------------------------------------------------
+# the 2-D and 3-D bricks, the replica ensemble and the dry run
+# (parallel/domain2d.py, domain3d.py, ensemble.py, dryrun.py): ranks sharing
+# the card
+# ---------------------------------------------------------------------------
+
+# each brick path: its start (dd_start's label), its mesh, and its warm-up,
+# timed and traced chunks of DD_EVERY steps. The classic and polymer paths
+# run K4 over the extended brick, eDPD and tDPD the sweep (as the JAX
+# package routes every model but classic DPD on force_path "pallas") on
+# strict buckets of BRICK_SWEEP_K slots, for few steps: the sweep costs
+# about 2 s a step at 1M particles.
+BRICK_PATHS = {
+    "classic-2d": ("classic", (2, 2), (10, 50, 50)),
+    "polymer-2d": ("polymer", (2, 2), (10, 50, 50)),
+    "edpd-2d": ("edpd", (2, 2), (1, 2, 0)),
+    "tdpd-2d": ("tdpd", (2, 2), (1, 2, 0)),
+    "classic-3d": ("classic", (2, 2, 2), (10, 50, 50))}
+BRICK_SWEEP_K = 28
+# run_ensemble: 2 replicas of the classic 1M start on K1, its steps; DP x
+# SP: 2 replicas x 2 slabs through K4, its chunks; the dry run's ranks
+ENSEMBLE_REPLICAS, ENSEMBLE_STEPS = 2, 300
+DPSP_SLABS, DPSP_CHUNKS = 2, 30
+DRYRUN_RANKS = 8
+BRICK_SPAWN_TIMEOUT_S = 900.0
+BRICKS_DIR = ROOT / "build" / "brick_ranks"
+
+
+def brick_domain(label, system, state):
+    """(system, Domain2D or Domain3D) of a brick path on its start: strict
+    buckets of BRICK_SWEEP_K slots on the sweep paths; the least capacity
+    that places the start (``fit_brick_capacity_2d``/``_3d``) and, on
+    spill buckets, DD_EXTRA_SLOTS more, as the slabs take."""
+    from meso_tpu_torch.parallel import build_domain2d, build_domain3d
+    from meso_tpu_torch.parallel.domain2d import fit_brick_capacity_2d
+    from meso_tpu_torch.parallel.domain3d import fit_brick_capacity_3d
+    _, devs, _ = BRICK_PATHS[label]
+    if system.model != "dpd":
+        system = system.replace(cells=system.cells.replace(
+            spill=False, capacity=BRICK_SWEEP_K))
+    fit = fit_brick_capacity_2d if len(devs) == 2 else fit_brick_capacity_3d
+    cells = fit(system, state, *devs).cells
+    if cells.spill:
+        cells = cells.replace(capacity=cells.capacity + DD_EXTRA_SLOTS)
+    system = system.replace(cells=cells)
+    if len(devs) == 2:
+        return system, build_domain2d(system, *devs, L_MAIN, L_MAIN,
+                                      rebuild_every=DD_EVERY)
+    return system, build_domain3d(system, *devs, L_MAIN, L_MAIN, L_MAIN,
+                                  rebuild_every=DD_EVERY)
+
+
+def brick_observe(mesh, system, params, state, dcfg, label, chunks):
+    """``dd_observe``'s traced chunks on the bricks, then, on a K4 path,
+    the halo exchange of the channel planes once more (every rank takes
+    part): rank 0 returns its extended planes (positions, velocities,
+    tags, validity, types; its exclusion tags and hash are made from them
+    in the parent) and the step they belong to."""
+    from meso_tpu_torch.ops.sweep import make_channels
+    from meso_tpu_torch.parallel.bricks import exchange_halos
+    state, res = dd_observe(mesh, system, params, state, dcfg, label, chunks)
+    cfg = dcfg.cells
+    ch = make_channels(state.x, state.v, state.tag, state.mask, None, {},
+                       cfg.ncell, cfg.capacity)
+    if params.pair.n_types > 1:
+        ch["typ"] = state.typ.reshape(ch["tag"].shape)
+    planes = exchange_halos(ch, dcfg, mesh)
+    if mesh.rank == 0:
+        res["planes"] = {k: t.cpu() for k, t in planes.items()}
+        res["planes_step"] = state.step + 1
+    return state, res
+
+
+def brick_kernel_check(label, planes, step, system, params, dcfg, box):
+    """K4 on rank 0's real extended planes of a brick path (ext the
+    decomposed axes; exclusion tags and the hash added here), against its
+    plain version within compare_halo's gate, with its time through the
+    wrapper, alone on the built brick, the plain time and the bound."""
+    import torch
+    from meso_tpu_torch.kernels import _build
+    name, p, cfg, ext = "pair_halo_dpd", params.pair, dcfg.cells, dcfg.axes
+    planes = {k: t.to(DEVICE) for k, t in planes.items()}
+    planes = with_hash(with_excl(planes, p), step, p.seed)
+    nx, ny, nz = cfg.ncell
+    xr = 2 if cfg.spill else 1
+    oy, oz = int("y" in ext), int("z" in ext)
+    valid = (planes["valid"][oy:oy + ny, oz:oz + nz, :, xr:xr + nx] > 0
+             ).reshape(-1)
+    args = (planes, box, step, p, system.dt, cfg, ext)
+    got = run_halo(name, False, *args)
+    torch.cuda.synchronize()
+    want = run_halo(name, True, *args)
+    rec = compare_halo(name, got, want, valid, f"{label} rank 0")
+    n_rc = halo_pair_count(planes, p, box, cfg, ext)
+    rec.update(
+        kernel=name, path=label, ext="".join(ext), rows=int(valid.numel()),
+        valid_rows=int(valid.sum()), capacity=cfg.capacity, spill=cfg.spill,
+        n_excl=0 if getattr(p, "excl", None) is None else p.excl.shape[1],
+        pairs_in_rc=n_rc, step=step,
+        ms=timed_ms(lambda: run_halo(name, False, *args), 20),
+        plain_ms=timed_ms(lambda: run_halo(name, True, *args), 3))
+    rec["bound_ms"], rec["bound_by"] = halo_bound(name, planes, got, p, n_rc)
+    brick = halo_brick_of(name, planes, p, cfg, ext)
+    rec["kernel_ms"] = kernel_alone_ms(name, _build.load_library(), brick,
+                                       box, step, p, system.dt, cfg)
+    rec["tests_per_valid_row"] = brick_tests_per_row(brick, cfg)
+    rec.update(tile_fields(cfg, brick.xr))
+    say(f"bricks-kernel-{label}", **rec)
+    return rec
+
+
+def brick_path_checks(label, job, per, start):
+    """The gates and numbers of one brick path from its ranks' results:
+    overflow 0, bonded_missing 0, N conserved with unique tags, a finite
+    state, the worst skin ratio below 1 after the warm-up, every force
+    evaluation through K4 (classic, polymer; the sweep paths through no
+    pair kernel) with one hash launch each, and the single-card path's own
+    physics gates (classic: kT within 1% of 1 over the traced chunks;
+    eDPD: T within (0.3, 3); tDPD: sum C drift below 1e-4; polymer: the
+    bond lengths, the momentum drift and kT within 2%). Returns (result,
+    failed checks)."""
+    import numpy as np
+    import torch
+    from meso_tpu_torch.parallel import collect_state
+    system, dcfg = job["system"], job["dcfg"]
+    ranks = len(per)
+    final = collect_state([r["state"] for r in per])
+    launches = {k: sum(r["launches"][k] for r in per)
+                for k in per[0]["launches"]}
+    observed = per[0].get("observed_chunks", 0)
+    steps = DD_EVERY * (job["warmup"] + job["nchunks"] + observed)
+    evals = ranks * steps
+    timed_steps = job["nchunks"] * DD_EVERY
+    timed_s = max(r["seconds"] for r in per)
+    m = final.mask
+    n = int(m.sum())
+    diags = {"equil": per[0]["warmup_diag"], "timed": per[0]["diag"]}
+    if "traced_diag" in per[0]:
+        diags["traced"] = per[0]["traced_diag"]
+    k4 = system.model == "dpd"
+    res = {"path": label, "ranks": ranks, "mesh": list(dcfg.devs),
+           "n_particles": n, "rows_per_rank": job["states"][0].n,
+           "ncell_local": list(dcfg.cells.ncell),
+           "capacity": dcfg.cells.capacity, "spill": dcfg.cells.spill,
+           "route": "K4 ext=" + "".join(dcfg.axes) if k4 else "sweep",
+           "steps_per_rebuild": DD_EVERY, "steps": steps,
+           "timed_steps": timed_steps,
+           "ms_per_step_ranks_sharing_one_card":
+               1e3 * timed_s / timed_steps,
+           "particle_steps_per_s": n * timed_steps / timed_s,
+           "diags": diags, "launches": launches,
+           "force_evaluations": evals}
+    want_pairs = {k: 0 for k in pair_launches(launches)}
+    if k4:
+        want_pairs["pair_halo_dpd"] = evals
+    checks = {
+        ("K4 launches == ranks x steps, no other pair kernel" if k4 else
+         "no pair kernel launched (the sweep)"):
+            pair_launches(launches) == want_pairs,
+        "one hash launch per force evaluation":
+            launches["particle_hash"] == evals,
+        "overflow == 0": all(d["overflow"] == 0 for d in diags.values()),
+        "bonded_missing == 0":
+            all(d["bonded_missing"] == 0 for d in diags.values()),
+        "worst_skin_ratio < 1 after warm-up": max(
+            d["worst_skin_ratio"] for w, d in diags.items() if w != "equil")
+        < 1.0,
+        "N conserved, tags unique": n == start["n"] and int(
+            torch.unique(final.tag[m]).numel()) == n,
+        "state finite": all(bool(torch.isfinite(t).all())
+                            for t in (final.x, final.v, final.f))}
+    if system.model == "edpd":
+        t = final.T[m]
+        res["t_min"], res["t_max"] = float(t.min()), float(t.max())
+        checks["0.3 < T < 3"] = res["t_min"] > 0.3 and res["t_max"] < 3
+    elif system.model == "tdpd":
+        res["c_rel_drift"] = abs(float(final.C[m].sum()) - start["c_sum"]) \
+            / abs(start["c_sum"])
+        checks["sum C drift < 1e-4"] = res["c_rel_drift"] < 1e-4
+    elif system.bond_style is not None:
+        kts = np.asarray(per[0]["kts"])
+        bl = bond_lengths(final, job["params"].bonded.bond_tags,
+                          system.n_tags)
+        p0 = start["momentum"].numpy()
+        drift = max(float(np.abs(np.asarray(q) - p0).max())
+                    for q in per[0]["moms"])
+        res.update(bond_max=float(bl.max()), bond_mean=float(bl.mean()),
+                   momentum_drift=drift, kT_mean=float(kts.mean()))
+        checks.update({
+            "bond max < 1.45": res["bond_max"] < 1.45,
+            "0.30 < bond mean < 0.75": 0.30 < res["bond_mean"] < 0.75,
+            "momentum drift < 5e-2": drift < 5e-2,
+            "kT within 2% of 1": abs(res["kT_mean"] - 1.0) < 0.02})
+    else:
+        kt_mean, kt_sem, n_eff = kt_stats(np.asarray(per[0]["kts"]))
+        res.update(kT_mean=kt_mean, kT_sem=kt_sem, kT_n_eff=n_eff)
+        checks["kT within 1% of 1"] = abs(kt_mean - 1.0) < 0.01
+    return res, [k for k, ok in checks.items() if not ok]
+
+
+def brick_jobs(labels):
+    """Each brick path's job for ``launch.slab_runs`` (its mesh named, its
+    bricks on the host) and its start's N, sum C and momentum."""
+    import torch
+    from meso_tpu_torch.obs import total_momentum
+    from meso_tpu_torch.parallel import (distribute_state_2d,
+                                         distribute_state_3d, launch)
+    jobs, starts = [], {}
+    for label in labels:
+        base, devs, (warmup, timed, trace) = BRICK_PATHS[label]
+        system, params, state = dd_start(base)
+        system, dcfg = brick_domain(label, system, state)
+        dist = distribute_state_2d if len(devs) == 2 else distribute_state_3d
+        bricks = dist(state, dcfg, device=DEVICE)
+        mass = params.mass[state.typ.long()]
+        starts[label] = {
+            "n": int(state.n_valid()),
+            "c_sum": float(torch.sum(state.C[state.mask]))
+            if state.C is not None else None,
+            "momentum": total_momentum(state.v, mass, state.mask).cpu()}
+        job = dict(system=system, params=launch.params_on(params, "cpu"),
+                   states=[launch.on_device(b, "cpu") for b in bricks],
+                   dcfg=dcfg, nchunks=timed, warmup=warmup,
+                   mesh=(devs, dcfg.axes))
+        if trace:
+            job.update(then=brick_observe, then_args=(label, dict(
+                trace=trace, rounds=1, profile=0)))
+        jobs.append(job)
+        del system, params, state, bricks
+        torch.cuda.empty_cache()
+    return jobs, starts
+
+
+def dpsp_job():
+    """DP x SP: the classic two-rank start, ENSEMBLE_REPLICAS replicas
+    (tags reseeded) x DPSP_SLABS slabs through K4 with the border/inner
+    split, as the 1-D classic path runs."""
+    from meso_tpu_torch.parallel import distribute_ensemble_spatial, launch
+    from meso_tpu_torch.parallel.ensemble import ensemble_spatial_rank
+    system, params, state = dd_start("classic")
+    system, dcfg = dd_domain(system, state, DPSP_SLABS)
+    reps = distribute_ensemble_spatial(state, ENSEMBLE_REPLICAS, dcfg,
+                                       device=DEVICE)
+    reps = [[launch.on_device(s, "cpu") for s in slabs] for slabs in reps]
+    return (ensemble_spatial_rank,
+            (system, launch.params_on(params, "cpu"), reps, dcfg,
+             DPSP_CHUNKS)), int(state.n_valid())
+
+
+def dpsp_checks(per, n):
+    """DP x SP's gates: per replica N conserved with its own tags, no
+    overflow, a finite state, the worst skin ratio below 1, and K4's three
+    calls (interior and two edges) a step on every rank with one hash
+    launch a step."""
+    import torch
+    from meso_tpu_torch.parallel import collect_state
+    ranks = len(per)
+    steps = DPSP_CHUNKS * DD_EVERY
+    launches = {k: sum(r["launches"][k] for r in per)
+                for k in per[0]["launches"]}
+    seconds = max(r["seconds"] for r in per)
+    res = {"ranks": ranks, "replicas": ENSEMBLE_REPLICAS,
+           "slabs": DPSP_SLABS, "steps": steps, "launches": launches,
+           "diag": per[0]["diag"],
+           "ms_per_step_ranks_sharing_one_card": 1e3 * seconds / steps}
+    checks = {
+        "K4 launches == 3 x ranks x steps, no other pair kernel":
+            pair_launches(launches) == {
+                **{k: 0 for k in pair_launches(launches)},
+                "pair_halo_dpd": 3 * ranks * steps},
+        "one hash launch per force evaluation":
+            launches["particle_hash"] == ranks * steps,
+        "overflow == 0": per[0]["diag"]["overflow"] == 0,
+        "worst_skin_ratio < 1": per[0]["diag"]["worst_skin_ratio"] < 1.0}
+    for r in range(ENSEMBLE_REPLICAS):
+        final = collect_state([q["state"] for q in
+                               per[r * DPSP_SLABS:(r + 1) * DPSP_SLABS]])
+        m = final.mask
+        tags = torch.sort(final.tag[m]).values
+        checks[f"replica {r}: N conserved, its own tags"] = int(
+            m.sum()) == n and bool(torch.equal(
+                tags, torch.arange(1, n + 1, dtype=tags.dtype) + r * n))
+        checks[f"replica {r}: state finite"] = bool(
+            torch.isfinite(final.x).all() and torch.isfinite(final.v).all())
+    return res, [k for k, ok in checks.items() if not ok]
+
+
+def phase_ensemble():
+    """run_ensemble: ENSEMBLE_REPLICAS replicas (tags reseeded) of the
+    classic two-rank start on K1 (spill buckets, the builder's capacity,
+    a rebuild every DD_EVERY steps), one a rank, ENSEMBLE_STEPS steps;
+    against ``run_bucket_fixed`` of the same start in this process.
+    Gates: replica 0 bitwise equal to the single-card run, K1 and the hash
+    launched once a step on every rank and no other pair kernel, no
+    overflow, the worst skin ratio below 1, every replica finite with its
+    own tags, replica 1 decorrelated (max |dx| by tag, the minimum image,
+    above 0.1)."""
+    import torch
+    from meso_tpu_torch.core.system import run_bucket_fixed
+    from meso_tpu_torch.parallel import launch, replicate_state
+    from meso_tpu_torch.parallel.ensemble import ensemble_rank
+    system, params, state = dd_start("classic")
+    system = system.replace(pair_kernel="v3")
+    nchunks = ENSEMBLE_STEPS // DD_EVERY
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single, _ = run_bucket_fixed(system, params, state, nchunks, DD_EVERY)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_launches = read_launches()
+    reps = [launch.on_device(r, "cpu")
+            for r in replicate_state(state, ENSEMBLE_REPLICAS)]
+    t0 = time.perf_counter()
+    per = launch.spawn(ensemble_rank, ENSEMBLE_REPLICAS,
+                       BRICKS_DIR / "ensemble",
+                       args=(system, launch.params_on(params, "cpu"), reps,
+                             nchunks * DD_EVERY),
+                       device=DEVICE, timeout_s=BRICK_SPAWN_TIMEOUT_S,
+                       op_timeout_s=DD_OP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    single = launch.on_device(single, "cpu")
+    steps = nchunks * DD_EVERY
+    launches = {k: sum(r["launches"][k] for r in per)
+                for k in per[0]["launches"]}
+    r0, r1 = per[0]["state"], per[1]["state"]
+    n = int(state.n_valid())
+    x0, x1 = by_tag(r0, r0.x), by_tag(r1, r1.x)
+    res = {"replicas": ENSEMBLE_REPLICAS, "n_particles": n, "steps": steps,
+           "capacity": system.cells.capacity, "launches": launches,
+           "diags": [r["diag"] for r in per], "ke_mean": per[0]["ke_mean"],
+           "ms_per_step_replicas_sharing_one_card":
+               1e3 * max(r["seconds"] for r in per) / steps,
+           "single_ms_per_step": 1e3 * single_s / steps,
+           "replica1_max_dx": float(torch.remainder(
+               x1 - x0 + 0.5 * L_MAIN, L_MAIN).sub(0.5 * L_MAIN).abs().max()),
+           "spawn_s": spawn_s}
+    checks = {
+        "replica 0 bitwise equal to the single-card run": all(
+            torch.equal(getattr(r0, f), getattr(single, f))
+            for f in ("x", "v", "f", "tag", "mask", "image")),
+        "K1 and the hash once a step on every rank, no other pair kernel":
+            pair_launches(launches) == {
+                **{k: 0 for k in pair_launches(launches)},
+                "pair_dpd_v3": ENSEMBLE_REPLICAS * steps}
+            and launches["particle_hash"] == ENSEMBLE_REPLICAS * steps
+            and single_launches["pair_dpd_v3"] == steps,
+        "overflow == 0": all(r["diag"]["bucket_overflow"] == 0
+                             for r in per),
+        "worst_skin_ratio < 1": all(r["diag"]["worst_skin_ratio"] < 1.0
+                                    for r in per),
+        "replicas finite, their own tags": all(
+            bool(torch.isfinite(r["state"].x).all())
+            and int(r["state"].mask.sum()) == n for r in per)
+            and int(r1.tag[r1.mask].min()) == n + 1,
+        "replica 1 decorrelated": res["replica1_max_dx"] > 0.1}
+    say("bricks-ensemble", **res)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bricks-ensemble failed: {failed}")
+    return res
+
+
+def phase_bricks():
+    """The 2-D and 3-D bricks, the replica ensemble and the dry run at
+    1,029,000 particles, the ranks sharing the card through gloo. Four
+    ranks (one start of the processes, ``launch.slab_runs``): classic-2d
+    and polymer-2d through K4 with ext ("x", "y") (the polymer with
+    exclusions and bonded ghost rows), edpd-2d and tdpd-2d through the
+    sweep, and DP x SP; eight ranks: classic-3d through K4 with ext ("x",
+    "y", "z"); then run_ensemble on two ranks and
+    ``dryrun_multichip(DRYRUN_RANKS)``. Each K4 path's kernel is held
+    against its plain version on rank 0's real extended planes and timed
+    (``brick_kernel_check``). ms/step are of ranks sharing one card: not a
+    scaling figure."""
+    import torch
+    from meso_tpu_torch.kernels import _build
+    from meso_tpu_torch.parallel import launch
+    from meso_tpu_torch.parallel.dryrun import dryrun_multichip
+    _build.build()
+    t_phase = time.perf_counter()
+    out, kernels, failures = {}, {}, {}
+    for labels, extra in ((("classic-2d", "polymer-2d", "edpd-2d",
+                            "tdpd-2d"), True), (("classic-3d",), False)):
+        t0 = time.perf_counter()
+        jobs, starts = brick_jobs(labels)
+        if extra:
+            job, n_dpsp = dpsp_job()
+            jobs.append(job)
+        n_ranks = len(jobs[0]["states"])
+        ranks = launch.spawn(launch.slab_runs, n_ranks,
+                             BRICKS_DIR / f"ranks{n_ranks}", args=(jobs,),
+                             device=DEVICE,
+                             timeout_s=BRICK_SPAWN_TIMEOUT_S,
+                             op_timeout_s=DD_OP_TIMEOUT_S)
+        for j, label in enumerate(labels):
+            per = [r[j] for r in ranks]
+            res, failed = brick_path_checks(label, jobs[j], per,
+                                            starts[label])
+            if "planes" in per[0]:
+                box = jobs[j]["states"][0].box
+                kernels[label] = brick_kernel_check(
+                    label, per[0]["planes"], per[0]["planes_step"],
+                    jobs[j]["system"],
+                    launch.params_on(jobs[j]["params"], DEVICE),
+                    jobs[j]["dcfg"], box.replace(lo=box.lo.to(DEVICE),
+                                                 hi=box.hi.to(DEVICE)))
+            out[label] = res
+            say(f"bricks-{label}", **res)
+            if failed:
+                failures[label] = failed
+        if extra:
+            res, failed = dpsp_checks([r[len(labels)] for r in ranks],
+                                      n_dpsp)
+            out["dpsp"] = res
+            say("bricks-dpsp", **res)
+            if failed:
+                failures["dpsp"] = failed
+        out[f"spawn_{n_ranks}_ranks_s"] = time.perf_counter() - t0
+        say("bricks-ranks", ranks=n_ranks,
+            seconds=out[f"spawn_{n_ranks}_ranks_s"])
+        del ranks, jobs
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"brick paths failed: {failures}")
+    out["ensemble"] = phase_ensemble()
+    t0 = time.perf_counter()
+    report = dryrun_multichip(DRYRUN_RANKS, device=DEVICE)
+    out["dryrun"] = {"seconds": time.perf_counter() - t0, **{
+        name: {k: v for k, v in leg.items() if k != "diags"}
+        for name, leg in report.items()}}
+    say("bricks-dryrun", **out["dryrun"])
+    k4 = report["slabs_k4"]["launches"].get("pair_halo_dpd", 0)
+    if k4 == 0:
+        raise AssertionError("the dry run's K4 leg launched no K4")
+    out["seconds"] = time.perf_counter() - t_phase
+    say("bricks", seconds=out["seconds"])
     return out, kernels
 
 
@@ -5068,6 +5544,28 @@ def kernel_records(record):
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": None,
              **brick_row_fields(rec)})
+    # K4 on the brick paths (one call a step over the brick extended along
+    # x and y, or x, y and z): the numbers on rank 0's extended planes, the
+    # launches of all ranks on that path
+    bk, bp = record["bricks_kernels"], record["bricks"]
+    for label in ("classic-2d", "polymer-2d", "classic-3d"):
+        rec = bk[label]
+        rows.append(
+            {"name": f"pair_halo_dpd/{label}", "path": label,
+             "route": "cuda", "source": "meso_tpu_torch/csrc/pair_brick.cu",
+             "replaces": HALO_REPLACES["pair_halo_dpd"],
+             "launches": bp[label]["launches"]["pair_halo_dpd"],
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": None,
+             **brick_row_fields(rec)})
+    for row in rows:
+        if row["name"] in ("pair_dpd_v3", "particle_hash"):
+            row["ensemble_launches"] = bp["ensemble"]["launches"][row["name"]]
+        if row["name"] == "pair_halo_dpd":
+            row["dpsp_launches"] = bp["dpsp"]["launches"]["pair_halo_dpd"]
+            row["dryrun_launches"] = bp["dryrun"]["slabs_k4"][
+                "launches"]["pair_halo_dpd"]
     rows += record["probes"]["rows"]
     # the launches of the CLI phase's runs: the golden decks on the kernels
     # and the 1M deck
@@ -5107,6 +5605,8 @@ def main(argv):
         return 0
     if "--cli-only" in argv:
         record["cli"] = phase_cli()
+    elif "--bricks-only" in argv:
+        record["bricks"], record["bricks_kernels"] = phase_bricks()
     elif "--decay-from" in argv:
         record["decay_from"] = phase_decay_from(
             argv[argv.index("--decay-from") + 1])
@@ -5124,7 +5624,8 @@ def main(argv):
         record["brick_tiles"] = phase_brick_tiles()
         record["selector_kernels_l70"] = phase_selector_kernels_l70()
         record["probes"] = phase_probes(record["kernels"]["l70"])
-    if not set(argv) & {"--decay-from", "--sweep-only", "--cli-only"}:
+    if not set(argv) & {"--decay-from", "--sweep-only", "--cli-only",
+                        "--bricks-only"}:
         record["dd_kernels"] = phase_dd_kernels()
     if "--dd-only" in argv:
         record["dd_ring_of_one"] = phase_dd_ring_of_one()
@@ -5136,7 +5637,8 @@ def main(argv):
         record["nlist_path"] = phase_nlist_path()
         record["bucket_paths"] = phase_bucket_paths()
         record["dd_bucket"] = phase_dd_bucket()
-    elif not set(argv) & {"--kernels-only", "--decay-from", "--cli-only"}:
+    elif not set(argv) & {"--kernels-only", "--decay-from", "--cli-only",
+                          "--bricks-only"}:
         record["main_path"] = phase_main_path()
         record["transport_physics"] = phase_transport_physics()
         record["transport_full"] = {m: phase_transport_full(m)
@@ -5155,6 +5657,7 @@ def main(argv):
         record["banded_physics"] = phase_banded_physics()
         record["dd_ring_of_one"] = phase_dd_ring_of_one()
         record["dd_paths"], record["dd_kernels_l70"] = phase_dd_paths()
+        record["bricks"], record["bricks_kernels"] = phase_bricks()
         record["nlist_path"] = phase_nlist_path()
         record["bucket_paths"] = phase_bucket_paths()
         record["dd_bucket"] = phase_dd_bucket()
@@ -5165,7 +5668,7 @@ def main(argv):
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if set(argv) & {"--kernels-only", "--decay-from", "--dd-only",
-                    "--sweep-only", "--cli-only"}:
+                    "--sweep-only", "--cli-only", "--bricks-only"}:
         return 0
     print(json.dumps(kernel_records(record)), flush=True)
     print(info["card"], flush=True)

@@ -1,6 +1,7 @@
-"""The ring of ranks that the 1-D decomposition runs on: the port's
-counterpart of ``lax.ppermute`` on the ring, ``lax.psum`` and
-``lax.axis_index`` (``meso_tpu/parallel/domain.py``).
+"""The rings and meshes of ranks that the decompositions run on: the
+port's counterpart of ``lax.ppermute`` on a mesh axis, ``lax.psum`` and
+``lax.axis_index`` (``meso_tpu/parallel/domain.py``, ``domain2d.py``,
+``domain3d.py``, ``ensemble.py``).
 
 A ``Ring`` wraps a ``torch.distributed`` process group. ``exchange`` sends
 one list of tensors to each named neighbour (+1: the next rank, -1: the
@@ -19,6 +20,16 @@ directly. ``exchange`` returns before the host waits, so a caller can
 queue device work (the interior force launch) between the copy off the
 card and ``Pending.wait``. A ring of one rank returns its input, as
 ``ppermute`` does on one device, and needs no process group.
+
+A ``Mesh`` arranges the ranks of the default group as an array of shape
+(n0, n1[, n2]) in row-major order, as a JAX ``Mesh`` of that shape holds
+its devices, and gives each named axis a ``Ring``: the ranks that differ
+only in that axis's coordinate, as one process group
+(``dist.new_group``, which every rank calls for every such group, in the
+same order). A sub-ring's neighbours are ranks of its own group; its
+point-to-point operations name them by their global rank. ``all_sum`` and
+``all_max`` over several axes reduce over each axis's ring in turn, as
+JAX's nested ``psum`` does.
 """
 
 from __future__ import annotations
@@ -92,6 +103,13 @@ class Ring:
     def single() -> "Ring":
         return Ring(_single=True)
 
+    def global_rank(self, group_rank: int) -> int:
+        """The default group's rank of this ring's rank ``group_rank``:
+        ``P2POp`` names its peer so."""
+        if self.group is None:
+            return group_rank
+        return dist.get_global_rank(self.group, group_rank)
+
     def _staged(self, device: torch.device) -> bool:
         return self.backend == "gloo" and device.type != "cpu"
 
@@ -126,12 +144,14 @@ class Ring:
             ops = []
             for d in bufs:
                 tag = 1 if d > 0 else 2
-                ops.append(dist.P2POp(dist.isend, bufs[d],
-                                      (self.rank + d) % self.size,
-                                      self.group, tag))
-                ops.append(dist.P2POp(dist.irecv, recvs[d],
-                                      (self.rank - d) % self.size,
-                                      self.group, tag))
+                ops.append(dist.P2POp(
+                    dist.isend, bufs[d],
+                    self.global_rank((self.rank + d) % self.size),
+                    self.group, tag))
+                ops.append(dist.P2POp(
+                    dist.irecv, recvs[d],
+                    self.global_rank((self.rank - d) % self.size),
+                    self.group, tag))
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
             out = {}
@@ -176,3 +196,63 @@ def make_ring(world_size: int, rank: int, init_method: str,
                             world_size=world_size,
                             timeout=timedelta(seconds=timeout_s))
     return Ring()
+
+
+class Mesh:
+    """The ranks of the default group as a row-major array of ``shape``
+    with one named ``Ring`` per axis; every rank makes it with the same
+    arguments. ``coords[name]`` is this rank's index along an axis
+    (``lax.axis_index``); ``ring(name)`` the ranks of its line along that
+    axis, whose ring rank is that index (a ring of one for an axis of
+    one rank). Stands where ``make_mesh_2d``, ``make_mesh_3d`` and the
+    ensembles' meshes stood."""
+
+    def __init__(self, shape: tuple, names: tuple):
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh shape {shape} and axis names {names} "
+                             "must pair up, the names distinct")
+        self.shape, self.names = tuple(shape), tuple(names)
+        size = 1
+        for n in self.shape:
+            size *= n
+        world = Ring()
+        self.rank = world.rank
+        if world.size != size:
+            raise ValueError(f"mesh {shape} needs {size} ranks, the group "
+                             f"has {world.size}")
+        self.size = size
+        strides = [1] * len(shape)
+        for a in range(len(shape) - 2, -1, -1):
+            strides[a] = strides[a + 1] * shape[a + 1]
+        self.coords = {nm: (self.rank // st) % n for nm, st, n in
+                       zip(names, strides, shape)}
+        self.rings = {}
+        for a, (nm, n) in enumerate(zip(names, shape)):
+            if n == 1:
+                self.rings[nm] = Ring.single()
+                continue
+            # every line of ranks along axis a, each a group, created by
+            # every rank in the same order
+            others = [r for r in range(size) if (r // strides[a]) % n == 0]
+            for first in others:
+                line = [first + i * strides[a] for i in range(n)]
+                group = dist.new_group(line)
+                if self.rank in line:
+                    self.rings[nm] = Ring(group)
+
+    def ring(self, name: str) -> Ring:
+        return self.rings[name]
+
+    def _reduce(self, t, axes, fn):
+        for name in self.names if axes is None else axes:
+            t = fn(self.rings[name], t)
+        return t
+
+    def all_sum(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """``psum`` over ``axes`` (every axis where None), one axis's ring
+        at a time."""
+        return self._reduce(t, axes, Ring.all_sum)
+
+    def all_max(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """``pmax`` over ``axes`` (every axis where None)."""
+        return self._reduce(t, axes, Ring.all_max)

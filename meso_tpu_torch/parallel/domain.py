@@ -31,12 +31,10 @@ import numpy as np
 import torch
 
 from meso_tpu_torch.core.integrate import final_integrate, initial_integrate
-from meso_tpu_torch.core.state import State, zeros_state
-from meso_tpu_torch.core.system import (_FIT_EXTRA_SLOTS, System,
-                                        SystemParams, _move_mask, _per_type,
-                                        _post_forces)
+from meso_tpu_torch.core.state import State
+from meso_tpu_torch.core.system import (System, SystemParams, _move_mask,
+                                        _per_type, _post_forces)
 from meso_tpu_torch.kernels.common import check_strict
-from meso_tpu_torch.neighbor.bucket_layout import _place, n_rows, spill_assign
 from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
 from meso_tpu_torch.ops.fixes import FixMomentumZero
 from meso_tpu_torch.ops.bucket_dpd import fast_hash, require_strict
@@ -61,60 +59,25 @@ class DomainConfig:
     def slab_w(self) -> float:
         return self.lx_global / self.n_dev
 
+    # the decomposed axes as the bricks (``parallel/bricks.py``) read them
+    axes = ("x",)
+
+    @property
+    def devs(self) -> tuple:
+        return (self.n_dev,)
+
+    @property
+    def spans(self) -> tuple:
+        return (self.lx_global,)
+
+    @property
+    def slab_widths(self) -> tuple:
+        return (self.slab_w,)
+
 
 def _f32(v) -> float:
     """A Python float holding the float32 rounding of ``v``."""
     return float(np.float32(v))
-
-
-# ---------------------------------------------------------------------------
-# local rebuild (slab frame)
-# ---------------------------------------------------------------------------
-
-def _rebuild_slab(state: State, cfg: CellConfig, slab_lo: float,
-                  side_x: float):
-    """rebuild_buckets with x-cells indexed relative to the slab origin.
-    Spill buckets spill right within the slab only (``wrap=False``): its
-    first and last columns sit in different x-windows, and the halo ships
-    only the boundary columns. Returns (state of n_rows(cfg) rows,
-    overflow)."""
-    nx, ny, nz = cfg.ncell
-    k = cfg.capacity
-    nr = ny * nz * k * nx
-    n_in = state.n
-    dev = state.device
-    x = state.x
-    lens = state.box.lengths
-    cx = torch.clamp(((x[:, 0] - slab_lo) / side_x).to(torch.int32), 0,
-                     nx - 1).to(torch.int64)
-    cy = torch.clamp((x[:, 1] / lens[1] * ny).to(torch.int32), 0,
-                     ny - 1).to(torch.int64)
-    cz = torch.clamp((x[:, 2] / lens[2] * nz).to(torch.int32), 0,
-                     nz - 1).to(torch.int64)
-    key = torch.where(state.mask, (cy * nz + cz) * nx + cx, nx * ny * nz)
-    key_s, order = torch.sort(key, stable=True)
-    valid_s = state.mask[order]
-    base = key_s // nx
-    cxs = key_s - base * nx
-    iota = torch.arange(n_in, dtype=torch.int64, device=dev)
-    if cfg.spill:
-        target, _, overflow = spill_assign(base, cxs, valid_s, n_in, nx, k,
-                                           ny * nz, wrap=False)
-    else:
-        starts = torch.searchsorted(
-            key_s, torch.arange(nx * ny * nz + 1, dtype=key_s.dtype,
-                                device=dev), side="left")
-        rank = iota - starts[torch.clamp(key_s, max=nx * ny * nz)]
-        fits = valid_s & (rank < k)
-        overflow = torch.sum(valid_s & (rank >= k))
-        target = (base * k + torch.clamp(rank, max=k - 1)) * nx + cxs
-        target = torch.where(fits, target, nr + iota)
-    # out-of-range targets write the trash slot nr, which is dropped
-    idx_map = torch.full((nr + 1,), -1, dtype=torch.int64, device=dev)
-    idx_map[torch.clamp(target, max=nr)] = iota
-    idx_map = idx_map[:nr]
-    return _place(state, order[torch.clamp(idx_map, min=0)], idx_map >= 0,
-                  nr), overflow
 
 
 # ---------------------------------------------------------------------------
@@ -141,22 +104,32 @@ def _pack(state: State, sel, cap: int):
 
 
 def _migrate(state: State, dcfg: DomainConfig, ring: Ring):
-    """Ship the rows whose x left the slab to the ring neighbours. Returns
-    the merged (nr + 2 cap_mig)-row state and the overflow counter: rows
-    beyond a buffer's capacity and rows more than one slab away."""
-    n = dcfg.n_dev
-    tgt = torch.clamp((state.x[:, 0] / dcfg.slab_w).to(torch.int32), 0,
-                      n - 1)
+    """Ship the rows whose x left the slab to the ring neighbours
+    (``_migrate_axis`` along x)."""
+    return _migrate_axis(state, ring, state.x[:, 0], dcfg.slab_w,
+                         dcfg.cap_mig)
+
+
+def _migrate_axis(state: State, ring: Ring, coord, slab_w: float, cap: int):
+    """Ship the rows whose ``coord`` (their position along one mesh axis)
+    left this rank's slab of width ``slab_w`` to the axis ring's
+    neighbours, through buffers of ``cap`` rows a direction. Returns the
+    merged (n + 2 cap)-row state and the overflow counter: rows beyond a
+    buffer's capacity and rows more than one slab away. A ring of one
+    moves nothing (the JAX package sends every row left to itself there
+    and drops those beyond cap_mig: ROADMAP Queue 3, R10); at two ranks,
+    where both neighbours are the same rank, every move goes right, so a
+    crosser is shipped once."""
+    n = ring.size
+    if n == 1:
+        return state, torch.zeros((), dtype=torch.int64, device=state.device)
+    tgt = torch.clamp((coord / slab_w).to(torch.int32), 0, n - 1)
     delta = torch.remainder(tgt - ring.rank, n)
     go_right = state.mask & (delta == 1)
-    # n == 2: both neighbours are the same rank; all moves go right, so a
-    # crosser is shipped once. n == 1: nothing moves (the JAX package
-    # sends every row left to itself there and drops those beyond cap_mig:
-    # ROADMAP Queue 3, R10)
-    go_left = state.mask & (delta == n - 1) & (delta != 0) & ~go_right
+    go_left = state.mask & (delta == n - 1) & ~go_right
     too_far = state.mask & (delta != 0) & ~go_right & ~go_left
-    buf_r, of_r = _pack(state, go_right, dcfg.cap_mig)
-    buf_l, of_l = _pack(state, go_left, dcfg.cap_mig)
+    buf_r, of_r = _pack(state, go_right, cap)
+    buf_l, of_l = _pack(state, go_left, cap)
     names = list(buf_r)
     got = ring.exchange({1: [buf_r[f] for f in names],
                          -1: [buf_l[f] for f in names]}).wait()
@@ -480,6 +453,42 @@ def _step_local(system: System, params: SystemParams, dcfg: DomainConfig,
                 ring: Ring, state: State):
     """One distributed step; returns (new_state, bonded-missing count as a
     tensor). Positions are box-wrapped every step (migration reads them)."""
+    if system.force_path == "pallas_banded":
+        check_strict(dcfg.cells)   # R7, for every model
+
+    def forces(x1, v_tilde, step):
+        if system.model == "dpd":
+            if system.force_path in ("pallas", "pallas_banded"):
+                f, _ = _halo_forces_pallas(
+                    state, system, params, dcfg, ring, step, x1, v_tilde,
+                    banded=system.force_path == "pallas_banded")
+            else:
+                f, _ = _halo_forces(state, system, params, dcfg, ring, step,
+                                    x1, v_tilde)
+            return f, {}
+        if system.force_path == "pallas":
+            return _halo_forces_model_pallas(state, system, params, dcfg,
+                                             ring, step, x1, v_tilde,
+                                             state.T, state.C)
+        return _halo_forces_model(state, system, params, dcfg, ring, step,
+                                  x1, v_tilde, state.T, state.C)
+
+    return step_with(system, params, state, forces,
+                     lambda x1, image1: _bonded_distributed(
+                         system, params, dcfg, ring, state, x1, image1),
+                     ring.all_sum)
+
+
+def step_with(system: System, params: SystemParams, state: State, forces,
+              bonded, reduce_sum):
+    """One step of a decomposition, in the single-card step's hook order:
+    initial_integrate, the post_integrate fixes, ``forces(x1, v_tilde,
+    step)`` (f and the model's aux), ``bonded(x1, image1)`` (f and the
+    missing-partner count) where the system has bonds, the post_force
+    fixes, final_integrate, the T or C update, the end_of_step fixes
+    (FixMomentumZero over the whole box through ``reduce_sum``, the sum
+    over every rank). Returns (new_state, bonded-missing count as a
+    tensor)."""
     inv_m = _per_type(params.inv_mass, state.typ)
     move = _move_mask(system, state.typ, state.mask)
     new_step = state.step + 1
@@ -490,29 +499,10 @@ def _step_local(system: System, params: SystemParams, dcfg: DomainConfig,
         if hasattr(fx, "post_integrate"):
             x1, image1, v_tilde = fx.post_integrate(
                 system, params, state, x1, image1, v_tilde)
-    if system.force_path == "pallas_banded":
-        check_strict(dcfg.cells)   # R7, for every model
-    if system.model == "dpd":
-        if system.force_path in ("pallas", "pallas_banded"):
-            f_new, _ = _halo_forces_pallas(
-                state, system, params, dcfg, ring, new_step, x1, v_tilde,
-                banded=system.force_path == "pallas_banded")
-        else:
-            f_new, _ = _halo_forces(state, system, params, dcfg, ring,
-                                    new_step, x1, v_tilde)
-        aux = {}
-    elif system.force_path == "pallas":
-        f_new, aux = _halo_forces_model_pallas(state, system, params, dcfg,
-                                               ring, new_step, x1, v_tilde,
-                                               state.T, state.C)
-    else:
-        f_new, aux = _halo_forces_model(state, system, params, dcfg, ring,
-                                        new_step, x1, v_tilde, state.T,
-                                        state.C)
+    f_new, aux = forces(x1, v_tilde, new_step)
     missing = torch.zeros((), dtype=torch.int32, device=state.device)
     if system.bond_style is not None:
-        f_b, missing = _bonded_distributed(system, params, dcfg, ring, state,
-                                           x1, image1)
+        f_b, missing = bonded(x1, image1)
         f_new = f_new + f_b
     f_new = _post_forces(system, params, state, x1, v_tilde, f_new,
                          skip_bonded=True, image=image1)
@@ -532,7 +522,7 @@ def _step_local(system: System, params: SystemParams, dcfg: DomainConfig,
     for fx in system.fixes:
         if isinstance(fx, FixMomentumZero):   # the drift of the whole box
             new_state = fx.end_of_step(system, params, new_state,
-                                       reduce_sum=ring.all_sum)
+                                       reduce_sum=reduce_sum)
         elif hasattr(fx, "end_of_step"):
             new_state = fx.end_of_step(system, params, new_state)
     return new_state, missing
@@ -549,12 +539,13 @@ def run_distributed(system: System, params: SystemParams, state: State,
     largest per-chunk "overflow" (migration and bucket) and
     "bonded_missing" counts over the ring, and "worst_skin_ratio", the
     largest displacement since a rebuild over every rank, over skin/2."""
-    slab_lo = _f32(np.float32(ring.rank) * np.float32(dcfg.slab_w))
-    side_x = dcfg.slab_w / dcfg.ncx_local
+    from meso_tpu_torch.parallel.bricks import (origins_of, rebuild_brick,
+                                                sides_of)
+    origins, sides = origins_of(dcfg, {"x": ring.rank}), sides_of(dcfg)
     counts, disps = [], []
     for _ in range(nchunks):
         merged, of_mig = _migrate(state, dcfg, ring)
-        state, of_cell = _rebuild_slab(merged, dcfg.cells, slab_lo, side_x)
+        state, of_cell = rebuild_brick(merged, dcfg.cells, origins, sides)
         x_ref = state.x
         misses = []
         for _ in range(dcfg.rebuild_every):
@@ -601,53 +592,13 @@ def build_domain(system: System, n_dev: int, cap_mig: int | None = None,
 def distribute_state(state: State, dcfg: DomainConfig,
                      device="cuda") -> list[State]:
     """Split a global state into per-rank slab states, bucket-ordered in
-    the slab frame, one per rank, on ``device`` (the card unless the caller
-    names another; the CPU tests pass "cpu"). Raises where a slab's
-    buckets overflow."""
-    slabs, overflow = _slabs(state, dcfg, device)
-    for d, of in enumerate(overflow):
-        if of:
-            raise ValueError(f"device {d}: bucket overflow {of}")
-    return slabs
-
-
-def _slabs(state: State, dcfg: DomainConfig, device):
-    """(per-rank slab states, the bucket overflow of each)."""
-    n = dcfg.n_dev
-    nr_local = n_rows(dcfg.cells)
-    mask = state.mask.cpu().numpy()
-    x0 = state.x[:, 0].cpu().numpy()
-    slab = np.clip((x0 / dcfg.slab_w).astype(int), 0, n - 1)
-    box = state.box.replace(lo=state.box.lo.to(device),
-                            hi=state.box.hi.to(device))
-    side_x = dcfg.slab_w / dcfg.ncx_local
-    out, overflow = [], []
-    for d in range(n):
-        idx = torch.from_numpy(np.where(mask & (slab == d))[0])
-        if len(idx) > nr_local:
-            raise ValueError(f"device {d}: {len(idx)} rows > {nr_local}")
-        local = zeros_state(nr_local, box, n_species=0 if state.C is None
-                            else state.C.shape[1],
-                            with_energy=state.T is not None)
-
-        def take(a):
-            if a is None:
-                return None
-            sel = a.cpu()[idx]
-            fill = torch.zeros((nr_local - len(idx),) + sel.shape[1:],
-                               dtype=sel.dtype)
-            return torch.cat([sel, fill]).to(device)
-
-        local = local.replace(
-            **{f: take(getattr(state, f)) for f in
-               ("x", "v", "f", "typ", "tag", "image", "mol", "T", "C")},
-            mask=torch.arange(nr_local, device=device) < len(idx),
-            step=state.step)
-        local, of = _rebuild_slab(local, dcfg.cells, _f32(d * dcfg.slab_w),
-                                  side_x)
-        out.append(local)
-        overflow.append(int(of))
-    return out, overflow
+    the slab frame (x-cells from the slab's origin; spill buckets spill
+    right within the slab only: its first and last columns sit in
+    different x-windows, and the halo ships only the boundary columns),
+    one per rank, on ``device`` (the card unless the caller names another;
+    the CPU tests pass "cpu"). Raises where a slab's buckets overflow."""
+    from meso_tpu_torch.parallel.bricks import distribute_bricks
+    return distribute_bricks(state, dcfg, device)
 
 
 def fit_slab_capacity(system: System, state: State, n_dev: int,
@@ -659,13 +610,9 @@ def fit_slab_capacity(system: System, state: State, n_dev: int,
     the decomposition than on one card (``core.system.fit_capacity``).
     Where none fits, the system comes back unchanged and
     ``distribute_state`` raises."""
-    cfg = system.cells
-    for k in range(cfg.capacity, cfg.capacity + _FIT_EXTRA_SLOTS + 1):
-        fitted = system.replace(cells=cfg.replace(capacity=k))
-        dcfg = build_domain(fitted, n_dev, lx_global=lx_global)
-        if not any(_slabs(state, dcfg, state.device)[1]):
-            return fitted
-    return system
+    from meso_tpu_torch.parallel.bricks import fit_brick_capacity
+    return fit_brick_capacity(
+        system, state, lambda s: build_domain(s, n_dev, lx_global=lx_global))
 
 
 _ROW_FIELDS = ["x", "v", "f", "typ", "tag", "image", "mask", "mol",

@@ -9,7 +9,9 @@ process that already runs threads, such as a test process with JAX loaded,
 must not fork), joins them into a gloo process group through a
 ``file://`` rendezvous in ``workdir`` (no TCP port, so concurrent runs do
 not collide) and calls ``target(ring, device, *args)`` in each, with
-``args`` read from a file that the parent wrote. Every rank runs on the
+``args`` read from a file that the parent wrote; with ``mesh`` (a shape
+and its axis names) the target takes the ranks' ``comm.Mesh`` of that
+shape in place of the ring. Every rank runs on the
 device the caller names (``"cuda"``: the ranks share the card; ``"cpu"``:
 each rank takes one thread). Each rank's return value comes back through
 a file. A rank that raises makes ``spawn`` raise
@@ -28,11 +30,11 @@ from pathlib import Path
 import torch
 import torch.multiprocessing as mp
 
-from meso_tpu_torch.parallel.comm import make_ring
+from meso_tpu_torch.parallel.comm import Mesh, make_ring
 
 
 def _child(rank: int, target, world_size: int, workdir: str, device: str,
-           op_timeout_s: float) -> None:
+           op_timeout_s: float, mesh) -> None:
     import torch.distributed as dist
     work = Path(workdir)
     dev = torch.device(device)
@@ -44,7 +46,8 @@ def _child(rank: int, target, world_size: int, workdir: str, device: str,
     ring = make_ring(world_size, rank, f"file://{work / 'rendezvous'}",
                      timeout_s=op_timeout_s)
     try:
-        out = target(ring, device, *args)
+        out = target(ring if mesh is None else Mesh(*mesh), device,
+                     *args)
     finally:
         dist.destroy_process_group()
     torch.save(out, work / f"rank{rank}.pt")
@@ -52,10 +55,12 @@ def _child(rank: int, target, world_size: int, workdir: str, device: str,
 
 def spawn(target, world_size: int, workdir, args: tuple = (),
           device: str = "cuda", timeout_s: float = 120.0,
-          op_timeout_s: float = 30.0) -> list:
-    """Run ``target(ring, device, *args)`` on ``world_size`` ranks; returns
-    their return values in rank order. ``target`` must be importable by
-    name (a module-level function)."""
+          op_timeout_s: float = 30.0, mesh: tuple | None = None) -> list:
+    """Run ``target(ring, device, *args)`` on ``world_size`` ranks, or with
+    ``mesh = (shape, names)`` ``target(mesh, device, *args)`` on the
+    ``comm.Mesh`` of that shape; returns their return values in rank
+    order. ``target`` must be importable by name (a module-level
+    function)."""
     work = Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
     for stale in [work / "rendezvous"] + [work / f"rank{r}.pt"
@@ -63,7 +68,8 @@ def spawn(target, world_size: int, workdir, args: tuple = (),
         stale.unlink(missing_ok=True)
     torch.save(tuple(args), work / "args.pt")
     ctx = mp.start_processes(
-        _child, args=(target, world_size, str(work), device, op_timeout_s),
+        _child, args=(target, world_size, str(work), device, op_timeout_s,
+                      mesh),
         nprocs=world_size, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:
@@ -123,17 +129,19 @@ def reset_launches() -> None:
 def slab_run(ring, device: str, system, params, states, dcfg,
              nchunks: int = 1, warmup: int = 0, then=None,
              then_args: tuple = ()) -> dict:
-    """The rank side of a slab run: this rank's slab of ``states`` (one CPU
-    state per rank, from ``distribute_state``) and the parameters onto
-    ``device``, the launch counters set to 0, ``warmup`` chunks of
-    ``run_distributed``, then ``nchunks`` chunks timed on the host clock
-    around synchronised work, then, where given, ``then(ring, system,
-    params, state, dcfg, *then_args)`` (a module-level function returning
-    the state and a dict that joins the result). Returns the final slab
-    state on the CPU, the diag of the warm-up (None without one) and of the
-    timed chunks (as Python numbers), their seconds, and the launch counts
-    of the whole run."""
-    from meso_tpu_torch.parallel.domain import run_distributed
+    """The rank side of a slab or brick run: this rank's part of
+    ``states`` (one CPU state per rank, from ``distribute_state`` or a
+    brick distribute function) and the parameters onto ``device``, the
+    launch counters set to 0, ``warmup`` chunks of ``run_distributed`` (a
+    ``DomainConfig``; ``ring`` a ring) or ``bricks.run_bricks`` (a
+    ``Domain2D`` or ``Domain3D``; ``ring`` the mesh), then ``nchunks``
+    chunks timed on the host clock around synchronised work, then, where
+    given, ``then(ring, system, params, state, dcfg, *then_args)`` (a
+    module-level function returning the state and a dict that joins the
+    result). Returns the final state on the CPU, the diag of the warm-up
+    (None without one) and of the timed chunks (as Python numbers), their
+    seconds, and the launch counts of the whole run."""
+    run_distributed = domain_runner(dcfg)
     cuda = torch.device(device).type == "cuda"
     state = on_device(states[ring.rank], device)
     params = params_on(params, device)
@@ -158,10 +166,53 @@ def slab_run(ring, device: str, system, params, states, dcfg,
             "launches": counted_launches()}
 
 
+def domain_runner(dcfg):
+    """The run function of a decomposition's config: ``run_distributed``
+    for 1-D slabs, ``bricks.run_bricks`` for 2-D and 3-D bricks."""
+    from meso_tpu_torch.parallel.domain import DomainConfig, run_distributed
+    if isinstance(dcfg, DomainConfig):
+        return run_distributed
+    from meso_tpu_torch.parallel.bricks import run_bricks
+    return run_bricks
+
+
 def slab_runs(ring, device: str, jobs) -> list:
-    """``slab_run`` with the keyword arguments of each job in turn: several
-    runs on one start of the processes."""
-    return [slab_run(ring, device, **job) for job in jobs]
+    """Several runs on one start of the processes, each job in turn: a dict
+    of ``slab_run``'s keyword arguments, run on the ring, or, where it
+    names a ``mesh`` (shape, axis names), on that mesh of the ranks; or a
+    (function, args) pair, called as ``function(ring, device, *args)``.
+    Every rank runs the same jobs in the same order (a mesh's groups are
+    made by all of them)."""
+    out = []
+    for job in jobs:
+        if isinstance(job, tuple):
+            fn, args = job
+            out.append(fn(ring, device, *args))
+            continue
+        job = dict(job)
+        mesh = job.pop("mesh", None)
+        out.append(slab_run(ring if mesh is None else Mesh(*mesh),
+                            device, **job))
+    return out
+
+
+def mesh_shifts(ring, device: str, shape: tuple, names: tuple) -> dict:
+    """A probe of ``comm.Mesh``: on the mesh of ``shape``, each rank's id
+    shifted by +1 and -1 along every axis (``ppermute``), and summed and
+    maxed over each axis and over all of them. Returns {axis: (received
+    from the rank before, from the rank after, sum, max)} and the
+    coords."""
+    mesh = Mesh(shape, names)
+    me = torch.tensor([mesh.rank], dtype=torch.int64, device=device)
+    out = {"coords": dict(mesh.coords)}
+    for name in names:
+        ring_a = mesh.ring(name)
+        got = ring_a.exchange({1: [me], -1: [me]}).wait()
+        out[name] = (int(got[1][0]), int(got[-1][0]),
+                     int(mesh.all_sum(me, (name,))),
+                     int(mesh.all_max(me, (name,))))
+    out["all"] = (int(mesh.all_sum(me)), int(mesh.all_max(me)))
+    return out
 
 
 def call(ring, device: str, calls) -> list:

@@ -75,7 +75,12 @@ MODULES = ["meso_tpu_torch", "meso_tpu_torch.bridge",
            "meso_tpu_torch.utils", "meso_tpu_torch.utils.autotune",
            "meso_tpu_torch.utils.debug", "meso_tpu_torch.obs",
            "meso_tpu_torch.obs.msd", "meso_tpu_torch.obs.rdf",
-           "meso_tpu_torch.obs.stress", "meso_tpu_torch.__main__"]
+           "meso_tpu_torch.obs.stress", "meso_tpu_torch.__main__",
+           "meso_tpu_torch.parallel.bricks",
+           "meso_tpu_torch.parallel.domain2d",
+           "meso_tpu_torch.parallel.domain3d",
+           "meso_tpu_torch.parallel.ensemble",
+           "meso_tpu_torch.parallel.dryrun"]
 # top-level names that the port must never bring in: JAX, the JAX package,
 # and the JAX package's probes under tools/ (whether imported as a package
 # or by path)
@@ -442,3 +447,15 @@ def test_halo_wrappers_without_nvcc_raise(monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
     assert _brick.LAUNCHES == before
+
+
+def test_distributed_entry_points_default_to_the_card():
+    """The brick, ensemble and dry-run entry points place their states on
+    the card unless the caller names another device."""
+    from meso_tpu_torch.parallel import (distribute_ensemble_spatial,
+                                         distribute_state_2d,
+                                         distribute_state_3d)
+    from meso_tpu_torch.parallel.dryrun import dryrun_multichip
+    for fn in (distribute_state_2d, distribute_state_3d,
+               distribute_ensemble_spatial, dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
