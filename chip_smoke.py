@@ -21,8 +21,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
    fluids whose rows fill their in-range lists (rho 9 and 32, and
    capacities of 128 spill and 192 strict, which take one block an SM),
    and at the 1M-particle main-path shape (L=70, 2,000,000 bucket rows),
-   with both times, its tile plan and its slot tests a valid row; then at
-   L=70 through the TEA tier and on strict buckets;
+   with both times, its tile plan and its slot tests a valid row, and the
+   spill rebuild's slot-assignment kernel bitwise against its plain
+   version there (with and without the wrap, and on a brick's rows),
+   timed with its plain version; then at L=70 through the TEA tier and
+   on strict buckets;
 4. kernels-transport-l8: the uniform_stream device helper bitwise; the eDPD
    and tDPD kernels K2 and K3 against their plain versions and the port's
    dense oracles in every covered case (fast/tea x spill/strict x
@@ -43,7 +46,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
    equilibration steps, 201 timed steps (timed in TIMED_BLOCKS blocks, each
    block's ms/step reported), then a traced window, in rounds
    of 300 steps, until the kT average has at least 10 effective samples;
-   checks launch counts, overflow (every window), skin ratio (the timed
+   checks launch counts (the slot assignment once a rebuild on spill
+   buckets), overflow (every window), skin ratio (the timed
    window, as bench.py checks it; the others are reported), finiteness
    and kT within 1% of 1 at 3 sigma;
 7. transport-physics: the JAX package's eDPD/tDPD physics gates
@@ -388,9 +392,10 @@ def hash_sass_ops():
 def kernel_modules():
     """The modules whose LAUNCHES count kernel launches: K1-K3 and the
     hash in pair_dpd_v3, the fused and banded selectors' brick kernel in
-    _brick."""
+    _brick, the spill rebuild's slot assignment in bucket_layout."""
     from meso_tpu_torch.kernels import _brick, pair_dpd_v3
-    return (pair_dpd_v3, _brick)
+    from meso_tpu_torch.neighbor import bucket_layout
+    return (pair_dpd_v3, _brick, bucket_layout)
 
 
 def reset_launches():
@@ -411,7 +416,7 @@ def read_launches():
 # uniform_stream probe are not pair kernels)
 def pair_launches(launches):
     return {k: n for k, n in launches.items()
-            if k not in ("particle_hash", "uniform_stream")}
+            if k not in ("particle_hash", "uniform_stream", "spill_assign")}
 
 
 def run(cmd):
@@ -847,6 +852,9 @@ def phase_kernels(ptxas=()):
                                              rounds=rounds)):
             raise AssertionError(f"hash kernel != plain at {tags.numel()} "
                                  f"tags, {rounds} rounds")
+    from meso_tpu_torch.neighbor import bucket_layout as bl
+    assign_args = check_assign(bst, cfg)
+    assign_out = bl.spill_assign(*assign_args)
     ms = {
         "pair_ms": timed_ms(lambda: bucket_forces_pallas_v3(
             *args, rng_mode="fast", need_virial=False), 20),
@@ -868,6 +876,11 @@ def phase_kernels(ptxas=()):
         "hash_plain_ms": timed_ms(lambda: rng.particle_hash(
             bst.tag, step, params.seed), 20),
         "rebuild_sort_ms": timed_ms(lambda: rebuild_buckets(bst, cfg), 10),
+        # the slot assignment on the sort rebuild's inputs: the kernel
+        # (a memset and one launch) and its plain torch version
+        "assign_ms": timed_ms(lambda: bl.spill_assign(*assign_args), 50),
+        "assign_plain_ms": timed_ms(
+            lambda: bl.spill_assign_plain(*assign_args), 10),
     }
     n_rc, _ = pair_counts(bst, cfg)
     candidates = stencil_candidates(bst, cfg)
@@ -878,6 +891,8 @@ def phase_kernels(ptxas=()):
     hash_ops, hash_sass = hash_sass_ops()
     hash_bound = bound([bst.tag], [bst.tag], bst.n * hash_ops)
     hash_odd_bound = bound([tag_odd], [tag_odd], tag_odd.numel() * hash_ops)
+    # the slot assignment: base, cx and valid read, target and fits written
+    assign_bound = bound(assign_args[:3], assign_out[:2], 0)
     plan = cell_tiles.plan(cfg.capacity, 2, cfg.ncell)
     n_valid = int(bst.mask.sum())
     out["l70"] = {"n": n, "nr": bst.n, "ncell": list(cfg.ncell),
@@ -902,9 +917,13 @@ def phase_kernels(ptxas=()):
                   "hash_bound_ms": hash_bound[0],
                   "hash_bound_by": hash_bound[1],
                   "hash_odd_rows": tag_odd.numel(),
-                  "hash_odd_bound_ms": hash_odd_bound[0]}
+                  "hash_odd_bound_ms": hash_odd_bound[0],
+                  "assign_rows": assign_args[3],
+                  "assign_segments": assign_args[6],
+                  "assign_bound_ms": assign_bound[0],
+                  "assign_bound_by": assign_bound[1]}
     say("kernels-l70", **out["l70"])
-    del f_p, f_k, bst
+    del f_p, f_k, bst, assign_args, assign_out
 
     # L = 70 through the TEA tier, and on strict buckets (K 28)
     for label, spill, rng_mode in (("L70 tea", True, "tea"),
@@ -928,6 +947,53 @@ def phase_kernels(ptxas=()):
             **out[label.replace(" ", "_")])
         del f_k, f_p, bst
     return out
+
+
+def assign_inputs(bst, cfg, brick=False):
+    """spill_assign's arguments (but wrap) as the sort rebuild gives them
+    for a bucket state, or, with ``brick``, as a brick's placement
+    (``parallel/bricks.py::_place_cells``) gives them for the left half of
+    the box's x cells: those rows keyed from the brick's origin, the rest
+    masked."""
+    import torch
+    from meso_tpu_torch.neighbor.bucket_layout import _sorted_keys
+    nx, ny, nz = cfg.ncell
+    if not brick:
+        key_s, _, base, cxs = _sorted_keys(bst, cfg)
+        return (base, cxs, key_s < nx * ny * nz, bst.n, nx, cfg.capacity,
+                ny * nz)
+    nx //= 2
+    frac = (bst.x - bst.box.lo) / bst.box.lengths
+    cx, cy, cz = (torch.clamp((frac[:, d] * float(n)).to(torch.int32), 0,
+                              n - 1).to(torch.int64)
+                  for d, n in enumerate(cfg.ncell))
+    mask = bst.mask & (cx < nx)
+    key = torch.where(mask, (cy * nz + cz) * nx + cx, nx * ny * nz)
+    key_s = torch.sort(key, stable=True).values
+    base = key_s // nx
+    return (base, key_s - base * nx, key_s < nx * ny * nz, bst.n, nx,
+            cfg.capacity, ny * nz)
+
+
+def check_assign(bst, cfg):
+    """The slot-assignment kernel against its plain version on the card,
+    bitwise (target, fits, overflow), on the sort rebuild's inputs with and
+    without the wrap and on a brick's; one launch a call. Returns the
+    sort rebuild's inputs."""
+    import torch
+    from meso_tpu_torch.neighbor import bucket_layout as bl
+    args = assign_inputs(bst, cfg)
+    for brick, wrap in ((False, True), (False, False), (True, False)):
+        a = assign_inputs(bst, cfg, brick) if brick else args
+        before = bl.LAUNCHES["spill_assign"]
+        got = bl.spill_assign(*a, wrap=wrap)
+        if bl.LAUNCHES["spill_assign"] != before + 1:
+            raise AssertionError("spill_assign: not one launch a call")
+        want = bl.spill_assign_plain(*a, wrap=wrap)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"spill_assign kernel != plain (brick "
+                                 f"{brick}, wrap {wrap})")
+    return args
 
 
 def max_partners(bst, cfg):
@@ -1469,6 +1535,7 @@ def phase_main_path(selector="v3"):
     reset_launches()
     t0 = time.perf_counter()
     system, params, state = classic_path(selector)
+    setup_assign = read_launches()["spill_assign"]
     n = int(state.n_valid())
     force_evals = 1
     diags = {"equil": [], "timed": [], "traced": []}
@@ -1539,6 +1606,9 @@ def phase_main_path(selector="v3"):
                 kernel: force_evals},
         "hash launches == force evaluations":
             launches["particle_hash"] == force_evals,
+        "spill_assign launches == rebuilds (spill), 0 (strict)":
+            launches["spill_assign"] - setup_assign
+            == ((force_evals - 1) // EVERY if system.cells.spill else 0),
         "bucket_overflow == 0": overflow == 0,
         "worst_skin_ratio < 1": skin_ratio < 1.0,
         "state finite": finite,
@@ -5283,7 +5353,17 @@ def ab_one(out_path):
     outputs["K1 L70"] = bucket_forces_pallas_v3(*k1_args)
     res["k1_ms"] = timed_ms(lambda: bucket_forces_pallas_v3(
         *k1_args, need_virial=False), 20)
-    del bst, k1_args
+    # the slot assignment at the main-path shape (the parent's may be its
+    # plain torch version)
+    from meso_tpu_torch.neighbor.bucket_layout import spill_assign
+    assign_args = assign_inputs(bst, cfg)
+    for wrap in (True, False):
+        outputs[f"spill_assign L70 wrap={wrap}"] = spill_assign(
+            *assign_args, wrap=wrap)
+    outputs["spill_assign L70 brick"] = spill_assign(
+        *assign_inputs(bst, cfg, brick=True), wrap=False)
+    res["spill_assign_ms"] = timed_ms(lambda: spill_assign(*assign_args), 20)
+    del bst, k1_args, assign_args
     phase_brick_tiles(keep=outputs)
     for sel in ("v2", "banded"):
         system, sparams, st = classic_path(sel)
@@ -5376,7 +5456,7 @@ def phase_ab(parent, rounds=AB_ROUNDS):
             differ[f"{r['which']} {r['out'].name}"] = bad
     summary = {
         which: {k: [r[k] for r in runs if r["which"] == which]
-                for k in ("main_ms_per_step", "k1_ms",
+                for k in ("main_ms_per_step", "k1_ms", "spill_assign_ms",
                           "pair_fused_dpd_kernel_ms",
                           "pair_banded_dpd_kernel_ms", "walls_kernel_ms",
                           "polymer_kernel_ms", "tdpd_kernel_ms",
@@ -5401,6 +5481,7 @@ PORT_KERNEL_PREFIX = "void (anonymous namespace)::"
 # of each row of the kernels line that a profiled path runs
 IN_PATH = {"pair_dpd_v3": ("classic", "pair_dpd_v3_kernel<"),
            "particle_hash": ("classic", "particle_hash_kernel<"),
+           "spill_assign": ("classic", "spill_assign_kernel<"),
            "pair_dpd_v3_general": ("walls", "pair_dpd_v3_general_kernel"),
            "pair_edpd_v3": ("edpd", "pair_edpd_v3_kernel"),
            "pair_tdpd_v3": ("tdpd", "pair_tdpd_v3_kernel"),
@@ -5479,7 +5560,16 @@ def kernel_records(record):
          "plain_ms": l70["hash_plain_ms"], "bound_ms": l70["hash_bound_ms"],
          "bound_by": l70["hash_bound_by"], "library_ms": None,
          # its bound's instructions a row, counted from the built library
-         "ops_per_row": l70["hash_ops_per_row"]}]
+         "ops_per_row": l70["hash_ops_per_row"]},
+        # the spill rebuild's slot assignment (no TPU kernel: XLA code in
+        # the JAX package), once a rebuild of the main path
+        {"name": "spill_assign", "route": "cuda",
+         "source": "meso_tpu_torch/csrc/bucket_assign.cu",
+         "replaces": None, "launches": k1_launches["spill_assign"],
+         "max_abs_err": 0, "ms": l70["assign_ms"],
+         "plain_ms": l70["assign_plain_ms"],
+         "bound_ms": l70["assign_bound_ms"],
+         "bound_by": l70["assign_bound_by"], "library_ms": None}]
     # K1's general variant: its launches on both paths that run it, its
     # numbers on walls-full's inputs (two types; polymer-full's are in
     # build/chip_smoke.json and PERF.md)

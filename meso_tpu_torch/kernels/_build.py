@@ -67,6 +67,9 @@ SIGNATURES = {
     "meso_pair_brick": (_I, _I) + (_P,) * 8 + (_I,) * 5 + (_P, _I)
     + (_P,) * 5 + (_I,) * 5 + (_P,) + (_I,) * 5 + (_F,) * 6
     + (_U, _U, _I, _P),
+    # base, cx, valid, target, fits, overflow, n_in, nx, k, n_rows_yz, wrap,
+    # stream (csrc/bucket_assign.cu)
+    "meso_spill_assign": (_P,) * 6 + (_I,) * 5 + (_P,),
     # the probes (csrc/probes.cu)
     # x, offs, n_offs, out, rows, len, stream
     "meso_probe_dynroll": (_P, _P, _I, _P, _I, _I, _P),

@@ -11,12 +11,15 @@ overflow (more particles than a cell and its spill room hold) is counted
 and checked, never hidden.
 
 The JAX package wrote the rebuild as XLA code, not as a Pallas kernel, so
-the port writes it as plain torch ops: one stable ``torch.sort`` of the
-cell keys, ``torch.cummax`` scans for the slot assignment, and gathers of
-each column. Placement and overflow are bitwise equal to the JAX package
-on the same input. Where JAX moves the payload through a second
-multi-operand sort by target row, the port inverts that permutation with
-one scatter of row indices and gathers every column once.
+the port writes it as plain torch ops (one stable ``torch.sort`` of the
+cell keys and gathers of each column) but for the spill slot assignment:
+on a CUDA tensor that is one hand-written kernel
+(``csrc/bucket_assign.cu``), on a CPU tensor its plain torch version
+(``spill_assign_plain``, a ``torch.cummax`` scan). Placement and overflow
+are bitwise equal to the JAX package on the same input. Where JAX moves
+the payload through a second multi-operand sort by target row, the port
+inverts that permutation with one scatter of row indices and gathers
+every column once.
 """
 
 from __future__ import annotations
@@ -24,7 +27,17 @@ from __future__ import annotations
 import torch
 
 from meso_tpu_torch.core.state import PER_PARTICLE, State
+from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.neighbor.cells import CellConfig
+
+# Launches of the slot-assignment kernel, raised by one at each launch and
+# nowhere else (parallel/launch.py::counted_launches reads them).
+LAUNCHES = {"spill_assign": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def grid_shape(cfg: CellConfig) -> tuple[int, int, int, int]:
@@ -57,7 +70,53 @@ def _seg_starts(seg: torch.Tensor) -> torch.Tensor:
 
 def spill_assign(base, cxs, valid_s, n_in: int, nx: int, k: int,
                  n_rows_yz: int, wrap: bool = True):
-    """Right-spill slot assignment for cell-sorted rows.
+    """Right-spill slot assignment for cell-sorted rows (the function of
+    ``spill_assign_plain``): on a CPU tensor its plain version, on a CUDA
+    tensor the kernel ``meso_spill_assign`` of ``csrc/bucket_assign.cu``
+    (a memset of the overflow and one launch, adding one to
+    ``LAUNCHES["spill_assign"]``), on any other device a raise.
+
+    Takes what every caller gives (``rebuild_buckets_sort``,
+    ``_rebuild_buckets_gather``, ``parallel/bricks.py::_place_cells``):
+    int64 ``base`` and ``cxs`` and a bool ``valid_s`` of ``n_in`` rows,
+    sorted by the key ``base * nx + cxs`` with ``cxs`` in [0, nx), masked
+    rows keyed ``nx * ny * nz`` so that a row is valid exactly where
+    ``base < n_rows_yz``. The kernel writes the rows past the segments
+    (the padding tail) as not fitting without reading them; it does not
+    check this contract, which would take a host sync. Returns (target_row,
+    fits, overflow), overflow a 0-d int64 tensor on the device."""
+    if base.device.type == "cpu":
+        return spill_assign_plain(base, cxs, valid_s, n_in, nx, k, n_rows_yz,
+                                  wrap)
+    lib = _build.load_library()
+    dev = base.device
+    if dev.type != "cuda":
+        raise ValueError(f"spill_assign takes CPU or CUDA tensors, not {dev}")
+    for name, t, dtype in (("base", base, torch.int64),
+                           ("cxs", cxs, torch.int64),
+                           ("valid_s", valid_s, torch.bool)):
+        if (t.device != dev or t.dtype != dtype or t.shape != (n_in,)
+                or not t.is_contiguous()):
+            raise ValueError(f"spill_assign: {name} must be a contiguous "
+                             f"{dtype} tensor of {n_in} rows on {dev}")
+    if n_rows_yz * k * nx + n_in >= 2 ** 31:
+        raise ValueError("spill_assign: the kernel takes fewer than 2**31 "
+                         "bucket rows and input rows together")
+    target = torch.empty(n_in, dtype=torch.int64, device=dev)
+    fits = torch.empty(n_in, dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    code = lib.meso_spill_assign(
+        base.data_ptr(), cxs.data_ptr(), valid_s.data_ptr(),
+        target.data_ptr(), fits.data_ptr(), overflow.data_ptr(), n_in, nx, k,
+        n_rows_yz, int(wrap), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "spill_assign")
+    LAUNCHES["spill_assign"] += 1
+    return target, fits, overflow
+
+
+def spill_assign_plain(base, cxs, valid_s, n_in: int, nx: int, k: int,
+                       n_rows_yz: int, wrap: bool = True):
+    """Right-spill slot assignment for cell-sorted rows, in plain torch.
 
     Within each (cy, cz) row, the linear slot l = r + cummax_row(cx*K - r)
     places each particle in its own cell's block or spills it right into

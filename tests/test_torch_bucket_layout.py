@@ -2,9 +2,14 @@
 the JAX package's: slot assignment, dummy targets, both rebuild engines,
 the deferred wrap with its wrap-relief pre-shift, and the overflow check
 give bitwise-equal placement on the same input state. The cases mirror
-tests/unit/test_spill_assign.py, test_bucket.py and test_wrap_mode.py."""
+tests/unit/test_spill_assign.py, test_bucket.py and test_wrap_mode.py.
+Also a numpy copy of the slot-assignment kernel's blocks
+(csrc/bucket_assign.cu), which runs only on the card, against the plain
+version it replaces there."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -12,12 +17,15 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import assign_inputs
 from meso_tpu.core.box import Box as JBox
 from meso_tpu.core.state import create_random as j_create_random
 from meso_tpu.neighbor import bucket_layout as jbl
 from meso_tpu.neighbor.cells import CellConfig as JCellConfig
 from meso_tpu.neighbor.cells import max_displacement_sq as j_max_disp
 from meso_tpu_torch import bridge
+from meso_tpu_torch.core.box import Box
+from meso_tpu_torch.core.state import create_random
 from meso_tpu_torch.neighbor import bucket_layout as tbl
 from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
 from test_torch_imports import one_torch_thread  # noqa: F401
@@ -217,3 +225,185 @@ def test_box_wrap_and_displacement_bitwise():
     got = max_displacement_sq(torch.from_numpy(x), torch.from_numpy(x_ref),
                               torch.from_numpy(mask), tb)
     assert float(got) == float(want)
+
+
+# the slot-assignment kernel's constants (csrc/bucket_assign.cu)
+ASSIGN_THREADS = 128
+ASSIGN_ROWS = 4
+ASSIGN_CHUNK = ASSIGN_THREADS * ASSIGN_ROWS
+TAIL_SPAN = 8192
+WARP = 32
+
+
+def test_assign_constants_mirror_the_kernel():
+    src = (Path(tbl.__file__).parents[1] / "csrc" / "bucket_assign.cu"
+           ).read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert (int(consts["kAssignThreads"]), int(consts["kAssignRows"]),
+            int(consts["kTailSpan"])) == (ASSIGN_THREADS, ASSIGN_ROWS,
+                                          TAIL_SPAN)
+
+
+def _warp_lower_bound(a, lo, hi, key):
+    """The kernel's 32-way search: the first index in [lo, hi) with
+    a[i] >= key, hi if none; 32 probes a round while more than 32 rows
+    remain, then one probe a lane."""
+    lanes = np.arange(WARP)
+    while hi - lo > WARP:
+        n = hi - lo
+        ge = a[lo + n * lanes // WARP] >= key
+        if not ge.any():
+            lo += n * 31 // WARP + 1
+        else:
+            f = int(np.argmax(ge))
+            nlo = lo if f == 0 else lo + n * (f - 1) // WARP + 1
+            hi = lo + n * f // WARP
+            lo = nlo
+    idx = lo + lanes
+    ge = (idx < hi) & (a[np.minimum(idx, a.size - 1)] >= key) \
+        if a.size else np.zeros(WARP, bool)
+    return lo + int(np.argmax(ge)) if ge.any() else hi
+
+
+def _warp_max_scan(m):
+    """Inclusive max-scan of each warp's lanes by shuffles up 1, 2, 4, 8,
+    16 (a lane below the distance keeps its value)."""
+    incl = m.reshape(-1, WARP).copy()
+    lane = np.arange(WARP)
+    d = 1
+    while d < WARP:
+        up = np.concatenate([incl[:, :d], incl[:, :-d]], axis=1)
+        incl = np.where(lane >= d, np.maximum(incl, up), incl)
+        d *= 2
+    return incl
+
+
+def _assign_emulated(base, cxs, valid, nx, k, n_rows_yz, wrap):
+    """The kernel's blocks, one after another: a segment block per (cy, cz)
+    row (its bounds and c0_used by the 32-way search, then its chunks:
+    threads' running maxima, the warps' scans, the warps' maxima and the
+    carry), then the tail blocks over [t0, n_in)."""
+    n_in = base.size
+    nr = n_rows_yz * k * nx
+    target = np.full(n_in, -7, np.int64)
+    fits = np.ones(n_in, bool)
+    overflow = 0
+    for b in range(n_rows_yz):
+        s = _warp_lower_bound(base, 0, n_in, b)
+        e = _warp_lower_bound(base, 0, n_in, b + 1)
+        c0_used = (_warp_lower_bound(cxs, s, min(e, s + k), 1) - s
+                   if wrap else 0)
+        carry = 0
+        for c in range(s, e, ASSIGN_CHUNK):
+            i = c + np.arange(ASSIGN_CHUNK)
+            live = i < e
+            il = np.minimum(i, e - 1)
+            cx, v = cxs[il], valid[il] & live
+            a = np.where(live, np.maximum(cx * k - (i - s), 0), 0)
+            run = np.maximum.accumulate(a.reshape(ASSIGN_THREADS, ASSIGN_ROWS),
+                                        axis=1)
+            incl = _warp_max_scan(run[:, -1])
+            before = np.concatenate([np.zeros((incl.shape[0], 1), np.int64),
+                                     incl[:, :-1]], axis=1)
+            warp_max = incl[:, -1]
+            prev = np.maximum.accumulate(np.concatenate([[carry],
+                                                         warp_max[:-1]]))
+            before = np.maximum(before, prev[:, None]).reshape(-1)
+            carry = max(carry, int(warp_max.max()))
+            am = np.maximum(run, before[:, None]).reshape(-1)
+            l_lin = (i - s) + am
+            in_row = v & (l_lin < np.minimum((cx + 2) * k, nx * k))
+            over = l_lin - nx * k
+            wrap_ok = (wrap & v & ~in_row & (cx == nx - 1) & (over >= 0)
+                       & (over < k) & (k - 1 - over >= c0_used))
+            fit = in_row | wrap_ok
+            cell = np.where(wrap_ok, 0, l_lin // k)
+            slot = np.where(wrap_ok, k - 1 - over, l_lin - (l_lin // k) * k)
+            tg = np.where(fit, (b * k + slot) * nx + cell, nr + i)
+            target[i[live]] = tg[live]
+            fits[i[live]] = fit[live]
+            overflow += int((v & ~fit).sum())
+    n_tail = -(-n_in // TAIL_SPAN)
+    for j in range(n_tail):
+        t0 = _warp_lower_bound(base, 0, n_in, n_rows_yz)
+        i = np.arange(t0 + j * ASSIGN_THREADS, n_in, n_tail * ASSIGN_THREADS)
+        i = (i[:, None] + np.arange(ASSIGN_THREADS)).reshape(-1)
+        i = i[i < n_in]
+        target[i] = nr + i
+        fits[i] = False
+    return target, fits, overflow
+
+
+def _keys_case(kind, k):
+    """(base, cxs, valid, nx, n_rows_yz) as the callers of spill_assign
+    build them: the sort engine's nr rows of a drifted bucket state, the
+    gather engine's N-row start, a brick's rows with those outside it
+    masked, and generated keys: long rows (K 216, rho 200), sparse rows with
+    empty (cy, cz) segments, and a pile in a row's last cell that spills
+    past the row and wraps into cell 0."""
+    if kind in ("sort", "gather", "brick"):
+        l, n = 12.0, int(round((6.0 if k > 24 else 3.0) * 12.0 ** 3))
+        box = Box.cubic(l)
+        st = create_random(torch.Generator().manual_seed(k), n, box)
+        cfg = CellConfig.for_box([l] * 3, 1.0, n / l ** 3, skin=0.4,
+                                 spill=True, capacity=k)
+        if kind != "gather":
+            # bucket rows (a random start's few overflowing rows dropped)
+            st = tbl.rebuild_buckets(st, cfg)[0]
+            st = st.replace(x=st.box.wrap(st.x + 0.05 * st.v)[0])
+        base, cxs, valid, _, nx, _, n_rows_yz = assign_inputs(
+            st, cfg, brick=kind == "brick")
+        return base.numpy(), cxs.numpy(), valid.numpy(), nx, n_rows_yz
+    if kind == "pile":
+        nx, n_rows_yz = 6, 3
+        keys = sorted([0] * 2 + [5] * (k + 6) + list(range(6, 18))
+                      + [7] * (3 * k) + [nx * n_rows_yz] * 5)
+    else:
+        nx, n_rows_yz, occ = {"long": (8, 6, 200.0),
+                              "sparse": (3, 40, 0.2)}[kind]
+        rng = np.random.default_rng(k)
+        n_cells = n_rows_yz * nx
+        counts = rng.poisson(occ, size=n_cells)
+        hot = rng.integers(0, n_cells, size=3)
+        counts[hot] += rng.integers(k, 2 * k, size=hot.size)
+        keys = np.repeat(np.arange(n_cells), counts).tolist() \
+            + [n_cells] * 29
+    keys = np.asarray(keys, np.int64)
+    return keys // nx, keys % nx, keys < nx * n_rows_yz, nx, n_rows_yz
+
+
+ASSIGN_CASES = [("sort", 16), ("sort", 28), ("gather", 16), ("gather", 28),
+                ("brick", 16), ("long", 216), ("sparse", 16), ("sparse", 28),
+                ("pile", 16), ("pile", 28)]
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("kind,k", ASSIGN_CASES)
+def test_assign_kernel_emulation_matches_plain_bitwise(kind, k, wrap):
+    """The numpy copy of the kernel's block algorithm gives the plain
+    version's target, fits and overflow, bitwise."""
+    base, cxs, valid, nx, n_rows_yz = _keys_case(kind, k)
+    n_in = base.size
+    got = _assign_emulated(base, cxs, valid, nx, k, n_rows_yz, wrap)
+    want = tbl.spill_assign_plain(torch.from_numpy(base),
+                                  torch.from_numpy(cxs),
+                                  torch.from_numpy(valid), n_in, nx, k,
+                                  n_rows_yz, wrap)
+    np.testing.assert_array_equal(got[0], want[0].numpy(), err_msg="target")
+    np.testing.assert_array_equal(got[1], want[1].numpy(), err_msg="fits")
+    assert got[2] == int(want[2])
+    # what each case is there for
+    seg = np.bincount(base[valid], minlength=n_rows_yz)
+    if kind == "long":
+        assert seg.max() > ASSIGN_CHUNK
+    if kind == "sparse":
+        assert (seg == 0).any()
+    if kind in ("pile", "long"):
+        assert got[2] > 0
+    if kind == "pile" and wrap:
+        t = want[0].numpy()
+        assert (want[1].numpy() & (cxs == nx - 1) & (t % nx == 0)).any()
+    if kind in ("gather", "brick"):
+        assert n_in != n_rows_yz * k * nx
+    if kind == "sort":
+        assert n_in == n_rows_yz * k * nx

@@ -25,6 +25,7 @@ from meso_tpu_torch.models.classic import classic_fluid
 from meso_tpu_torch.models.polymer import membrane_suspension, polymer_melt
 from meso_tpu_torch.models.transport import edpd_slab, tdpd_diffusion
 from meso_tpu_torch.models.walls import couette, poiseuille
+from meso_tpu_torch.neighbor import bucket_layout
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops.dpd import DPDParams
 from meso_tpu_torch.ops.edpd import EDPDParams
@@ -134,6 +135,11 @@ def test_non_cpu_input_without_nvcc_raises(monkeypatch):
                                 1, pair, 0.01, system.cells)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         particle_hash_v3(st.tag, 1, pair.seed)
+    rows = st.tag.to(torch.int64)
+    assigned = dict(bucket_layout.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bucket_layout.spill_assign(rows, rows, st.mask, st.n, 5, 16, 25)
+    assert bucket_layout.LAUNCHES == assigned
     with pytest.raises(RuntimeError, match="nvcc not found"):
         uniform_stream_v3(st.tag.to(torch.int64), 0)
     n = st.n
@@ -180,7 +186,8 @@ def test_wall_and_bonded_builders_default_to_the_card(builder, kw):
 
 def test_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "meso_tpu_torch"
-    assert [p.name for p in _build.sources()] == ["pair_brick.cu",
+    assert [p.name for p in _build.sources()] == ["bucket_assign.cu",
+                                                  "pair_brick.cu",
                                                   "pair_dpd_v3.cu",
                                                   "pair_transport_v3.cu",
                                                   "probes.cu"]
