@@ -2,8 +2,8 @@
 """Smoke run of meso_tpu_torch on one NVIDIA card (built for the H100).
 
     python3 chip_smoke.py [--kernels-only | --dd-only | --sweep-only |
-                           --cli-only | --bricks-only | --decay-from FILE |
-                           --ab PARENT_DIR]
+                           --cli-only | --bricks-only | --bonds-only |
+                           --decay-from FILE | --ab PARENT_DIR]
 
 Phases, one line of output each (any failure raises and exits non-zero):
 
@@ -185,7 +185,16 @@ Phases, one line of output each (any failure raises and exits non-zero):
    effective-sample count) and K4 held against its plain version on rank
    0's real extended planes and timed; DP x SP (2 replicas x 2 slabs
    through K4); run_ensemble (2 replicas on K1, replica 0 bitwise the
-   single-card run); ``dryrun_multichip(8)``.
+   single-card run); ``dryrun_multichip(8)``;
+28. bond-kernels (after 15): the pair bonds' kernel (``csrc/bonds.cu``)
+   against the plain chain within 1e-6 of the largest force, bitwise from
+   call to call and in place as stored, with an owner mask and missing
+   partners as the plain chain, two launches a call: FENE on the polymer
+   path's set-up, harmonic on the 1M A5B5 melt's, WLC-POW on a vesicle's
+   edges (and the whole membrane force within 1e-5); timed through its
+   wrapper, alone and against its bytes bound; the melt path (1,029,000
+   beads, 926,100 bonds, K1's general variant) profiled over 10 chunks:
+   the kernels' time a call in path and their calls a step.
 
 Phases 9, 10, 14, 15 and 22 run after phase 5, phases 26 and 11-13 and
 16-17 after phase 8, phases 20-21 after 17, phases 27 and 23-25 after
@@ -194,7 +203,7 @@ Phases 9, 10, 14, 15 and 22 run after phase 5, phases 26 and 11-13 and
 and 19-21; ``--sweep-only`` runs phases 1-3, 22, 6, 8 (for the end
 states) and 23-25; ``--cli-only`` runs phases 1, 2 and 26;
 ``--bricks-only`` runs phases 1, 2 and 27 (building the two-rank starts
-itself).
+itself); ``--bonds-only`` runs phases 1, 2 and 28.
 ``--decay-from FILE`` runs only the tDPD decay from the JAX package's
 starts in FILE, against the JAX rates stored beside them (see
 phase_decay_from). ``--ab PARENT_DIR`` runs only phases 1-2 and
@@ -202,8 +211,10 @@ phase_ab: this tree and the one at PARENT_DIR (an unpacked checkout of
 another commit inside the repository, e.g. ``git archive HEAD~1`` under
 build/) alternating, a process a run, each timing the main path in
 blocks, the eDPD path, K1 and the brick kernel alone and K1's general
-variant, K2 and K3 through their wrappers, and saving the outputs of all
-but K2, which must agree bitwise.
+variant, K2 and K3 through their wrappers, the bonded force and the steps
+of the polymer path, and saving the outputs of all but K2, which must
+agree bitwise, but the bonded force, within 1e-6 of its largest value
+(the plain chain's atomic sums are not bitwise).
 
 Launch counts are set to 0 just before each path (6, each model of 8, each
 path of 13 and 16, phase 17, each rank of each path of 21 and 27, the
@@ -392,10 +403,14 @@ def hash_sass_ops():
 def kernel_modules():
     """The modules whose LAUNCHES count kernel launches: K1-K3 and the
     hash in pair_dpd_v3, the fused and banded selectors' brick kernel in
-    _brick, the spill rebuild's slot assignment in bucket_layout."""
+    _brick, the sort rebuild's keys, slot assignment and placement in
+    bucket_layout, the pair bonds in ops.bonded, the integrator's two
+    halves in core.integrate."""
+    from meso_tpu_torch.core import integrate
     from meso_tpu_torch.kernels import _brick, pair_dpd_v3
     from meso_tpu_torch.neighbor import bucket_layout
-    return (pair_dpd_v3, _brick, bucket_layout)
+    from meso_tpu_torch.ops import bonded
+    return (pair_dpd_v3, _brick, bucket_layout, bonded, integrate)
 
 
 def reset_launches():
@@ -412,11 +427,14 @@ def read_launches():
     return out
 
 
-# the pair kernels among the launch counters (the hash and the
-# uniform_stream probe are not pair kernels)
+# the pair kernels among the launch counters (the hash, the
+# uniform_stream probe, the rebuild's kernels, the bonds and the
+# integrator are not pair kernels)
 def pair_launches(launches):
     return {k: n for k, n in launches.items()
-            if k not in ("particle_hash", "uniform_stream", "spill_assign")}
+            if k not in ("particle_hash", "uniform_stream", "spill_assign",
+                         "bucket_keys", "bucket_place", "pair_bonds",
+                         "initial_integrate", "final_integrate")}
 
 
 def run(cmd):
@@ -1751,6 +1769,221 @@ def polymer_path():
     return deferred_wrap(system), params, state
 
 
+def melt_path():
+    """The Groot-Madden A5B5 melt at set-up, as the benchmark's
+    diblock_melt_l70 cell runs it: 102,900 chains of 10 beads (1,029,000,
+    926,100 harmonic bonds, K 2, r0 0), a_AB 40, lambda 0.65, the sort
+    rebuild every EVERY steps under the deferred wrap."""
+    from meso_tpu_torch.models.polymer import block_copolymer_melt
+    system, params, state = block_copolymer_melt(
+        l=L_MAIN, force_path="pallas", rng_mode="fast", skin=SKIN, dt=0.01,
+        lam=LAM, device=DEVICE)
+    system = system.replace(cells=system.cells.replace(rebuild="sort",
+                                                       rebuild_every=EVERY))
+    return deferred_wrap(system), params, state
+
+
+def membrane_bonds_case():
+    """A vesicle of WLC-POW edges (degree 5 and 6 on an icosphere of
+    subdivision 3: 642 vertices, 1,920 edges) in a 16^3 box of solvent."""
+    from meso_tpu_torch.models.polymer import membrane_suspension
+    system, params, state, _ = membrane_suspension(
+        l=16.0, radius=5.0, subdiv=3, force_path="pallas", rng_mode="fast",
+        skin=SKIN, device=DEVICE)
+    return system, params, state
+
+
+def pair_bonds_only(b):
+    """The bonded parameters with their pair bonds alone."""
+    return b.replace(angle_tags=None, angle_coeffs=None, angle_type=None,
+                     tri_tags=None, tri_mol=None, membrane=None, tri_a0=None,
+                     hinge_tags=None, hinge_coeffs=None)
+
+
+BOND_CASES = {"fene": lambda: polymer_path(), "harmonic": lambda: melt_path(),
+              "wlc_pow": lambda: membrane_bonds_case()}
+# a kernel output within this share of the plain chain's largest force
+BOND_REL_TOL = 1e-6
+
+
+def bond_bound(params):
+    """(bound_ms, bound_by, bytes) of the pair bonds, as
+    benchmark/roofline/bonds.py counts them: each bonded bead's x and tag
+    read (16 B) and f read and written (24 B), each bond's two tags (8 B)."""
+    import torch
+    bt = params.bonded.bond_tags
+    beads = int(torch.unique(bt[bt > 0]).numel())
+    nbytes = beads * 40 + int((bt[:, 0] > 0).sum()) * 8
+    ms, by = bytes_bound(nbytes, Ops())
+    return ms, by, nbytes
+
+
+def check_bonds(system, params, state, time_it=True):
+    """The pair bonds' kernel (ops.bonded.pair_bonds) against the plain
+    chain on the same CUDA tensors and on CPU copies, within BOND_REL_TOL
+    of the largest plain force; bitwise equal from call to call; added in
+    place bitwise as stored; with an owner mask and a tenth of the rows
+    dropped, the plain chain's owned rows and missing count; two kernel
+    launches a call (torch.profiler) and one count in LAUNCHES. With
+    ``time_it``: through the wrapper, alone (profiler), the plain chain,
+    and the bound. Returns the record, its checks under "checks"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from meso_tpu_torch.ops import bonded
+    b = pair_bonds_only(params.bonded)
+    style, n_tags = system.bond_style, system.n_tags
+    args = (state.x, state.tag, state.mask, state.box, b, style, n_tags)
+
+    def plain(x, tag, mask, box, bp, owner=None, count=False):
+        return bonded._bonded_plain(x, tag, mask, box, bp, style, n_tags, 0,
+                                    None, owner, None, count)
+
+    before = bonded.LAUNCHES["pair_bonds"]
+    got, _ = bonded.pair_bonds(*args)
+    again, _ = bonded.pair_bonds(*args)
+    counted = bonded.LAUNCHES["pair_bonds"] - before
+    want, _ = plain(*args[:5])
+    cpu = [t.cpu() for t in args[:3]]
+    cbox = type(state.box)(lo=state.box.lo.cpu(), hi=state.box.hi.cpu())
+    cb = bonded.BondedParams(bond_tags=b.bond_tags.cpu(),
+                             bond_type=b.bond_type.cpu(),
+                             bond_coeffs=b.bond_coeffs.cpu())
+    want_cpu, _ = plain(*cpu, cbox, cb)
+    scale = float(want_cpu.abs().max())
+    f0 = torch.randn(got.shape, device=got.device,
+                     generator=torch.Generator(device=got.device).manual_seed(1))
+    added = bonded.bonded_forces(*args, add_to=f0.clone())
+    g = torch.Generator(device=got.device).manual_seed(2)
+    mask2 = state.mask & (torch.rand(state.n, device=got.device,
+                                     generator=g) > 0.1)
+    owner = torch.rand(state.n, device=got.device, generator=g) > 0.5
+    got_o, miss_o = bonded._bonded(state.x, state.tag, mask2, state.box, b,
+                                   style, n_tags, 0, None, owner, None, True)
+    want_o, miss_w = plain(state.x, state.tag, mask2, state.box, b, owner,
+                           True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bonded.pair_bonds(*args)
+        torch.cuda.synchronize()
+    ops = device_times(prof, 1)
+    rec = {"style": style, "rows": state.n,
+           "bonds": int(b.bond_tags.shape[0]),
+           "partners_width": bonded.partner_table(b, n_tags)[1],
+           "max_rel_err_cuda_plain":
+               float((got - want).abs().max()) / scale,
+           "max_rel_err_cpu_plain":
+               float((got.cpu() - want_cpu).abs().max()) / scale,
+           "bitwise_cpu_plain": bool(torch.equal(got.cpu(), want_cpu)),
+           "bitwise_repeat": bool(torch.equal(got, again)),
+           "add_in_place_bitwise": bool(torch.equal(added, f0 + got)),
+           "owner_max_rel_err":
+               float((got_o - want_o).abs().max()) / max(
+                   float(want_o.abs().max()), 1e-30),
+           "owner_missing": [int(miss_o), int(miss_w)],
+           "launches_a_call": sum(c for _, c in ops.values()),
+           "counted_a_call": counted / 2,
+           "device_ops": sorted(ops)}
+    if time_it:
+        rec["ms"] = timed_ms(lambda: bonded.pair_bonds(*args), 20)
+        rec["kernel_ms"] = profiled_kernel_ms(
+            lambda: bonded.pair_bonds(*args), "pair_bonds_kernel<", 20)
+        rec["tag_rows_ms"] = profiled_kernel_ms(
+            lambda: bonded.pair_bonds(*args), "tag_rows_kernel<", 20)
+        rec["plain_ms"] = timed_ms(lambda: plain(*args[:5]), 5)
+        rec["bound_ms"], rec["bound_by"], rec["bound_bytes"] = bond_bound(
+            params)
+    rec["checks"] = {
+        f"{style}: within {BOND_REL_TOL} of the plain chain (card, CPU)":
+            max(rec["max_rel_err_cuda_plain"],
+                rec["max_rel_err_cpu_plain"]) <= BOND_REL_TOL,
+        f"{style}: bitwise from call to call": rec["bitwise_repeat"],
+        f"{style}: added in place as stored": rec["add_in_place_bitwise"],
+        f"{style}: owner rows and missing as the plain chain":
+            rec["owner_max_rel_err"] <= BOND_REL_TOL
+            and miss_o is not None and int(miss_o) == int(miss_w),
+        f"{style}: two kernel launches, one count a call":
+            rec["launches_a_call"] == 2 and rec["counted_a_call"] == 1}
+    return rec
+
+
+def phase_bond_kernels():
+    """check_bonds on each style's inputs: FENE on the polymer path's
+    set-up (48,000 bonds among 1,029,000 particles), harmonic on the
+    melt's (926,100 bonds), WLC-POW on a vesicle's edges (and the whole
+    membrane force, areas, volume and hinges by autograd, against the
+    plain chain); then the melt path, relaxed for 900 steps and moved to
+    the K the density gives (16, as the benchmark's cell runs it), its
+    steps under the profiler: the kernels' device time a force call in
+    path and their calls a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from meso_tpu_torch.ops import bonded
+    out, failed = {}, []
+    for style, build in BOND_CASES.items():
+        system, params, state = build()
+        rec = check_bonds(system, params, state,
+                          time_it=style != "wlc_pow")
+        if style == "wlc_pow":
+            got = bonded.bonded_forces(state.x, state.tag, state.mask,
+                                       state.box, params.bonded, style,
+                                       system.n_tags, system.n_mols,
+                                       image=state.image)
+            want, _ = bonded._bonded_plain(
+                state.x, state.tag, state.mask, state.box, params.bonded,
+                style, system.n_tags, system.n_mols, state.image, None,
+                None, False)
+            rec["membrane_max_rel_err"] = float(
+                (got - want).abs().max()) / float(want.abs().max())
+            rec["checks"]["wlc_pow: the membrane within 1e-5 of the plain "
+                          "chain"] = rec["membrane_max_rel_err"] <= 1e-5
+        if style == "harmonic":
+            # the walk start relaxed, then on the cell's K from the density
+            from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
+            from meso_tpu_torch.neighbor.cells import CellConfig
+            state, _ = advance(system, params, state, 900)
+            k = CellConfig.for_box([L_MAIN] * 3, system.rc_max, 3.0,
+                                   skin=SKIN, spill=True).capacity
+            system = system.replace(cells=system.cells.replace(capacity=k))
+            state, overflow = rebuild_buckets(state, system.cells)
+            rec["path_capacity"] = k
+            rec["path_relayout_overflow"] = int(overflow)
+            rec["checks"]["harmonic: the relaxed melt fits the density's "
+                          "K"] = int(overflow) == 0
+            state, _ = advance(system, params, state, 30 * EVERY)
+            torch.cuda.synchronize()
+            reset_launches()
+            steps = PROFILE_CHUNKS * EVERY
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = advance(system, params, state, steps)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = device_times(prof, 1)
+            calls = bonded.LAUNCHES["pair_bonds"]
+            for key, name in (("in_path_ms", "pair_bonds_kernel<"),
+                              ("tag_rows_in_path_ms", "tag_rows_kernel<")):
+                rec[key] = sum(ms for k, (ms, _) in kernels.items()
+                               if name in k) / calls
+            rec["calls_a_step"] = calls / steps
+            rec["path_kernel_launches_a_step"] = sum(
+                c for _, c in kernels.values()) / steps
+            rec["path_device_ms_a_step"] = sum(
+                ms for ms, _ in kernels.values()) / steps
+            rec["path_wall_ms_a_step"] = 1e3 * wall / steps
+            rec["path_top"] = sorted(
+                ([k, ms / steps] for k, (ms, _) in kernels.items()),
+                key=lambda kv: -kv[1])[:12]
+        failed += [k for k, ok in rec["checks"].items() if not ok]
+        out[style] = rec
+        say(f"bond-kernels-{style}", **rec)
+        del system, params, state
+    if failed:
+        raise AssertionError(f"bond kernels failed: {failed}")
+    return out
+
+
 def general_params(n, two_types=True, s_exp=0.5, excl=True, weight=0.25,
                    max_excl=2):
     """K1's general case as kernels-general-l8 checks it: two types with an
@@ -2122,6 +2355,9 @@ def run_full_path(label, build):
                 "pair_dpd_v3_general": force_evals},
         "hash launches == force evaluations":
             launches["particle_hash"] == force_evals,
+        "pair_bonds calls == force evaluations (0 without bonds)":
+            launches["pair_bonds"] == (force_evals
+                                       if system.bond_style else 0),
         "bucket_overflow == 0": res["bucket_overflow"] == 0,
         "worst_skin_ratio < 1": win["worst_skin_ratio"] < 1.0,
         "state finite": finite}
@@ -5299,6 +5535,12 @@ def phase_cli(main_ms=None):
 # --ab: two trees' kernels and main path on one card, a process a run, in
 # the order parent, change, change, parent per round
 AB_ROUNDS = 2
+AB_POLYMER_STEPS = 150
+# outputs of --ab that the trees share within AB_BONDS_REL_TOL of their
+# largest value, not bitwise: the plain chain's bonded sums are atomics in
+# no fixed order
+AB_TOLERANT = ("bonds ",)
+AB_BONDS_REL_TOL = 1e-6
 
 
 def ab_one(out_path):
@@ -5397,6 +5639,21 @@ def ab_one(out_path):
             outputs[f"{label} path kernel"] = fn(*args)
         res[f"{label}_kernel_ms"] = timed_ms(lambda: fn(*args), 20)
         del args
+        if label == "polymer":
+            # the bonded force (the parent's may be the plain chain, whose
+            # atomics are not bitwise) and the polymer path's steps
+            from meso_tpu_torch.ops.bonded import bonded_forces
+            bargs = (st.x, st.tag, st.mask, st.box, sparams.bonded,
+                     system.bond_style, system.n_tags)
+            outputs["bonds polymer path"] = bonded_forces(*bargs)
+            res["bonds_ms"] = timed_ms(lambda: bonded_forces(*bargs), 20)
+            st, _ = advance(system, sparams, st, 30 * EVERY)
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            st, _ = advance(system, sparams, st, AB_POLYMER_STEPS)
+            torch.cuda.synchronize()
+            res["polymer_ms_per_step"] = 1e3 * (
+                time.perf_counter() - tb) / AB_POLYMER_STEPS
         if label == "edpd":
             # the eDPD path as transport-full times it
             st, _ = advance(system, sparams, st,
@@ -5446,11 +5703,18 @@ def phase_ab(parent, rounds=AB_ROUNDS):
             say("ab", round=r,
                 **{k: v for k, v in runs[-1].items() if k != "out"})
     ref = torch.load(next(r["out"] for r in runs if r["which"] == "parent"))
+
+    def same(key, a, b):
+        if not key.startswith(AB_TOLERANT):
+            return torch.equal(a, b)
+        return bool((a - b).abs().max() <= AB_BONDS_REL_TOL
+                    * b.abs().max())
+
     differ = {}
     for r in runs:
         got = torch.load(r["out"])
         bad = sorted(k for k in ref if k not in got or len(got[k]) !=
-                     len(ref[k]) or not all(torch.equal(a, b) for a, b in
+                     len(ref[k]) or not all(same(k, a, b) for a, b in
                                             zip(got[k], ref[k])))
         if bad:
             differ[f"{r['which']} {r['out'].name}"] = bad
@@ -5460,7 +5724,8 @@ def phase_ab(parent, rounds=AB_ROUNDS):
                           "pair_fused_dpd_kernel_ms",
                           "pair_banded_dpd_kernel_ms", "walls_kernel_ms",
                           "polymer_kernel_ms", "tdpd_kernel_ms",
-                          "edpd_kernel_ms", "edpd_ms_per_step")}
+                          "edpd_kernel_ms", "edpd_ms_per_step", "bonds_ms",
+                          "polymer_ms_per_step")}
         for which in ("parent", "change")}
     say("ab-summary", outputs=len(ref), differ=differ, **summary)
     # the main path's end state may differ by the rebuild's own
@@ -5483,6 +5748,7 @@ IN_PATH = {"pair_dpd_v3": ("classic", "pair_dpd_v3_kernel<"),
            "particle_hash": ("classic", "particle_hash_kernel<"),
            "spill_assign": ("classic", "spill_assign_kernel<"),
            "pair_dpd_v3_general": ("walls", "pair_dpd_v3_general_kernel"),
+           "pair_bonds": ("polymer", "pair_bonds_kernel<"),
            "pair_edpd_v3": ("edpd", "pair_edpd_v3_kernel"),
            "pair_tdpd_v3": ("tdpd", "pair_tdpd_v3_kernel"),
            **{SELECTOR_KERNELS[sel][model]: (f"{sel}-{label}",
@@ -5585,6 +5851,21 @@ def kernel_records(record):
          "ms": gen["ms"], "plain_ms": gen["plain_ms"],
          "bound_ms": gen["bound_ms"], "bound_by": gen["bound_by"],
          "library_ms": None, **tile_row_fields(gen)})
+    # the pair bonds (no TPU kernel: XLA code in the JAX package): the
+    # numbers on the melt's inputs (harmonic), the launches of the polymer
+    # path (FENE), a call a step
+    bk = record["bond_kernels"]["harmonic"]
+    rows.append(
+        {"name": "pair_bonds", "route": "cuda",
+         "source": "meso_tpu_torch/csrc/bonds.cu", "replaces": None,
+         "launches": record["polymer_full"]["launches"]["pair_bonds"],
+         "max_abs_err": max(r["max_rel_err_cpu_plain"]
+                            for r in record["bond_kernels"].values()),
+         "ms": bk["ms"], "kernel_ms": bk["kernel_ms"],
+         "tag_rows_ms": bk["tag_rows_ms"], "plain_ms": bk["plain_ms"],
+         "bound_ms": bk["bound_ms"], "bound_by": bk["bound_by"],
+         "library_ms": None, "calls_a_step": bk["calls_a_step"],
+         "melt_in_path_ms": bk["in_path_ms"] + bk["tag_rows_in_path_ms"]})
     # K2's and K3's numbers are those at the inputs their path gives them
     for model, line in (("edpd", 871), ("tdpd", 896)):
         name = f"pair_{model}_v3"
@@ -5697,6 +5978,8 @@ def main(argv):
         record["cli"] = phase_cli()
     elif "--bricks-only" in argv:
         record["bricks"], record["bricks_kernels"] = phase_bricks()
+    elif "--bonds-only" in argv:
+        record["bond_kernels"] = phase_bond_kernels()
     elif "--decay-from" in argv:
         record["decay_from"] = phase_decay_from(
             argv[argv.index("--decay-from") + 1])
@@ -5713,9 +5996,10 @@ def main(argv):
         record["selector_kernels"] = phase_selector_kernels()
         record["brick_tiles"] = phase_brick_tiles()
         record["selector_kernels_l70"] = phase_selector_kernels_l70()
+        record["bond_kernels"] = phase_bond_kernels()
         record["probes"] = phase_probes(record["kernels"]["l70"])
     if not set(argv) & {"--decay-from", "--sweep-only", "--cli-only",
-                        "--bricks-only"}:
+                        "--bricks-only", "--bonds-only"}:
         record["dd_kernels"] = phase_dd_kernels()
     if "--dd-only" in argv:
         record["dd_ring_of_one"] = phase_dd_ring_of_one()
@@ -5728,7 +6012,7 @@ def main(argv):
         record["bucket_paths"] = phase_bucket_paths()
         record["dd_bucket"] = phase_dd_bucket()
     elif not set(argv) & {"--kernels-only", "--decay-from", "--cli-only",
-                          "--bricks-only"}:
+                          "--bricks-only", "--bonds-only"}:
         record["main_path"] = phase_main_path()
         record["transport_physics"] = phase_transport_physics()
         record["transport_full"] = {m: phase_transport_full(m)
@@ -5758,7 +6042,8 @@ def main(argv):
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if set(argv) & {"--kernels-only", "--decay-from", "--dd-only",
-                    "--sweep-only", "--cli-only", "--bricks-only"}:
+                    "--sweep-only", "--cli-only", "--bricks-only",
+                    "--bonds-only"}:
         return 0
     print(json.dumps(kernel_records(record)), flush=True)
     print(info["card"], flush=True)

@@ -78,10 +78,10 @@ def _autotune(deck: dict, system, params, state, device):
         if spill is not None:
             eng["spill"] = spill
         d["engine"] = eng
-        if "model" in d:  # builder decks take the skin through their args
-            d["model"] = {**d["model"],
-                          "args": {**d["model"].get("args", {}),
-                                   "skin": skin}}
+        if "model" in d:  # [neighbor] gives the candidate's to the builder
+            d["model"] = {**d["model"], "args": {
+                k: v for k, v in d["model"].get("args", {}).items()
+                if k not in ("skin", "rebuild_every")}}
         sy, _, _, _ = build_from_deck(d, device=device)
         cell_kw = {"rebuild_every": every}
         if rebuild is not None:

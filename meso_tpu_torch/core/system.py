@@ -211,13 +211,15 @@ def _post_forces(system: System, params: SystemParams, state: State,
     flags that go with ``x`` (the post-drift image1 in the step): the
     membrane volume unwraps x with them. ``skip_bonded``: the distributed
     step computes the bonded terms itself over halo-extended rows
-    (``parallel/domain.py``) and needs only the fix hooks."""
+    (``parallel/domain.py``) and needs only the fix hooks. ``f`` is the
+    pair force, given up to the result: on the card the pair bonds are
+    added into it in place."""
     if system.bond_style is not None and not skip_bonded:
         from meso_tpu_torch.ops.bonded import bonded_forces
-        f = f + bonded_forces(x, state.tag, state.mask, state.box,
-                              params.bonded, system.bond_style,
-                              system.n_tags, system.n_mols,
-                              image=state.image if image is None else image)
+        f = bonded_forces(x, state.tag, state.mask, state.box, params.bonded,
+                          system.bond_style, system.n_tags, system.n_mols,
+                          image=state.image if image is None else image,
+                          add_to=f)
     for fx in system.fixes:
         if hasattr(fx, "post_force"):
             f = fx.post_force(system, params, state, x, v_tilde, f)
@@ -243,8 +245,24 @@ def make_step(system: System, with_aux: bool = False):
     if system.model not in _MODELS:
         raise ValueError(f"unknown model {system.model!r}")
 
+    # the per-row inverse mass, kept while the rows' types are unchanged
+    # (the steps between two rebuilds): one gather a chunk, not a step.
+    # Inference tensors keep no version counter: those are gathered anew.
+    held = {}
+
+    def inverse_mass(params: SystemParams, typ):
+        if typ.is_inference() or params.inv_mass.is_inference():
+            return _per_type(params.inv_mass, typ)
+        versions = (typ._version, params.inv_mass._version)
+        if (held.get("typ") is not typ
+                or held.get("table") is not params.inv_mass
+                or held.get("versions") != versions):
+            held.update(typ=typ, table=params.inv_mass, versions=versions,
+                        inv_m=_per_type(params.inv_mass, typ))
+        return held["inv_m"]
+
     def step_fn(params: SystemParams, state: State, nlist_idx=None):
-        inv_m = _per_type(params.inv_mass, state.typ)
+        inv_m = inverse_mass(params, state.typ)
         move = _move_mask(system, state.typ, state.mask)
         new_step = state.step + 1
 
@@ -270,11 +288,12 @@ def make_step(system: System, with_aux: bool = False):
         v1 = final_integrate(state.v, state.f, f_new, system.dt, inv_m, move)
         new_state = state.replace(x=x1, v=v1, f=f_new, image=image1,
                                   step=new_step)
-        zero = torch.zeros((), dtype=torch.float32, device=state.device)
         if system.model == "edpd":
+            zero = torch.zeros((), dtype=torch.float32, device=state.device)
             t1 = state.T + system.dt * torch.where(move, aux["dTdt"], zero)
             new_state = new_state.replace(T=t1, dTdt=aux["dTdt"])
         elif system.model == "tdpd":
+            zero = torch.zeros((), dtype=torch.float32, device=state.device)
             c1 = state.C + system.dt * torch.where(move[:, None],
                                                    aux["dCdt"], zero)
             new_state = new_state.replace(C=c1, dCdt=aux["dCdt"])
@@ -321,10 +340,11 @@ def setup(system: System, params: SystemParams, state: State) -> State:
 _FIT_EXTRA_SLOTS = 8
 
 
-def fit_capacity(system: System, state: State) -> System:
+def fit_capacity(system: System, state: State,
+                 extra: int = _FIT_EXTRA_SLOTS) -> System:
     """The system with the least bucket capacity, from its own up to
-    ``_FIT_EXTRA_SLOTS`` more, that places this N-row start with no
-    overflow.
+    ``extra`` more (``_FIT_EXTRA_SLOTS`` by default), that places this
+    N-row start with no overflow.
 
     ``CellConfig.for_box`` sizes K from the density alone. A uniform random
     start has Poisson occupancy, and at a million particles some seeds put
@@ -338,7 +358,7 @@ def fit_capacity(system: System, state: State) -> System:
         return system
     from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
     cfg = system.cells
-    for k in range(cfg.capacity, cfg.capacity + _FIT_EXTRA_SLOTS + 1):
+    for k in range(cfg.capacity, cfg.capacity + extra + 1):
         _, overflow = rebuild_buckets(state, cfg.replace(capacity=k))
         if int(overflow) == 0:
             return system.replace(cells=cfg.replace(capacity=k))
@@ -468,7 +488,7 @@ def _bucket_chunk(system: System, params: SystemParams, state: State,
                   steps_per_chunk: int, thermo_trace: bool = True):
     """One (rebuild + steps) chunk. Returns (state, overflow, max
     displacement, (kT trace, virial trace)); thermo_trace=False skips the
-    per-step reductions and returns empty traces."""
+    per-step reductions and returns (None, None) for the traces."""
     from meso_tpu_torch.neighbor.bucket_layout import rebuild_buckets
     from meso_tpu_torch.obs.thermo import kinetic_temperature
 
@@ -486,8 +506,7 @@ def _bucket_chunk(system: System, params: SystemParams, state: State,
     else:
         for _ in range(steps_per_chunk):
             state = step_fn(params, state)
-        z = torch.zeros((0,), dtype=torch.float32, device=state.device)
-        trace = (z, z)
+        trace = (None, None)
     disp = torch.sqrt(max_displacement_sq(state.x, x_ref, state.mask,
                                           state.box))
     return state, of, disp, trace
@@ -525,12 +544,16 @@ def run_bucket_chunked(system: System, params: SystemParams, state: State,
     if of_hwm is not None:
         ofs.append(of_hwm)
         disps.append(disp_hwm)
-    kt_trace = torch.cat(kts)
-    vir_trace = torch.cat(virs)
-    # P = (sum m v^2 + virial) / (3V) with sum m v^2 = dof*kT ~ 3(N-1) kT
-    n = torch.sum(state.mask.to(torch.float32))
-    vol = torch.prod(state.box.lengths)
-    p_trace = (3.0 * (n - 1.0) * kt_trace + vir_trace) / (3.0 * vol)
+    if thermo_trace:
+        kt_trace = torch.cat(kts)
+        vir_trace = torch.cat(virs)
+        # P = (sum m v^2 + virial) / (3V) with sum m v^2 = dof*kT ~ 3(N-1) kT
+        n = torch.sum(state.mask.to(torch.float32))
+        vol = torch.prod(state.box.lengths)
+        p_trace = (3.0 * (n - 1.0) * kt_trace + vir_trace) / (3.0 * vol)
+    else:
+        kt_trace = vir_trace = p_trace = torch.zeros(
+            (0,), dtype=torch.float32, device=state.device)
     return state, {"bucket_overflow": torch.max(torch.stack(ofs)),
                    "worst_skin_ratio": torch.max(torch.stack(disps))
                    / half_skin,

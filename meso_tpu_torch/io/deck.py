@@ -12,10 +12,19 @@ The deck's tables mirror the LAMMPS input concepts one to one:
     [engine]         force_path = "pallas"  spill = true  rebuild = "sort"
     [run]            steps = 1000  thermo_every = 100
 
-or name one of the seven model builders:
+or name one of the eight model builders:
 
     [model]       builder = "poiseuille"
     [model.args]  g = 0.1  h = 6.0
+
+A builder deck may also give keys of [box], [pair.dpd], [integrate],
+[neighbor], [rng] and [engine]: each goes to the builder as the argument
+of the same meaning where the builder takes one (``[box] l`` as ``l``,
+``[integrate] lambda_`` as ``lam``, ``[rng] mode`` as ``rng_mode``), else,
+for lambda, the rebuild cadence and the engine's layout, onto the built
+system before its capacity is fitted and its start set up again; any
+other key, any other section, and an argument given twice raise, naming
+it.
 
 ``pair.coeff`` rows use 1-based type indices, as LAMMPS does. Every engine
 knob of the JAX package is accepted; the TPU-only ones (``z_chunks``,
@@ -96,6 +105,8 @@ _BUILDERS = {
     "edpd_slab": "meso_tpu_torch.models.transport:edpd_slab",
     "tdpd_diffusion": "meso_tpu_torch.models.transport:tdpd_diffusion",
     "polymer_melt": "meso_tpu_torch.models.polymer:polymer_melt",
+    "block_copolymer_melt":
+        "meso_tpu_torch.models.polymer:block_copolymer_melt",
     "membrane_suspension":
         "meso_tpu_torch.models.polymer:membrane_suspension",
 }
@@ -150,22 +161,123 @@ def _bonded_from_data(deck: dict, data: dict, device):
     return bonded, n_tags
 
 
+# A builder deck's keys of the explicit schema, and the builder argument
+# each gives where the builder takes it
+_BUILDER_ARGS = {
+    ("box", "l"): "l", ("pair.dpd", "a"): "a", ("pair.dpd", "gamma"): "gamma",
+    ("pair.dpd", "rc"): "rc", ("pair.dpd", "kt"): "kt",
+    ("pair.dpd", "seed"): "seed", ("integrate", "dt"): "dt",
+    ("integrate", "lambda_"): "lam", ("integrate", "lambda"): "lam",
+    ("neighbor", "skin"): "skin", ("neighbor", "rebuild_every"):
+        "rebuild_every", ("rng", "mode"): "rng_mode",
+    ("engine", "force_path"): "force_path",
+    ("engine", "pair_kernel"): "pair_kernel", ("engine", "spill"): "spill",
+    ("engine", "rebuild"): "rebuild", ("engine", "wrap_mode"): "wrap_mode",
+    ("engine", "z_chunks"): "z_chunks"}
+# those of them that a builder which does not take them can still have:
+# settings of the built system (applied by _configure_builder; every
+# builder takes the box, the pair table, dt, skin and the force path)
+_SYSTEM_KEYS = {("integrate", "lambda_"), ("integrate", "lambda"),
+                ("neighbor", "rebuild_every"), ("engine", "pair_kernel"),
+                ("engine", "spill"), ("engine", "rebuild"),
+                ("engine", "wrap_mode"), ("engine", "z_chunks")}
+
+
+def _builder_inputs(deck: dict, builder) -> tuple[dict, dict]:
+    """(builder arguments, system settings) of a builder deck: its
+    [model.args], then each key of [box], [pair.dpd], [integrate],
+    [neighbor], [rng] and [engine] as the builder's argument where the
+    builder takes it (``_BUILDER_ARGS``), else as a setting of the built
+    system where it is one (``_SYSTEM_KEYS``). Raises naming every key and
+    section it cannot apply, and every argument given twice."""
+    import inspect
+    takes = set(inspect.signature(builder).parameters)
+    args = dict(deck["model"].get("args", {}))
+    given = {}
+    bad = [f"[{sec}]" for sec in deck
+           if sec not in ("model", "run", "box", "pair", "integrate",
+                          "neighbor", "rng", "engine")]
+    for sec in ("box", "integrate", "neighbor", "rng", "engine"):
+        given.update({(sec, k): v for k, v in deck.get(sec, {}).items()})
+    for k, v in deck.get("pair", {}).items():
+        if k == "dpd":
+            given.update({("pair.dpd", kk): vv for kk, vv in v.items()})
+        else:
+            bad.append(f"[pair.{k}]")
+    settings = {}
+    for (sec, k), v in given.items():
+        arg = _BUILDER_ARGS.get((sec, k))
+        if arg in takes:
+            if arg in args:
+                bad.append(f"[{sec}] {k} (also [model.args] {arg})")
+            args[arg] = v
+        elif (sec, k) in _SYSTEM_KEYS:
+            settings[(sec, k)] = v
+        else:
+            bad.append(f"[{sec}] {k}")
+    if bad:
+        raise ValueError(f"a builder deck ([model] builder = "
+                         f"{deck['model']['builder']!r}) cannot apply "
+                         f"{', '.join(bad)}")
+    return args, settings
+
+
+def _configure_builder(system: System, state, settings: dict) -> System:
+    """The built system with a builder deck's settings that its builder
+    does not take (``_builder_inputs``) applied. The cells keep the
+    capacity the builder fitted to its start unless the spill layout
+    changes: then K comes from the start's density again (and is fitted
+    after)."""
+    from meso_tpu_torch.neighbor.cells import CellConfig
+
+    def get(sec, key, default):
+        return settings.get((sec, key), default)
+
+    cells = system.cells
+    wrap_mode = str(get("engine", "wrap_mode", system.wrap_mode))
+    spill = bool(get("engine", "spill", cells.spill))
+    lengths = state.box.lengths.tolist()
+    density = float(state.n_valid()) / float(np.prod(lengths))
+    cfg = CellConfig.for_box(
+        lengths, system.rc_max, density, skin=cells.skin,
+        rebuild_every=int(get("neighbor", "rebuild_every",
+                              cells.rebuild_every)),
+        capacity=cells.capacity if spill == cells.spill else None,
+        spill=spill, rebuild=str(get("engine", "rebuild", cells.rebuild)),
+        wrap_at_rebuild=wrap_mode == "rebuild")
+    lam = get("integrate", "lambda_", get("integrate", "lambda", system.lam))
+    return system.replace(
+        cells=cfg, wrap_mode=wrap_mode,
+        pair_kernel=str(get("engine", "pair_kernel", system.pair_kernel)),
+        z_chunks=int(get("engine", "z_chunks", system.z_chunks)),
+        lam=float(lam))
+
+
 def build_from_deck(deck: dict, device="cuda"):
     """deck dict -> (system, params, state, run_cfg), on ``device``: the
     card unless the caller asks for another (the CPU tests pass
     ``device="cpu"``); with no card, torch raises.
 
-    A builder deck calls the port's builder with its [model.args] and
-    ``device``. The explicit schema builds the box, the pair tables, the
-    system and a random or read_data start; bucketed paths get the least
-    capacity that places the start (``core.system.fit_capacity``)."""
+    A builder deck calls the port's builder with its [model.args], the
+    keys of the explicit schema the builder takes as arguments
+    (``_builder_inputs``) and ``device``; the settings the builder does not
+    take are then applied to the built system, whose capacity is fitted
+    and whose start is set up again on it. The explicit schema builds the
+    box, the pair tables, the system and a random or read_data start;
+    bucketed paths get the least capacity that places the start
+    (``core.system.fit_capacity``)."""
     device = torch.device(device)
     if "model" in deck:
         name = deck["model"]["builder"]
         modpath, fn = _BUILDERS[name].split(":")
         builder = getattr(importlib.import_module(modpath), fn)
-        out = builder(**deck["model"].get("args", {}), device=device)
+        args, settings = _builder_inputs(deck, builder)
+        out = builder(**args, device=device)
         system, params, state = out[:3]
+        if settings:
+            system = _configure_builder(system, state, settings)
+            system = fit_capacity(system, state)
+            state = setup(system, params, state)
         return system, params, state, _run_cfg(deck)
     boxcfg = deck.get("box", {})
     lengths = boxcfg.get("lengths") or [boxcfg.get("l", 10.0)] * 3

@@ -319,7 +319,7 @@ def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
         params.cv if model == "edpd" else 1.0,
         params.rcc if tdpd else 0.0, params.s1 if tdpd else 1.0,
         step & 0xFFFFFFFF, params.seed, rng_rounds,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream_of(dev))
     _build.check(code, "pair_brick")
     LAUNCHES[name] += 1
     return f, extra, torch.sum(vir)

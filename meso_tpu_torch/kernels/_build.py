@@ -70,6 +70,30 @@ SIGNATURES = {
     # base, cx, valid, target, fits, overflow, n_in, nx, k, n_rows_yz, wrap,
     # stream (csrc/bucket_assign.cu)
     "meso_spill_assign": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # x, image, mask, lo, hi, x_out, image_out, key, n, nx, ny, nz, wrap,
+    # stream (csrc/bucket_assign.cu)
+    "meso_bucket_keys": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # src, dst, width, n_cols, order, target, fits, inv, cx, x_col,
+    # image_col, lo, hi, nx, n_in, nr, stream (csrc/bucket_assign.cu)
+    "meso_bucket_place": (_P,) * 3 + (_I,) + (_P,) * 5 + (_I,) * 2
+    + (_P,) * 2 + (_I,) * 3 + (_P,),
+    # x, tag, valid, owner, box_lo, box_hi, partners, max_partners, coeffs,
+    # inv, f, missing, n, n_tags, style, store, stream (csrc/bonds.cu)
+    "meso_pair_bonds": (_P,) * 7 + (_I,) + (_P,) * 4 + (_I,) * 4 + (_P,),
+    # x, x_ref, mask, lo, hi, out, n, stream (csrc/bucket_assign.cu)
+    "meso_max_displacement": (_P,) * 6 + (_I, _P),
+    # n, key_bits, wrap (csrc/bucket_assign.cu)
+    "meso_bucket_rebuild_bytes": (_I,) * 3,
+    # x, image, mask, lo, hi, src, dst, width, n_cols, x_col, image_col,
+    # work, overflow, n, nx, ny, nz, k, key_bits, wrap, stream
+    "meso_bucket_rebuild": (_P,) * 8 + (_I,) * 3 + (_P,) * 2 + (_I,) * 7
+    + (_P,),
+    # x, v, f, image, inv_mass, per_row, move, lo, hi, x_out, v_out,
+    # image_out, n, dt, c_v, c_x, wrap, stream (csrc/integrate.cu)
+    "meso_initial_integrate": (_P,) * 5 + (_I,) + (_P,) * 6 + (_I,)
+    + (_F,) * 3 + (_I, _P),
+    # v, f_old, f_new, inv_mass, per_row, move, v_out, n, c_v, stream
+    "meso_final_integrate": (_P,) * 4 + (_I, _P, _P, _I, _F, _P),
     # the probes (csrc/probes.cu)
     # x, offs, n_offs, out, rows, len, stream
     "meso_probe_dynroll": (_P, _P, _I, _P, _I, _I, _P),
@@ -154,6 +178,20 @@ def build() -> Path:
         out.with_suffix(".log").write_text(log)
         os.replace(lib, out)
     return out
+
+
+def stream_of(device) -> int:
+    """The handle of the current CUDA stream on ``device`` (a CUDA
+    torch.device), as the C entry points take it: read straight from the
+    runtime where torch offers that, without building a Stream object at
+    every launch."""
+    import torch
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 @functools.lru_cache(maxsize=None)

@@ -74,7 +74,7 @@ def launch_hash(lib, tag: torch.Tensor, step: int, seed: int,
     h = torch.empty_like(tag, dtype=torch.int32)
     code = lib.meso_particle_hash(
         tag.data_ptr(), h.data_ptr(), tag.numel(), step & 0xFFFFFFFF, seed,
-        rounds, torch.cuda.current_stream(tag.device).cuda_stream)
+        rounds, _build.stream_of(tag.device))
     _build.check(code, "particle_hash")
     LAUNCHES["particle_hash"] += 1
     return h
@@ -119,7 +119,7 @@ def uniform_stream_v3(h: torch.Tensor, salt: int) -> torch.Tensor:
     out = torch.empty(bits.shape, dtype=torch.float32, device=h.device)
     code = lib.meso_uniform_stream(
         bits.data_ptr(), out.data_ptr(), bits.numel(), salt & 0xFFFFFFFF,
-        torch.cuda.current_stream(h.device).cuda_stream)
+        _build.stream_of(h.device))
     _build.check(code, "uniform_stream")
     LAUNCHES["uniform_stream"] += 1
     return out
@@ -169,7 +169,7 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
         plan.threads, plan.list_cap, plan.smem_bytes,
         int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
         int(need_virial), 1.0 / math.sqrt(dt), step_u, params.seed,
-        rng_rounds, torch.cuda.current_stream(x.device).cuda_stream)
+        rng_rounds, _build.stream_of(x.device))
     _build.check(code, "pair_dpd_v3")
     LAUNCHES["pair_dpd_v3"] += 1
     if need_virial:
@@ -215,7 +215,7 @@ def _launch_general(lib, x, v, typ, tag, mask, box: Box, step: int,
         int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
         int(debug_pairs), 1.0 / math.sqrt(dt), params.s_exp, step_u,
         params.seed, rng_rounds,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream_of(x.device))
     _build.check(code, "pair_dpd_v3_general")
     LAUNCHES["pair_dpd_v3_general"] += 1
     if need_virial and not debug_pairs:
@@ -261,7 +261,7 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
         plan.threads, plan.list_cap, plan.smem_bytes,
         int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
         1.0 / math.sqrt(dt), params.mass, params.cv, step_u, params.seed,
-        rng_rounds, torch.cuda.current_stream(x.device).cuda_stream)
+        rng_rounds, _build.stream_of(x.device))
     _build.check(code, "pair_edpd_v3")
     LAUNCHES["pair_edpd_v3"] += 1
     return f, dtdt, torch.sum(vir_rows)
@@ -309,7 +309,7 @@ def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
         plan.threads, plan.list_cap, plan.smem_bytes,
         int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
         1.0 / math.sqrt(dt), params.rcc, params.s1, step_u, params.seed,
-        rng_rounds, torch.cuda.current_stream(x.device).cuda_stream)
+        rng_rounds, _build.stream_of(x.device))
     _build.check(code, "pair_tdpd_v3")
     LAUNCHES["pair_tdpd_v3"] += 1
     return f, dcdt, torch.sum(vir_rows)

@@ -1,5 +1,6 @@
 """Config 5 — FENE polymer chains and a membrane vesicle in DPD solvent
-(port of ``meso_tpu/models/polymer.py``; BASELINE.json configs[4]).
+(port of ``meso_tpu/models/polymer.py``; BASELINE.json configs[4]), and
+the block-copolymer melt of Groot and Madden.
 
 Polymers: chains of FENE beads (K=30, R0=1.5) started as compact random
 walks, solvent filling up to the density. Membrane: an icosphere vesicle
@@ -11,6 +12,10 @@ the JAX package's order, so the port's builders give the same positions,
 bonds, exclusion table, triangles and hinges as JAX's for the same
 arguments. Velocities come from the port's ``maxwell_velocities`` and
 differ from JAX's.
+
+``block_copolymer_melt`` has no JAX counterpart: A_nB_m chains filling
+the box with no solvent (R. D. Groot and T. J. Madden, J. Chem. Phys.
+108, 8713 (1998)), their random walks drawn for all chains at once.
 """
 
 from __future__ import annotations
@@ -107,6 +112,84 @@ def polymer_melt(l: float = 10.0, density: float = 3.0, n_chains: int = 10,
     system = _system(l, rc, density, dt, skin, rng_mode, force_path,
                      bond_style="fene", n_tags=n_total)
     system = fit_capacity(system, state)
+    return system, params, setup(system, params, state)
+
+
+# slots fit_capacity may add for a start of chain walks: chains crowd
+# their beads into a few cells, so the start needs far more than the K the
+# density gives (at l = 70, skin 0.4, chains of 10: K 20-28 for spill
+# buckets against 16, over 20 seeds), which the first steps relax
+_WALK_EXTRA_SLOTS = 24
+
+
+def chain_walks(rng: np.random.Generator, n_chains: int, chain_len: int,
+                step_len: float, l: float) -> np.ndarray:
+    """(n_chains * chain_len, 3) float64 positions in [0, l): chain c's
+    beads at rows c * chain_len ..., a random walk of steps of length
+    ``step_len`` in uniformly random directions from a uniform random
+    start, every chain drawn at once (one call for the starts, one for the
+    steps)."""
+    starts = rng.uniform(0.0, l, (n_chains, 1, 3))
+    steps = rng.normal(size=(n_chains, chain_len - 1, 3))
+    steps *= step_len / np.linalg.norm(steps, axis=-1, keepdims=True)
+    walks = np.concatenate([np.zeros((n_chains, 1, 3)),
+                            np.cumsum(steps, axis=1)], axis=1)
+    return ((starts + walks) % l).reshape(-1, 3)
+
+
+def block_copolymer_melt(l: float = 10.0, density: float = 3.0,
+                         chain_len: int = 10, n_a: int = 5,
+                         a=((25.0, 40.0), (40.0, 25.0)),
+                         gamma=((4.5, 4.5), (4.5, 4.5)), rc: float = 1.0,
+                         kt: float = 1.0, bond_style: str = "harmonic",
+                         bond_coeffs=(2.0, 0.0, 0.0, 0.0), dt: float = 0.01,
+                         lam: float = 0.65, skin: float = 0.3,
+                         rng_mode: str = "fast", seed: int = 771,
+                         init_seed: int = 7, force_path: str = "nlist",
+                         device="cuda") -> tuple[System, SystemParams, State]:
+    """A_nB_m chains filling the box with no solvent (Groot and Madden,
+    J. Chem. Phys. 108, 8713 (1998)). Returns (system, params, state),
+    forces set, on ``device`` (the card unless the caller asks for another).
+
+    round(density l^3 / chain_len) chains of ``chain_len`` beads (102,900
+    at l = 70, density 3, chain_len 10: 1,029,000 beads). Chain c holds
+    tags c * chain_len + 1 ... (c + 1) * chain_len, its first ``n_a``
+    beads type A (0) and the rest type B (1); bonds join consecutive tags
+    of a chain. ``a`` and ``gamma`` are the 2 x 2 type tables, every pair
+    (bonded ones included, at full weight) feels the DPD pair force.
+    ``bond_coeffs`` is one row of the bond style's coefficients
+    (``ops.bonded.BondedParams``): harmonic (K, r0) with E = K (r - r0)^2,
+    so Groot and Madden's spring F = -C r is K = C / 2, r0 = 0. Starts:
+    random walks of step 0.9 (``chain_walks``, a numpy generator seeded
+    with ``init_seed``), velocities Maxwell at kt."""
+    device = torch.device(device)
+    if not 0 <= n_a <= chain_len or chain_len < 2:
+        raise ValueError(f"chains of {chain_len} beads with {n_a} A beads")
+    n_chains = int(round(density * l ** 3 / chain_len))
+    n_total = n_chains * chain_len
+    x = chain_walks(np.random.default_rng(init_seed), n_chains, chain_len,
+                    0.9, l)
+    mol = np.repeat(np.arange(1, n_chains + 1, dtype=np.int32), chain_len)
+    state = _start(x, mol, l, kt, init_seed, device)
+    bead = torch.arange(n_total, device=device) % chain_len
+    state = state.replace(typ=(bead >= n_a).to(torch.int32))
+
+    # consecutive beads of each chain, 1-based tags
+    base = np.arange(n_chains)[:, None] * chain_len + 1
+    first = (base + np.arange(chain_len - 1)[None, :]).reshape(-1)
+    bonds = np.stack([first, first + 1], 1).astype(np.int32)
+    coeffs = np.zeros((1, 4), np.float32)
+    coeffs[0, :len(bond_coeffs)] = bond_coeffs
+    bonded = BondedParams(
+        bond_tags=torch.from_numpy(bonds).to(device),
+        bond_type=torch.zeros(len(bonds), dtype=torch.int32, device=device),
+        bond_coeffs=torch.from_numpy(coeffs).to(device))
+    pair = DPDParams.build(a=a, gamma=gamma, rc=rc, kt=kt, seed=seed,
+                           n_types=2, device=device)
+    params = SystemParams.build(pair).replace(bonded=bonded)
+    system = _system(l, rc, n_total / l ** 3, dt, skin, rng_mode, force_path,
+                     bond_style=bond_style, n_tags=n_total, lam=lam)
+    system = fit_capacity(system, state, extra=_WALK_EXTRA_SLOTS)
     return system, params, setup(system, params, state)
 
 

@@ -80,7 +80,39 @@ class CellConfig:
 
 def max_displacement_sq(x: torch.Tensor, x_ref: torch.Tensor,
                         mask: torch.Tensor, box: Box) -> torch.Tensor:
-    """Max squared displacement since rebuild (skin-trigger diagnostic)."""
+    """Max squared displacement since rebuild (skin-trigger diagnostic), a
+    0-d float32 tensor. On a CUDA tensor the kernel
+    ``meso_max_displacement`` of ``csrc/bucket_assign.cu`` (a memset and
+    one launch), bitwise the plain chain's; on any other device the plain
+    chain (``max_displacement_sq_plain``)."""
+    if x.device.type != "cuda":
+        return max_displacement_sq_plain(x, x_ref, mask, box)
+    # imported here: kernels.common imports this module
+    from meso_tpu_torch.kernels import _build
+    from meso_tpu_torch.kernels.common import check_cuda
+    lib = _build.load_library()
+    x, x_ref, mask = x.contiguous(), x_ref.contiguous(), mask.contiguous()
+    n = x.shape[0]
+    check_cuda({"x": (x, torch.float32, (n, 3)),
+                "x_ref": (x_ref, torch.float32, (n, 3)),
+                "mask": (mask, torch.bool, (n,)),
+                "box.lo": (box.lo, torch.float32, (3,)),
+                "box.hi": (box.hi, torch.float32, (3,))})
+    if n >= 2 ** 31:
+        raise ValueError("max_displacement_sq: the kernel takes fewer than "
+                         "2**31 rows")
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    code = lib.meso_max_displacement(
+        x.data_ptr(), x_ref.data_ptr(), mask.data_ptr(),
+        box.lo.data_ptr(), box.hi.data_ptr(),
+        out.data_ptr(), n, _build.stream_of(x.device))
+    _build.check(code, "max_displacement")
+    return out
+
+
+def max_displacement_sq_plain(x: torch.Tensor, x_ref: torch.Tensor,
+                              mask: torch.Tensor, box: Box) -> torch.Tensor:
+    """``max_displacement_sq`` in plain torch."""
     d = box.min_image(x - x_ref)
     d2 = torch.sum(d * d, dim=-1)
     return torch.max(torch.where(mask, d2, torch.zeros_like(d2)))

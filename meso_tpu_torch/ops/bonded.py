@@ -3,30 +3,43 @@
 
 * Topology lives in tag space, so it survives the bucket resort: a
   tag -> row map is rebuilt at every force call (one scatter).
-* Pair bonds (FENE, harmonic, WLC-POW) are closed-form forces gathered per
-  bond end and added into rows with ``index_add_``. On the card those adds
-  are atomics in no fixed order, so bonded sums differ from run to run in
-  their last bits; the tests compare them with a tolerance.
+* Pair bonds (FENE, harmonic, WLC-POW) are closed-form forces. On a CUDA
+  tensor they are one kernel pair of ``csrc/bonds.cu`` (the tag -> row
+  scatter, then a thread a row summing its own bonds in the order of the
+  bond list from a per-tag partner table, ``partner_table``, built once
+  with the topology): two launches a force call, no atomics on f, the same
+  bits from run to run. On a CPU tensor they are the plain torch chain
+  (``_bonded_plain``): gathered per bond end and added into rows with
+  ``index_add_``. Any other device raises.
 * Angles, hinge bending and the membrane's area and volume terms are one
   scalar energy, differentiated with ``torch.autograd.grad`` as the JAX
-  package differentiates it with ``jax.grad``. The gradient is taken
-  outside any ``torch.inference_mode()`` or ``no_grad`` of the caller, on
-  a copy of x, so no graph rides the state.
-
-No kernel: these are gathers, elementwise math and scatter-adds over the
-bond and triangle tables.
+  package differentiates it with ``jax.grad``, on every device. The
+  gradient is taken outside any ``torch.inference_mode()`` or ``no_grad``
+  of the caller, on a copy of x, so no graph rides the state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from meso_tpu_torch.core.box import Box
+from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.ops.dpd import sqrt32
+
+# Calls of the pair-bond kernels (the tag -> row scatter and the row
+# kernel, two launches a call), raised by one at each call and nowhere
+# else (parallel/launch.py::counted_launches reads them).
+LAUNCHES = {"pair_bonds": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 @dataclass(frozen=True)
@@ -52,6 +65,12 @@ class BondedParams:
 
     def replace(self, **kw) -> "BondedParams":
         return dataclasses.replace(self, **kw)
+
+    @functools.cached_property
+    def kernel_tables(self) -> dict:
+        """The pair-bond kernel's inputs built for this object, by n_tags
+        (``_topology``)."""
+        return {}
 
 
 def inverse_tag_map(tag, mask, n_tags: int) -> torch.Tensor:
@@ -240,9 +259,45 @@ def bonded_forces_ext(x, tag, mask, box: Box, params: BondedParams,
 
 def _bonded(x, tag, mask, box: Box, params: BondedParams, style: str,
             n_tags: int, n_mols: int, image, owner_mask, reduce_sum,
-            count_missing: bool):
+            count_missing: bool, add_to=None):
     """bonded_forces_ext; without ``count_missing`` the checked invariant
-    is not counted (missing is None), which saves the step its launches."""
+    is not counted (missing is None), which saves the step its launches.
+    With ``add_to`` the result is add_to plus the bonded force, and
+    add_to's storage may hold it (the CUDA route adds into it in place
+    where there are pair bonds alone): the caller gives add_to up."""
+    if x.device.type == "cpu":
+        f, missing = _bonded_plain(x, tag, mask, box, params, style, n_tags,
+                                   n_mols, image, owner_mask, reduce_sum,
+                                   count_missing)
+        return (f if add_to is None else add_to + f), missing
+    terms = [t for t in (params.angle_tags, params.hinge_tags,
+                         params.tri_tags) if t is not None]
+    if not terms:
+        return pair_bonds(x, tag, mask, box, params, style, n_tags,
+                          owner_mask, count_missing, add_to)
+    # angles, hinges and the membrane: the pair bonds' kernel, then the
+    # energy's gradient by autograd and the owner mask, as the plain chain
+    f, missing = pair_bonds(x, tag, mask, box, params, style, n_tags,
+                            owner_mask, count_missing)
+    owner_rows = mask if owner_mask is None else (mask & owner_mask)
+    inv = inverse_tag_map(tag, mask, n_tags)
+    present = presence_map(tag, mask, n_tags)
+    owned = (present if owner_mask is None
+             else presence_map(tag, owner_rows, n_tags))
+    if count_missing:
+        for t in terms:
+            missing = missing + _count_missing(present, owned, t)
+    f = f - _energy_grad(x, image, inv, present, owned, box, params, n_mols,
+                         reduce_sum)
+    f = torch.where(owner_rows[:, None], f, torch.zeros_like(f))
+    return (f if add_to is None else add_to + f), missing
+
+
+def _bonded_plain(x, tag, mask, box: Box, params: BondedParams, style: str,
+                  n_tags: int, n_mols: int, image, owner_mask, reduce_sum,
+                  count_missing: bool):
+    """The plain torch chain of the bonded terms (the CPU route, on any
+    device's tensors): (f, missing), missing None unless counted."""
     owner_rows = mask if owner_mask is None else (mask & owner_mask)
     inv = inverse_tag_map(tag, mask, n_tags)
     present = presence_map(tag, mask, n_tags)
@@ -268,6 +323,117 @@ def _bonded(x, tag, mask, box: Box, params: BondedParams, style: str,
         f = f - _energy_grad(x, image, inv, present, owned, box, params,
                              n_mols, reduce_sum)
     return torch.where(owner_rows[:, None], f, torch.zeros_like(f)), missing
+
+
+# ---------------------------------------------------------------------------
+# the pair bonds' kernel (csrc/bonds.cu)
+# ---------------------------------------------------------------------------
+
+_STYLES = {"fene": 0, "harmonic": 1, "wlc_pow": 2}
+def _topology(params: BondedParams, n_tags: int):
+    """(partner table, width, coefficients) of ``params``' bonds, built on
+    the bonds' device at the first call for this object and ``n_tags``
+    (one host sync) and kept on it (``BondedParams.kernel_tables``) while
+    its bond tensors are unchanged."""
+    bt, ty, co = params.bond_tags, params.bond_type, params.bond_coeffs
+    versions = (bt._version, ty._version, co._version)
+    hit = params.kernel_tables.get(n_tags)
+    if hit is not None and hit[0] == versions:
+        return hit[1:]
+    if co.dim() != 2 or co.shape[1] != 4:
+        raise ValueError("bond_coeffs must be (bond types, 4)")
+    dev = bt.device
+    b = bt.long()
+    keep = torch.nonzero((b[:, 0] > 0) & (b[:, 1] > 0)).reshape(-1)
+    nb = int(keep.numel())
+    b, typ = b[keep], ty[keep].long()
+    ends = torch.cat([b[:, 0], b[:, 1]])
+    other = torch.cat([b[:, 1], b[:, 0]])
+    typ = torch.cat([typ, typ])
+    # each tag's entries in bond order, the bond's first end before its
+    # second
+    j = torch.arange(nb, device=dev)
+    _, order = torch.sort(ends * (2 * nb) + torch.cat([2 * j, 2 * j + 1]))
+    ends = ends[order]
+    rank = torch.arange(2 * nb, device=dev) - torch.searchsorted(
+        ends, ends, side="left")
+    width = int(rank.max()) + 1 if nb else 1
+    table = torch.zeros((n_tags + 1, width, 2), dtype=torch.int32, device=dev)
+    table[ends, rank, 0] = other[order].to(torch.int32)
+    table[ends, rank, 1] = typ[order].to(torch.int32)
+    coeffs = co.to(device=dev, dtype=torch.float32).contiguous()
+    params.kernel_tables[n_tags] = (versions, table, width, coeffs)
+    return table, width, coeffs
+
+
+def partner_table(params: BondedParams, n_tags: int):
+    """(table, width): each tag's bond partners, in the order of
+    ``params.bond_tags``, as int32 (n_tags + 1, width, 2) rows of
+    (partner tag, bond type) padded with partner 0; width is the most
+    bonds a tag has (at least 1). Bonds with a tag 0 are padding and left
+    out. Built once for this object and kept (``_topology``)."""
+    return _topology(params, n_tags)[:2]
+
+
+def _check_rows(n: int, dev, x, tag, mask, add_to, owner_mask) -> None:
+    """Raise unless each given tensor is contiguous, on ``dev``, of the
+    kernel's dtype and of n rows."""
+    for name, t, dtype, width in (
+            ("x", x, torch.float32, 3), ("tag", tag, torch.int32, 0),
+            ("mask", mask, torch.bool, 0), ("add_to", add_to, torch.float32,
+                                            3),
+            ("owner_mask", owner_mask, torch.bool, 0)):
+        if t is None:
+            continue
+        shape = (n, width) if width else (n,)
+        if (t.dtype != dtype or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"pair_bonds: {name} must be a contiguous "
+                             f"{dtype} tensor of shape {shape} on {dev}")
+
+
+def pair_bonds(x, tag, mask, box: Box, params: BondedParams, style: str,
+               n_tags: int, owner_mask=None, count_missing: bool = False,
+               add_to=None):
+    """The pair bonds' force on CUDA tensors through ``meso_pair_bonds``
+    (two launches, adding one to ``LAUNCHES["pair_bonds"]``): on the rows
+    this rank owns (the valid rows, and of them those in ``owner_mask``
+    where given), the sum of the row's bonds in the order of the bond
+    list; 0 on every other row. With ``add_to`` (float32 (N, 3)) the sum
+    is added into add_to in place and add_to is returned; else a new
+    tensor. ``missing`` (with ``count_missing``, else None): an int32
+    0-d tensor, the owned rows' partners that no valid row holds (the
+    plain chain's count where tags are unique). Returns (f, missing)."""
+    if style not in _STYLES:
+        raise ValueError(f"unknown bond style {style!r}")
+    lib = _build.load_library()
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"pair_bonds takes CUDA tensors (the CPU's are the "
+                         f"plain chain's), not {dev}")
+    n = x.shape[0]
+    _check_rows(n, dev, x, tag, mask, add_to, owner_mask)
+    table, width, coeffs = _topology(params, n_tags)
+    if table.device != dev:
+        raise ValueError(f"pair_bonds: the bonds are on {table.device}, the "
+                         f"rows on {dev}")
+    inv = torch.empty(n_tags + 1, dtype=torch.int32, device=dev)
+    f = torch.empty_like(x) if add_to is None else add_to
+    missing = (torch.empty((), dtype=torch.int32, device=dev)
+               if count_missing else None)
+    lo = box.lo.to(device=dev, dtype=torch.float32).contiguous()
+    hi = box.hi.to(device=dev, dtype=torch.float32).contiguous()
+    code = lib.meso_pair_bonds(
+        x.data_ptr(), tag.data_ptr(), mask.data_ptr(),
+        None if owner_mask is None else owner_mask.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), table.data_ptr(), width,
+        coeffs.data_ptr(), inv.data_ptr(), f.data_ptr(),
+        None if missing is None else missing.data_ptr(), n, n_tags,
+        _STYLES[style], int(add_to is None),
+        _build.stream_of(dev))
+    _build.check(code, "pair_bonds")
+    LAUNCHES["pair_bonds"] += 1
+    return f, missing
 
 
 def _energy_grad(x, image, inv, present, owned, box: Box,
@@ -305,8 +471,12 @@ def _energy_grad(x, image, inv, present, owned, box: Box,
 
 
 def bonded_forces(x, tag, mask, box: Box, params: BondedParams, style: str,
-                  n_tags: int, n_mols: int = 0, image=None) -> torch.Tensor:
-    """Single-rank bonded force (every tag resolvable by construction)."""
+                  n_tags: int, n_mols: int = 0, image=None,
+                  add_to=None) -> torch.Tensor:
+    """Single-rank bonded force (every tag resolvable by construction).
+    With ``add_to`` (the step's pair force, which the caller gives up):
+    add_to plus the bonded force, in add_to's storage where the CUDA
+    route can add in place."""
     f, _ = _bonded(x, tag, mask, box, params, style, n_tags, n_mols, image,
-                   None, None, count_missing=False)
+                   None, None, count_missing=False, add_to=add_to)
     return f

@@ -116,18 +116,25 @@ def params_on(params, device):
 
 def counted_launches() -> dict:
     """Every kernel launch counter of the port, by name."""
+    from meso_tpu_torch.core import integrate
     from meso_tpu_torch.kernels import _brick, pair_dpd_v3
     from meso_tpu_torch.neighbor import bucket_layout
+    from meso_tpu_torch.ops import bonded
     return {**pair_dpd_v3.LAUNCHES, **_brick.LAUNCHES,
-            **bucket_layout.LAUNCHES}
+            **bucket_layout.LAUNCHES, **bonded.LAUNCHES,
+            **integrate.LAUNCHES}
 
 
 def reset_launches() -> None:
+    from meso_tpu_torch.core import integrate
     from meso_tpu_torch.kernels import _brick, pair_dpd_v3
     from meso_tpu_torch.neighbor import bucket_layout
+    from meso_tpu_torch.ops import bonded
     pair_dpd_v3.reset_launch_counts()
     _brick.reset_launch_counts()
     bucket_layout.reset_launch_counts()
+    bonded.reset_launch_counts()
+    integrate.reset_launch_counts()
 
 
 def slab_run(ring, device: str, system, params, states, dcfg,

@@ -161,6 +161,33 @@ def test_non_cpu_input_without_nvcc_raises(monkeypatch):
     assert LAUNCHES == before
 
 
+def test_bonds_on_a_non_cpu_tensor_without_nvcc_raise(monkeypatch):
+    """The bonded forces on a non-CPU tensor with no kernel library and no
+    compiler raise; they never fall back to the plain chain, and count no
+    launch."""
+    from meso_tpu_torch.ops import bonded
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("CUDA_PATH", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setattr(torch.utils.cpp_extension, "CUDA_HOME", None)
+    _build.load_library.cache_clear()
+    system, params, state = polymer_melt(l=6.0, n_chains=2, chain_len=5,
+                                         force_path="dense", device="cpu")
+    meta = bridge.state_from(bridge.state_to_numpy(state), device="meta")
+    b = params.bonded
+    mb = bonded.BondedParams(bond_tags=b.bond_tags.to("meta"),
+                             bond_type=b.bond_type.to("meta"),
+                             bond_coeffs=b.bond_coeffs.to("meta"))
+    before = dict(bonded.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bonded.bonded_forces(meta.x, meta.tag, meta.mask, meta.box, mb,
+                             "fene", system.n_tags)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bonded.bonded_forces_ext(meta.x, meta.tag, meta.mask, meta.box, mb,
+                                 "fene", system.n_tags)
+    assert bonded.LAUNCHES == before
+
+
 @pytest.mark.parametrize("builder", [classic_fluid, edpd_slab,
                                      tdpd_diffusion])
 def test_entry_points_default_to_the_card(builder):
@@ -186,7 +213,9 @@ def test_wall_and_bonded_builders_default_to_the_card(builder, kw):
 
 def test_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == REPO / "build" / "meso_tpu_torch"
-    assert [p.name for p in _build.sources()] == ["bucket_assign.cu",
+    assert [p.name for p in _build.sources()] == ["bonds.cu",
+                                                  "bucket_assign.cu",
+                                                  "integrate.cu",
                                                   "pair_brick.cu",
                                                   "pair_dpd_v3.cu",
                                                   "pair_transport_v3.cu",
