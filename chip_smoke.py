@@ -88,7 +88,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
    variant, with each path's gates;
 14. kernels-selectors-l8: the fused (K5: pair_fused_dpd/_edpd/_tdpd) and
    banded (K6: pair_banded_dpd; K7: pair_banded_edpd/_tdpd) entry points,
-   all on csrc/pair_brick.cu, against their plain versions at l=8: fast and
+   all on csrc/pair_brick.cu but K6, which reads the bucket rows on K1's
+   general variant, against their plain versions at l=8: fast and
    TEA, spill (K5) and strict, one type and two with asymmetric tables,
    s_exp 0.5 and exclusions (classic), one, three and ten species (tDPD),
    a row that crossed the box mid-window; then K2 and K3 with two types and
@@ -102,8 +103,10 @@ Phases, one line of output each (any failure raises and exits non-zero):
    inputs at set-up (spill rows for the fused, strict rows, K=28 and
    3,500,000 of them, for the banded), and the fused classic kernel on the
    wall and polymer paths' inputs, with times (through the wrapper, the
-   brick's build included, and the kernel alone on the built brick), plain
-   times, bounds, the tile plan and the slot tests a valid row;
+   brick's build included, and the kernel alone on the built brick; K6's
+   kernel alone on its rows, and the brick kernel on the same inputs as
+   brick_kernel_ms), plain times, bounds, the tile plan and the slot tests
+   a valid row;
 16. the classic, eDPD and tDPD paths at 1,029,000 particles through each
    selector (v2-classic, v2-edpd, v2-tdpd, banded-classic, banded-edpd,
    banded-tdpd), with the main path's and transport-full's steps and
@@ -301,7 +304,8 @@ POLYMER_CHAINS, POLYMER_CHAIN_LEN = 3200, 16
 # 1/rc per pair) + 12 integer per pair, and 2 integer per exclusion slot.
 # the pair kernel each selector runs, by model: force_path "pallas" with
 # pair_kernel "v3" (K1-K3) or "v2" (the fused K5), and "pallas_banded" (K6,
-# K7); K5, K6 and K7 are one CUDA kernel family, csrc/pair_brick.cu
+# K7); K5 and K7 are one CUDA kernel family, csrc/pair_brick.cu, and K6
+# (K6_ROWS) reads the bucket rows on K1's general variant
 SELECTOR_KERNELS = {
     "v3": {"dpd": "pair_dpd_v3", "edpd": "pair_edpd_v3",
            "tdpd": "pair_tdpd_v3"},
@@ -309,6 +313,10 @@ SELECTOR_KERNELS = {
            "tdpd": "pair_fused_tdpd"},
     "banded": {"dpd": "pair_banded_dpd", "edpd": "pair_banded_edpd",
                "tdpd": "pair_banded_tdpd"}}
+# the selector entry point whose kernel reads the bucket rows in place on
+# one card (K1's general variant under the minimum image, on K1's plan):
+# no brick
+K6_ROWS = "pair_banded_dpd"
 # the brick kernels' operations per in-range pair, counted from
 # csrc/pair_brick.cu as for K1-K3 above: classic as K1's general variant
 # (r2 summed again, per-pair tables), eDPD as K2, tDPD as K3
@@ -427,14 +435,34 @@ def read_launches():
     return out
 
 
+def brick_builds():
+    """The bricks built for CUDA launches since the last reset, by entry
+    point, where any were (``_brick.BUILDS``)."""
+    from meso_tpu_torch.kernels import _brick
+    return {k: n for k, n in _brick.BUILDS.items() if n}
+
+
 # the pair kernels among the launch counters (the hash, the
 # uniform_stream probe, the rebuild's kernels, the bonds and the
 # integrator are not pair kernels)
 def pair_launches(launches):
     return {k: n for k, n in launches.items()
             if k not in ("particle_hash", "uniform_stream", "spill_assign",
-                         "bucket_keys", "bucket_place", "pair_bonds",
-                         "initial_integrate", "final_integrate")}
+                         "bucket_keys", "bucket_place", "bucket_rebuild",
+                         "pair_bonds", "initial_integrate",
+                         "final_integrate")}
+
+
+# the integrator's two halves, one launch each a step on every path
+# (csrc/integrate.cu)
+INTEGRATOR = ("initial_integrate", "final_integrate")
+
+
+def only_integrator(launches, steps):
+    """That a path launched no kernel but the integrator's two halves, one
+    each a step (the plain torch paths: nlist and adaptive)."""
+    return (not any(n for k, n in launches.items() if k not in INTEGRATOR)
+            and all(launches[k] == steps for k in INTEGRATOR))
 
 
 def run(cmd):
@@ -1553,7 +1581,12 @@ def phase_main_path(selector="v3"):
     reset_launches()
     t0 = time.perf_counter()
     system, params, state = classic_path(selector)
-    setup_assign = read_launches()["spill_assign"]
+    # the rebuild's launches, one each a rebuild: the spill layout's one
+    # host call (its slot assignment inside), the strict layout's keys and
+    # placement
+    rebuild_kernels = (("bucket_rebuild",) if system.cells.spill
+                       else ("bucket_keys", "bucket_place"))
+    setup_rebuild = {k: read_launches()[k] for k in rebuild_kernels}
     n = int(state.n_valid())
     force_evals = 1
     diags = {"equil": [], "timed": [], "traced": []}
@@ -1586,6 +1619,7 @@ def phase_main_path(selector="v3"):
             break
     torch.cuda.synchronize()
     launches = read_launches()
+    builds = brick_builds()
     if selector == "v3":
         FINAL_STATES["classic"] = state
 
@@ -1614,6 +1648,7 @@ def phase_main_path(selector="v3"):
            "worst_skin_ratio_equil": skin["equil"],
            "worst_skin_ratio_traced": skin["traced"],
            "force_evals": force_evals, "launches": launches,
+           "brick_builds": builds,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     label = "main-path" if selector == "v3" else f"{selector}-classic"
     say(label, **res)
@@ -1624,9 +1659,11 @@ def phase_main_path(selector="v3"):
                 kernel: force_evals},
         "hash launches == force evaluations":
             launches["particle_hash"] == force_evals,
-        "spill_assign launches == rebuilds (spill), 0 (strict)":
-            launches["spill_assign"] - setup_assign
-            == ((force_evals - 1) // EVERY if system.cells.spill else 0),
+        "a brick built a K5 launch, none for K1 and K6":
+            builds == ({kernel: force_evals} if selector == "v2" else {}),
+        "rebuild launches == rebuilds": all(
+            launches[k] - setup_rebuild[k] == (force_evals - 1) // EVERY
+            for k in rebuild_kernels),
         "bucket_overflow == 0": overflow == 0,
         "worst_skin_ratio < 1": skin_ratio < 1.0,
         "state finite": finite,
@@ -2915,9 +2952,9 @@ def phase_brick_tiles(keep=None):
             tcfg = cfg
         if keep is not None:
             keep[label] = got
-        plan = cell_tiles.brick_plan(tcfg.capacity, xr, tcfg.ncell)
+        plan = tile_plan(name, tcfg, xr)
         rec.update(case=label, max_partners=partners, ncell=list(tcfg.ncell),
-                   **tile_fields(tcfg, xr))
+                   **tile_fields(tcfg, xr, name))
         failed = {
             "ragged": kind == "ragged" and tcfg.ncell[0] % plan.width == 0,
             "fills its list": kind == "dense"
@@ -2963,11 +3000,20 @@ def selector_bound(model, st, fld, got, params, n_rc):
     return row_bound(st.mask, ins, outs, ops, virial=True)
 
 
-def tile_fields(cfg, xr):
-    """The brick kernel's tile plan for these cells: W, runs of cx,
-    threads, shared bytes and blocks an SM."""
+def tile_plan(name, cfg, xr):
+    """The tile plan the kernel behind entry point ``name`` runs on for
+    these cells: K1's for K6 on one card (K6_ROWS), which reads the bucket
+    rows, else the brick kernel's."""
     from meso_tpu_torch.kernels import cell_tiles
-    p = cell_tiles.brick_plan(cfg.capacity, xr, cfg.ncell)
+    plan = cell_tiles.plan if name == K6_ROWS else cell_tiles.brick_plan
+    return plan(cfg.capacity, xr, cfg.ncell)
+
+
+def tile_fields(cfg, xr, name=None):
+    """The tile plan of the kernel behind entry point ``name`` (the brick
+    kernel's by default; ``tile_plan``) for these cells: W, runs of cx,
+    threads, shared bytes and blocks an SM."""
+    p = tile_plan(name, cfg, xr)
     return {"width": p.width, "runs": p.n_xtiles, "threads": p.threads,
             "smem_bytes": p.smem_bytes, "blocks_per_sm": p.blocks_per_sm()}
 
@@ -3007,6 +3053,26 @@ def kernel_alone_ms(name, lib, brick, box, step, params, dt, cfg,
         20)
 
 
+def k6_alone_ms(st, step, params, dt, cfg):
+    """K6's kernel alone on one card (``pair_dpd_v3.launch_general`` under
+    the minimum image on K1's plan, fast tier, on a hash made beforehand:
+    the launch, its outputs' allocation and the virial's sum, as
+    ``kernel_alone_ms`` times a brick kernel), over 20 calls."""
+    import torch
+    from meso_tpu_torch.kernels import _build
+    from meso_tpu_torch.kernels import pair_dpd_v3 as v3
+    lib = _build.load_library()
+    plan = tile_plan(K6_ROWS, cfg, 1)
+    h = v3.launch_hash(lib, st.tag, step, params.seed, 8)
+
+    def call():
+        f, vir_rows = v3.launch_general(
+            lib, plan, h, st.x, st.v, st.typ, st.tag, st.mask, st.box, step,
+            params, dt, "fast", 8, True)
+        return f, torch.sum(vir_rows)
+    return timed_ms(call, 20)
+
+
 def phase_selector_kernels_l70():
     """8a at the 1M shape: each fused and banded entry point on the inputs
     of its own 1M path at set-up (the v2 paths on spill buckets, K=16-18;
@@ -3044,10 +3110,16 @@ def phase_selector_kernels_l70():
         rec["bound_ms"], rec["bound_by"] = selector_bound(
             model, st, fld, got, p, n_rc)
         lib, brick = entry_brick(name, st, fld, 1, p, cfg)
-        rec["kernel_ms"] = kernel_alone_ms(name, lib, brick, st.box, 1, p,
-                                           system.dt, cfg)
-        rec["tests_per_valid_row"] = brick_tests_per_row(brick, cfg)
-        rec.update(tile_fields(cfg, brick.xr))
+        ms = kernel_alone_ms(name, lib, brick, st.box, 1, p, system.dt, cfg)
+        if name == K6_ROWS:
+            # the brick kernel K6 ran on before, on the same inputs
+            rec["kernel_ms"] = k6_alone_ms(st, 1, p, system.dt, cfg)
+            rec["brick_kernel_ms"] = ms
+            rec.update(row_tile_fields(st, cfg))
+        else:
+            rec["kernel_ms"] = ms
+            rec["tests_per_valid_row"] = brick_tests_per_row(brick, cfg)
+            rec.update(tile_fields(cfg, brick.xr))
         del brick
         out[label] = rec
         say(f"kernels-selectors-l70-{label}", **rec)
@@ -4622,7 +4694,8 @@ def phase_nlist_path():
     MIN_N_EFF effective samples;
     the list build timed alone. Gates: cell and list overflow 0, every
     value finite, kT within 1% of 1 at 3 sigma, and no kernel launched
-    (the path is plain torch, as it was XLA code in JAX). The skin check
+    but the integrator's halves, once a step (the forces and lists are
+    plain torch, as they were XLA code in JAX). The skin check
     is reported: at this cadence the fastest of a million particles
     outruns skin/2 within every chunk (JAX's own fixed-cadence test runs
     skin 0.5 and a rebuild every 3 steps)."""
@@ -4684,7 +4757,8 @@ def phase_nlist_path():
     say("nlist-path", **res)
     finite = all(bool(torch.isfinite(t).all())
                  for t in (state.x, state.v, state.f))
-    checks = {"no kernel launched": not any(launches.values()),
+    checks = {"no kernel launched but the integrator, once a step":
+              only_integrator(launches, res["chunks"] * every),
               "cell_overflow == 0": res["cell_overflow"] == 0,
               "nlist_overflow == 0": res["nlist_overflow"] == 0,
               "state finite": finite,
@@ -4818,7 +4892,8 @@ def phase_bucket_paths():
            "ms_per_step": 1e3 * wall / ADAPTIVE_STEPS,
            "launches": {k: v for k, v in launches.items() if v}}
     say("adaptive-nlist", **res)
-    checks = {"no kernel launched": not any(launches.values()),
+    checks = {"no kernel launched but the integrator, once a step":
+              only_integrator(launches, ADAPTIVE_STEPS),
               "overflow == 0": res["cell_overflow"] == 0
               and res["nlist_overflow"] == 0,
               "rebuilt at least once": res["n_rebuilds"] > 0,
@@ -5547,13 +5622,14 @@ def ab_one(out_path):
     """One run of --ab in this process's meso_tpu_torch (the tree --ab-one
     put first on sys.path): the main path (set-up, EQUIL_CHUNKS, then
     TIMED_CHUNKS in TIMED_BLOCKS blocks, each timed), K1 through its
-    wrapper at the main-path shape, the brick kernel alone (K5 classic, K6)
-    on its 1M path's inputs, K1's general variant (walls, polymers), K2 and
+    wrapper at the main-path shape, K5's classic brick kernel alone and K6
+    through its wrapper on their 1M paths' inputs, K1's general variant (walls, polymers), K2 and
     K3 through their wrappers on their paths' inputs, and the eDPD path
     (transport-full's equilibration, then its timed steps); and the kernel
     outputs the trees must share bitwise, saved to ``out_path``: K1 on
-    kernels-l8's cases and at the main-path shape, the brick kernel on
-    BRICK_TILE_CASES and on the v2 and banded classic paths' inputs, K1's
+    kernels-l8's cases and at the main-path shape, the selectors' entry
+    points on BRICK_TILE_CASES and on the v2 and banded classic paths'
+    inputs, K1's
     general variant and K3 on their paths' inputs."""
     import torch
     import meso_tpu_torch
@@ -5613,12 +5689,20 @@ def ab_one(out_path):
         outputs[f"{name} path"] = run_entry(name, False, st, None, 1,
                                             sparams.pair, system.dt,
                                             system.cells)
-        lib, brick = entry_brick(name, st, None, 1, sparams.pair,
-                                 system.cells)
-        res[f"{name}_kernel_ms"] = kernel_alone_ms(
-            name, lib, brick, st.box, 1, sparams.pair, system.dt,
-            system.cells)
-        del system, sparams, st, brick
+        if name == K6_ROWS:
+            # the brick kernel in trees from before K6 read the rows in
+            # place: through the wrapper in both
+            res[f"{name}_ms"] = timed_ms(lambda: run_entry(
+                name, False, st, None, 1, sparams.pair, system.dt,
+                system.cells), 20)
+        else:
+            lib, brick = entry_brick(name, st, None, 1, sparams.pair,
+                                     system.cells)
+            res[f"{name}_kernel_ms"] = kernel_alone_ms(
+                name, lib, brick, st.box, 1, sparams.pair, system.dt,
+                system.cells)
+            del brick
+        del system, sparams, st
     # K1's general variant, K2 and K3 through their wrappers on their
     # paths' inputs at set-up (the parent's may be another design), their
     # outputs kept but K2's (a redesign may move it by ulps)
@@ -5722,7 +5806,7 @@ def phase_ab(parent, rounds=AB_ROUNDS):
         which: {k: [r[k] for r in runs if r["which"] == which]
                 for k in ("main_ms_per_step", "k1_ms", "spill_assign_ms",
                           "pair_fused_dpd_kernel_ms",
-                          "pair_banded_dpd_kernel_ms", "walls_kernel_ms",
+                          "pair_banded_dpd_ms", "walls_kernel_ms",
                           "polymer_kernel_ms", "tdpd_kernel_ms",
                           "edpd_kernel_ms", "edpd_ms_per_step", "bonds_ms",
                           "polymer_ms_per_step")}
@@ -5755,7 +5839,10 @@ IN_PATH = {"pair_dpd_v3": ("classic", "pair_dpd_v3_kernel<"),
                                              "pair_brick_kernel<")
               for sel in ("v2", "banded")
               for model, label in (("dpd", "classic"), ("edpd", "edpd"),
-                                   ("tdpd", "tdpd"))}}
+                                   ("tdpd", "tdpd"))},
+           # K6 reads the bucket rows on one card: K1's general variant
+           "pair_banded_dpd": ("banded-classic",
+                               "pair_dpd_v3_general_kernel<0, true")}
 PORT_KERNELS = tuple(sorted({PORT_KERNEL_PREFIX + kernel
                              for _, kernel in IN_PATH.values()}))
 
@@ -5828,10 +5915,12 @@ def kernel_records(record):
          # its bound's instructions a row, counted from the built library
          "ops_per_row": l70["hash_ops_per_row"]},
         # the spill rebuild's slot assignment (no TPU kernel: XLA code in
-        # the JAX package), once a rebuild of the main path
+        # the JAX package), once a rebuild of the main path, inside the
+        # rebuild's one host call (bucket_rebuild) but at set-up
         {"name": "spill_assign", "route": "cuda",
          "source": "meso_tpu_torch/csrc/bucket_assign.cu",
-         "replaces": None, "launches": k1_launches["spill_assign"],
+         "replaces": None, "launches": k1_launches["spill_assign"]
+         + k1_launches["bucket_rebuild"],
          "max_abs_err": 0, "ms": l70["assign_ms"],
          "plain_ms": l70["assign_plain_ms"],
          "bound_ms": l70["assign_bound_ms"],
@@ -5888,16 +5977,23 @@ def kernel_records(record):
         for model in ("dpd", "edpd", "tdpd"):
             name = SELECTOR_KERNELS[sel][model]
             rec = sk[f"{sel}-{model}"]
+            # K6 reads the bucket rows on K1's general variant: its time
+            # alone and its tile plan are that kernel's, and the brick
+            # kernel's time on its inputs rides beside them
+            fields = ({**tile_row_fields(rec), "kernel_ms": rec["kernel_ms"],
+                       "brick_kernel_ms": rec["brick_kernel_ms"]}
+                      if name == K6_ROWS else brick_row_fields(rec))
             rows.append(
                 {"name": name, "route": "cuda",
-                 "source": "meso_tpu_torch/csrc/pair_brick.cu",
+                 "source": k1_src if name == K6_ROWS
+                 else "meso_tpu_torch/csrc/pair_brick.cu",
                  "replaces": replaces.get(f"{sel}-{model}", replaces[sel]),
                  "launches": record["selector_full"][f"{sel}-{model}"][
                      "launches"][name],
                  "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                  "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                  "bound_by": rec["bound_by"], "library_ms": None,
-                 **brick_row_fields(rec)})
+                 **fields})
     # K4 and K6-halo, one row for each two-rank path: the numbers on its
     # rank-0 inputs, the launches of both ranks on that path (K4 runs the
     # classic path and, with exclusions, the polymer one: "pair_halo_dpd"

@@ -1,24 +1,28 @@
 // Classic, eDPD and tDPD pair forces over a padded brick of channel planes,
 // for Hopper (sm_90a).
 //
-// Replaces the single-chip Pallas TPU kernels that walk the full 27-cell
-// stencil without Newton folding:
+// Replaces these Pallas TPU kernels, which walk the full 27-cell stencil
+// without Newton folding, on one card:
 // - K5, meso_tpu/kernels/pair_dpd_fused.py::_fused_kernel (line 63) through
 //   bucket_forces_pallas_fused (:301) and _model_call (:702), which backs
 //   bucket_forces_pallas_edpd_fused (:817) and _tdpd_fused (:857);
-// - K6, meso_tpu/kernels/pair_dpd.py::_kernel (line 60) through
-//   bucket_forces_pallas (:233);
 // - K7, meso_tpu/kernels/pair_multiphysics.py::_kernel (line 40) through
 //   _call (:274), which backs bucket_forces_pallas_edpd (:213) and _tdpd
 //   (:241);
-// and their halo forms on the 1-D domain decomposition:
+// and the halo forms on the domain decompositions:
 // - K4, pair_dpd_fused.py::_fused_kernel through _halo_call (:457), which
-//   backs halo_forces_pallas_fused (:567) and _model_fused (:628);
-// - K6-halo, pair_dpd.py::_kernel through halo_forces_pallas_1d (:370).
+//   backs halo_forces_pallas_fused (:567) and _model_fused (:628), on 1-D
+//   slabs and on the 2-D and 3-D bricks (parallel/bricks.py);
+// - K6-halo, meso_tpu/kernels/pair_dpd.py::_kernel (line 60) through
+//   halo_forces_pallas_1d (:370).
+// K6 itself (pair_dpd.py::_kernel through bucket_forces_pallas, :233) reads
+// the bucket rows in place on one card: K1's general variant under the
+// minimum image (pair_dpd_v3.cu, the same walk and visitor over the row
+// arrays), with no brick.
 // All compute one function (the per-pair math of ops/dpd.pair_force,
 // ops/edpd.py and ops/tdpd.py, min-image on every axis, per-type-pair
-// tables); K5 and K4 take the spill layout's +-2 x-window, and K6, K6-halo
-// and K7 are strict only (the wrappers refuse spill for them).
+// tables); K5 and K4 take the spill layout's +-2 x-window, and K6-halo and
+// K7 are strict only (the wrappers refuse spill for them).
 //
 // Input: the brick. Every per-row quantity rides as a channel plane
 // (ny, nz, K, nx) of the bucket layout, padded by one cell on each side in

@@ -9,7 +9,9 @@
 // visitor, K1Visitor), pair_dpd_v3_general_kernel every case (per-type-pair
 // tables, s_exp != 1, special-bonds exclusions, debug_pairs accounting;
 // the classic visitor of pair_visitor.cuh, which the brick kernel runs
-// too).
+// too). The general variant's min-image instances are also K6 on one card
+// (kernels/pair_dpd.py::bucket_forces_pallas on strict rows): the walk and
+// visitor the brick kernel ran over the padded brick, over the rows.
 //
 // Layout: row = ((cy * ncz + cz) * K + slot) * ncx + cx
 // (meso_tpu/neighbor/bucket_layout.py:6-9). x and v are (nr, 3) float32,

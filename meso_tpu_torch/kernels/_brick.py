@@ -3,13 +3,16 @@ and the plain torch version of the function they compute (``plain_brick``,
 under ``brick_forces_plain`` and ``halo_forces_plain``, the plain versions
 of all ten entry points).
 
-One kernel family (``csrc/pair_brick.cu``) serves five TPU kernels: the
-fused-lane kernel K5 (``kernels/pair_dpd_fused.py``), the banded kernels
-K6 (``kernels/pair_dpd.py``) and K7 (``kernels/pair_multiphysics.py``), and
-their halo forms on the distributed path, K4 (the fused kernel over a
-halo-extended brick) and K6-halo (the banded one over an x-extended slab).
-All compute classic, eDPD or tDPD pair terms over the full stencil of a
-bucket row, without Newton folding, with the minimum image on every axis.
+One kernel family (``csrc/pair_brick.cu``) serves, on CUDA tensors, the
+fused-lane kernel K5 (``kernels/pair_dpd_fused.py``), the banded transport
+kernel K7 (``kernels/pair_multiphysics.py``), and the halo forms on the
+distributed path, K4 (the fused kernel over a halo-extended brick, and the
+2-D and 3-D bricks of ``parallel/bricks.py``) and K6-halo (the banded one
+over an x-extended slab). All compute classic, eDPD or tDPD pair terms
+over the full stencil of a bucket row, without Newton folding, with the
+minimum image on every axis. The banded classic kernel K6
+(``kernels/pair_dpd.py``) reads the bucket rows in place on one card and
+builds no brick; its plain version is still ``brick_forces_plain``.
 
 The brick: every per-row quantity as a channel plane (ny, nz, K, nx) of the
 bucket layout, padded by one cell on each side in y and z and by ``xr``
@@ -59,11 +62,18 @@ _TAG, _VALID = 0, 1
 LAUNCHES = {f"pair_{sel}_{model}": 0 for sel in ("fused", "banded", "halo")
             for model in ("dpd", "edpd", "tdpd")}
 LAUNCHES["pair_halo_banded_dpd"] = 0
+# Bricks built for CUDA launches, by the same entry names, raised by one in
+# ``launch`` and in ``halo_forces`` and nowhere else: K6 on one card reads
+# the bucket rows and builds none (1 - BUILDS / LAUNCHES is the share of
+# its launches that read the rows in place; chip_smoke.py's classic paths
+# read it).
+BUILDS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BUILDS):
+        for name in counts:
+            counts[name] = 0
 
 # candidates per group of stencil offsets in the plain version, as in
 # pair_dpd_v3's walk
@@ -187,6 +197,7 @@ def halo_forces(model: str, name: str, channels: dict, box: Box, step: int,
                                  channels.get("h") if rng_mode == "fast"
                                  else None, params.n_types > 1, n_excl),
                       rng_mode)
+    BUILDS[name] += 1
     return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
                         rng_mode, rng_rounds)
 
@@ -232,11 +243,12 @@ def launch(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
            step: int, params, dt: float, cfg: CellConfig, rng_mode: str,
            rng_rounds: int):
     """One launch of the pair_brick kernel on CUDA tensors: ``card_brick``
-    (the hash and the brick), then ``launch_brick``, counted under
-    ``name``. Returns (f (nr, 3), the field's rate (dT/dt, dC/dt) or None,
-    virial)."""
+    (the hash and the brick, counted in ``BUILDS[name]``), then
+    ``launch_brick``, counted under ``name``. Returns (f (nr, 3), the
+    field's rate (dT/dt, dC/dt) or None, virial)."""
     lib, brick = card_brick(model, x, v, field, typ, tag, mask, box, step,
                             params, cfg, rng_mode, rng_rounds)
+    BUILDS[name] += 1
     return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
                         rng_mode, rng_rounds)
 

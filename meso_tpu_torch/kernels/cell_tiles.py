@@ -1,10 +1,11 @@
 """The cell tiles of the Hopper pair kernels, one device machinery
 (``csrc/cell_tiles.cuh``) under two source policies: over bucket rows,
 K1 (``pair_dpd_v3_kernel``), K1's general variant
-(``pair_dpd_v3_general_kernel``) and K3 (``pair_tdpd_v3_kernel``), all on
-K1's plan and table (``plan``, ``tile_table``); over a padded brick of
-channel planes, the brick kernel (``csrc/pair_brick.cu``,
-``pair_brick_kernel``: K4-K7 and K6-halo; ``brick_plan``, ``brick_table``).
+(``pair_dpd_v3_general_kernel``, also K6 on one card), K2 and K3
+(``pair_tdpd_v3_kernel``), all on K1's plan and table (``plan``,
+``tile_table``); over a padded brick of channel planes, the brick kernel
+(``csrc/pair_brick.cu``, ``pair_brick_kernel``: K4, K5, K7 and K6-halo;
+``brick_plan``, ``brick_table``).
 Here: their launch plans and the tables each block reads.
 
 A block owns a tile of target cells: one (cy, cz) and a run of up to W

@@ -57,6 +57,8 @@ from meso_tpu_torch.ops.dpd import DPDParams, pair_force, special_weight
 # else; chip_smoke.py resets and reads them around each path it drives.
 LAUNCHES = {"pair_dpd_v3": 0, "pair_dpd_v3_general": 0, "particle_hash": 0,
             "pair_edpd_v3": 0, "pair_tdpd_v3": 0, "uniform_stream": 0}
+# the classic kernels' (T, T) coefficient tables
+CLASSIC_TABLES = ("a", "gamma", "sigma", "rc")
 
 
 def reset_launch_counts() -> None:
@@ -144,14 +146,15 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
         return bucket_forces_v3_plain(x, v, tag, mask, box, step, params, dt,
                                       cfg, rng_mode, rng_rounds, need_virial,
                                       typ=typ, debug_pairs=debug_pairs)
+    if general:
+        return general_forces(x, v, typ, tag, mask, box, step, params, dt,
+                              cfg, xr, rng_mode, rng_rounds,
+                              not cfg.wrap_at_rebuild, LAUNCHES,
+                              "pair_dpd_v3_general", need_virial, debug_pairs)
     lib = _build.load_library()
     nr = n_rows(cfg)
     check_cuda({**row_specs(nr, x, v, tag, mask, box),
-                 **tables(params, ("a", "gamma", "sigma", "rc"))})
-    if general:
-        return _launch_general(lib, x, v, typ, tag, mask, box, step, params,
-                               dt, cfg, xr, rng_mode, rng_rounds,
-                               need_virial, debug_pairs)
+                **tables(params, CLASSIC_TABLES)})
     step_u = step & 0xFFFFFFFF
     h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
     plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
@@ -177,32 +180,57 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _launch_general(lib, x, v, typ, tag, mask, box: Box, step: int,
-                    params: DPDParams, dt: float, cfg: CellConfig, xr: int,
-                    rng_mode: str, rng_rounds: int, need_virial: bool,
-                    debug_pairs: bool):
-    """K1's general variant on CUDA tensors (the wrapper checked the
-    rows and tables)."""
+def general_forces(x, v, typ, tag, mask, box: Box, step: int,
+                   params: DPDParams, dt: float, cfg: CellConfig, xr: int,
+                   rng_mode: str, rng_rounds: int, min_image: bool,
+                   counts: dict, name: str, need_virial: bool = True,
+                   debug_pairs: bool = False):
+    """K1's general variant on CUDA tensors, for K1's general case and for
+    K6 on one card (``kernels/pair_dpd.py``): the rows and tables checked,
+    the hash (fast tier or debug_pairs, one launch), then one
+    ``launch_general``, counted in ``counts[name]``. ``min_image`` selects
+    the raw-difference walk (the minimum image where an axis wraps) over
+    dr = (xi - xj) - shift. A capacity K1's plan refuses (above 237 spill,
+    396 strict) raises ``ValueError`` before the library is touched.
+    Returns (f (nr, 3), virial; 0 without need_virial or under
+    debug_pairs)."""
+    plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
+    lib = _build.load_library()
     nr = n_rows(cfg)
-    specs = {"x": (x, torch.float32, None), "typ": (typ, torch.int32, (nr,))}
-    n_excl = excl_rows = 0
+    specs = {**row_specs(nr, x, v, tag, mask, box),
+             **tables(params, CLASSIC_TABLES), **typ_spec(params, nr, typ)}
     if params.excl is not None:
-        excl_rows, n_excl = params.excl.shape
         specs["excl"] = (params.excl, torch.int32, None)
         specs["excl_w"] = (params.excl_w, torch.float32, ())
     check_cuda(specs)
-    step_u = step & 0xFFFFFFFF
     # debug_pairs reads the per-particle hash's keys in both RNG tiers
-    h = _hash_or_tag(lib, tag, step_u, params.seed,
+    h = _hash_or_tag(lib, tag, step & 0xFFFFFFFF, params.seed,
                      "fast" if debug_pairs else rng_mode, rng_rounds)
-    plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
+    f, vir_rows = launch_general(lib, plan, h, x, v, typ, tag, mask, box,
+                                 step, params, dt, rng_mode, rng_rounds,
+                                 min_image, debug_pairs)
+    counts[name] += 1
+    if need_virial and not debug_pairs:
+        return f, torch.sum(vir_rows)
+    return f, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def launch_general(lib, plan, h, x, v, typ, tag, mask, box: Box, step: int,
+                   params: DPDParams, dt: float, rng_mode: str,
+                   rng_rounds: int, min_image: bool,
+                   debug_pairs: bool = False):
+    """One launch of K1's general variant on ``plan`` and its table, over
+    checked CUDA rows and the kernels' h input; uncounted. Returns (f
+    (nr, 3), the per-row virial, None under debug_pairs)."""
+    nr = x.shape[0]
+    excl_rows, n_excl = (0, 0) if params.excl is None else params.excl.shape
     table = cell_tiles.table_on(plan, x.device)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     # the kernel writes every row's virial but in debug mode
     vir_rows = (None if debug_pairs else
                 torch.empty((nr,), dtype=torch.float32, device=x.device))
     code = lib.meso_pair_dpd_v3_general(
-        x.data_ptr(), v.data_ptr(), tag.data_ptr(), typ.data_ptr(),
+        x.data_ptr(), v.data_ptr(), tag.data_ptr(), _typ_ptr(params, typ),
         mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
         params.gamma.data_ptr(), params.sigma.data_ptr(),
         params.rc.data_ptr(), params.n_types,
@@ -210,17 +238,13 @@ def _launch_general(lib, x, v, typ, tag, mask, box: Box, step: int,
         n_excl, None if params.excl_w is None else params.excl_w.data_ptr(),
         box.lo.data_ptr(), box.hi.data_ptr(), table.data_ptr(), f.data_ptr(),
         None if vir_rows is None else vir_rows.data_ptr(),
-        cfg.ncell[0], cfg.capacity, plan.xr, plan.width, plan.n_blocks,
-        plan.threads, plan.list_cap, plan.smem_bytes,
-        int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
-        int(debug_pairs), 1.0 / math.sqrt(dt), params.s_exp, step_u,
-        params.seed, rng_rounds,
+        plan.ncell[0], plan.capacity, plan.xr, plan.width, plan.n_blocks,
+        plan.threads, plan.list_cap, plan.smem_bytes, int(min_image),
+        int(rng_mode == "tea"), int(debug_pairs), 1.0 / math.sqrt(dt),
+        params.s_exp, step & 0xFFFFFFFF, params.seed, rng_rounds,
         _build.stream_of(x.device))
     _build.check(code, "pair_dpd_v3_general")
-    LAUNCHES["pair_dpd_v3_general"] += 1
-    if need_virial and not debug_pairs:
-        return f, torch.sum(vir_rows)
-    return f, torch.zeros((), dtype=torch.float32, device=x.device)
+    return f, vir_rows
 
 
 def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
