@@ -408,31 +408,19 @@ def hash_sass_ops():
     return Ops(0, len(best) / r, alu / r, imad / r), dict(counts)
 
 
-def kernel_modules():
-    """The modules whose LAUNCHES count kernel launches: K1-K3 and the
-    hash in pair_dpd_v3, the fused and banded selectors' brick kernel in
-    _brick, the sort rebuild's keys, slot assignment and placement in
-    bucket_layout, the pair bonds in ops.bonded, the integrator's two
-    halves in core.integrate."""
-    from meso_tpu_torch.core import integrate
-    from meso_tpu_torch.kernels import _brick, pair_dpd_v3
-    from meso_tpu_torch.neighbor import bucket_layout
-    from meso_tpu_torch.ops import bonded
-    return (pair_dpd_v3, _brick, bucket_layout, bonded, integrate)
-
-
 def reset_launches():
-    """Every kernel's launch count to 0."""
-    for mod in kernel_modules():
-        mod.reset_launch_counts()
+    """Every kernel's launch count (``_build.LAUNCHES``) and every brick
+    build count (``_brick.BUILDS``) to 0."""
+    from meso_tpu_torch.kernels import _brick, _build
+    _build.reset_launch_counts()
+    _brick.BUILDS.clear()
 
 
 def read_launches():
-    """Every kernel's launch count since the last reset, by name."""
-    out = {}
-    for mod in kernel_modules():
-        out.update(mod.LAUNCHES)
-    return out
+    """Every kernel's launch count since the last reset, by name (0 for a
+    kernel not launched)."""
+    from meso_tpu_torch.kernels import _build
+    return _build.LAUNCHES.copy()
 
 
 def brick_builds():
@@ -443,14 +431,14 @@ def brick_builds():
 
 
 # the pair kernels among the launch counters (the hash, the
-# uniform_stream probe, the rebuild's kernels, the bonds and the
-# integrator are not pair kernels)
+# uniform_stream probe, the rebuild's kernels, the displacement check, the
+# bonds and the integrator are not pair kernels)
 def pair_launches(launches):
     return {k: n for k, n in launches.items()
             if k not in ("particle_hash", "uniform_stream", "spill_assign",
                          "bucket_keys", "bucket_place", "bucket_rebuild",
-                         "pair_bonds", "initial_integrate",
-                         "final_integrate")}
+                         "max_displacement", "pair_bonds",
+                         "initial_integrate", "final_integrate")}
 
 
 # the integrator's two halves, one launch each a step on every path
@@ -460,8 +448,10 @@ INTEGRATOR = ("initial_integrate", "final_integrate")
 
 def only_integrator(launches, steps):
     """That a path launched no kernel but the integrator's two halves, one
-    each a step (the plain torch paths: nlist and adaptive)."""
-    return (not any(n for k, n in launches.items() if k not in INTEGRATOR)
+    each a step, and the displacement check (the plain torch paths: nlist
+    and adaptive)."""
+    return (not any(n for k, n in launches.items()
+                    if k not in INTEGRATOR + ("max_displacement",))
             and all(launches[k] == steps for k in INTEGRATOR))
 
 
@@ -890,7 +880,6 @@ def phase_kernels(ptxas=()):
     # and at a tag count that is not a multiple of the kernel's 4 rows a
     # thread (its scalar tail), with 8 rounds and with 5 (the generic
     # instance), and from a tag pointer 4 bytes off 16-byte alignment
-    lib = _build.load_library()
     tag_odd = torch.cat([bst.tag, bst.tag[:3]])
     for tags, rounds in ((tag_odd, 8), (tag_odd, 5), (tag_odd[1:], 8)):
         if not torch.equal(particle_hash_v3(tags, step, params.seed, rounds),
@@ -916,9 +905,9 @@ def phase_kernels(ptxas=()):
         # copy the plain RNG's form needs), at the main-path rows and at
         # a count that is not a multiple of 4
         "hash_kernel_ms": timed_ms(lambda: v3.launch_hash(
-            lib, bst.tag, step, params.seed, 8), 200),
+            bst.tag, step, params.seed, 8), 200),
         "hash_odd_kernel_ms": timed_ms(lambda: v3.launch_hash(
-            lib, tag_odd, step, params.seed, 8), 200),
+            tag_odd, step, params.seed, 8), 200),
         "hash_plain_ms": timed_ms(lambda: rng.particle_hash(
             bst.tag, step, params.seed), 20),
         "rebuild_sort_ms": timed_ms(lambda: rebuild_buckets(bst, cfg), 10),
@@ -996,26 +985,27 @@ def phase_kernels(ptxas=()):
 
 
 def assign_inputs(bst, cfg, brick=False):
-    """spill_assign's arguments (but wrap) as the sort rebuild gives them
-    for a bucket state, or, with ``brick``, as a brick's placement
-    (``parallel/bricks.py::_place_cells``) gives them for the left half of
+    """spill_assign's arguments (but wrap) as ``slot_targets`` gives them
+    for a bucket state, or, with ``brick``, as a brick's rebuild
+    (``parallel/bricks.py::rebuild_brick``) gives them for the left half of
     the box's x cells: those rows keyed from the brick's origin, the rest
-    masked."""
+    masked. The keys are sorted in the order ``slot_targets`` gives."""
     import torch
-    from meso_tpu_torch.neighbor.bucket_layout import _sorted_keys
+    from meso_tpu_torch.neighbor.bucket_layout import (cell_keys,
+                                                       slot_targets)
     nx, ny, nz = cfg.ncell
     if not brick:
-        key_s, _, base, cxs = _sorted_keys(bst, cfg)
-        return (base, cxs, key_s < nx * ny * nz, bst.n, nx, cfg.capacity,
-                ny * nz)
-    nx //= 2
-    frac = (bst.x - bst.box.lo) / bst.box.lengths
-    cx, cy, cz = (torch.clamp((frac[:, d] * float(n)).to(torch.int32), 0,
-                              n - 1).to(torch.int64)
-                  for d, n in enumerate(cfg.ncell))
-    mask = bst.mask & (cx < nx)
-    key = torch.where(mask, (cy * nz + cz) * nx + cx, nx * ny * nz)
-    key_s = torch.sort(key, stable=True).values
+        _, key = cell_keys(bst, cfg, False)
+    else:
+        frac = (bst.x - bst.box.lo) / bst.box.lengths
+        cx, cy, cz = (torch.clamp((frac[:, d] * float(n)).to(torch.int32),
+                                  0, n - 1).to(torch.int64)
+                      for d, n in enumerate(cfg.ncell))
+        nx //= 2
+        cfg = cfg.replace(ncell=(nx, ny, nz))
+        key = torch.where(bst.mask & (cx < nx), (cy * nz + cz) * nx + cx,
+                          nx * ny * nz)
+    key_s = key[slot_targets(key, cfg, wrap=not brick)[0]]
     base = key_s // nx
     return (base, key_s - base * nx, key_s < nx * ny * nz, bst.n, nx,
             cfg.capacity, ny * nz)
@@ -1027,13 +1017,14 @@ def check_assign(bst, cfg):
     without the wrap and on a brick's; one launch a call. Returns the
     sort rebuild's inputs."""
     import torch
+    from meso_tpu_torch.kernels import _build
     from meso_tpu_torch.neighbor import bucket_layout as bl
     args = assign_inputs(bst, cfg)
     for brick, wrap in ((False, True), (False, False), (True, False)):
         a = assign_inputs(bst, cfg, brick) if brick else args
-        before = bl.LAUNCHES["spill_assign"]
+        before = _build.LAUNCHES["spill_assign"]
         got = bl.spill_assign(*a, wrap=wrap)
-        if bl.LAUNCHES["spill_assign"] != before + 1:
+        if _build.LAUNCHES["spill_assign"] != before + 1:
             raise AssertionError("spill_assign: not one launch a call")
         want = bl.spill_assign_plain(*a, wrap=wrap)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
@@ -1875,10 +1866,10 @@ def check_bonds(system, params, state, time_it=True):
         return bonded._bonded_plain(x, tag, mask, box, bp, style, n_tags, 0,
                                     None, owner, None, count)
 
-    before = bonded.LAUNCHES["pair_bonds"]
+    before = read_launches()["pair_bonds"]
     got, _ = bonded.pair_bonds(*args)
     again, _ = bonded.pair_bonds(*args)
-    counted = bonded.LAUNCHES["pair_bonds"] - before
+    counted = read_launches()["pair_bonds"] - before
     want, _ = plain(*args[:5])
     cpu = [t.cpu() for t in args[:3]]
     cbox = type(state.box)(lo=state.box.lo.cpu(), hi=state.box.hi.cpu())
@@ -1998,7 +1989,7 @@ def phase_bond_kernels():
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             kernels = device_times(prof, 1)
-            calls = bonded.LAUNCHES["pair_bonds"]
+            calls = read_launches()["pair_bonds"]
             for key, name in (("in_path_ms", "pair_bonds_kernel<"),
                               ("tag_rows_in_path_ms", "tag_rows_kernel<")):
                 rec[key] = sum(ms for k, (ms, _) in kernels.items()
@@ -3033,15 +3024,15 @@ def brick_tests_per_row(brick, cfg):
 
 
 def entry_brick(name, st, fld, step, params, cfg, rng_mode="fast"):
-    """(library, the brick) a fused or banded entry point builds from
-    these rows (``_brick.card_brick``)."""
+    """The brick a fused or banded entry point builds from these rows
+    (``_brick.card_brick``)."""
     from meso_tpu_torch.kernels import _brick
     model = name.rsplit("_", 1)[1]
     return _brick.card_brick(model, st.x, st.v, fld, st.typ, st.tag,
                              st.mask, st.box, step, params, cfg, rng_mode, 8)
 
 
-def kernel_alone_ms(name, lib, brick, box, step, params, dt, cfg,
+def kernel_alone_ms(name, brick, box, step, params, dt, cfg,
                     rng_mode="fast"):
     """The brick kernel's time alone (``_brick.launch_brick`` on a built
     brick: the launch, its outputs' allocation and the virial's sum), over
@@ -3049,8 +3040,7 @@ def kernel_alone_ms(name, lib, brick, box, step, params, dt, cfg,
     from meso_tpu_torch.kernels import _brick
     model = name.rsplit("_", 1)[1]
     return timed_ms(lambda: _brick.launch_brick(
-        lib, model, name, brick, box, step, params, dt, cfg, rng_mode, 8),
-        20)
+        model, name, brick, box, step, params, dt, cfg, rng_mode, 8), 20)
 
 
 def k6_alone_ms(st, step, params, dt, cfg):
@@ -3059,16 +3049,14 @@ def k6_alone_ms(st, step, params, dt, cfg):
     the launch, its outputs' allocation and the virial's sum, as
     ``kernel_alone_ms`` times a brick kernel), over 20 calls."""
     import torch
-    from meso_tpu_torch.kernels import _build
     from meso_tpu_torch.kernels import pair_dpd_v3 as v3
-    lib = _build.load_library()
     plan = tile_plan(K6_ROWS, cfg, 1)
-    h = v3.launch_hash(lib, st.tag, step, params.seed, 8)
+    h = v3.launch_hash(st.tag, step, params.seed, 8)
 
     def call():
         f, vir_rows = v3.launch_general(
-            lib, plan, h, st.x, st.v, st.typ, st.tag, st.mask, st.box, step,
-            params, dt, "fast", 8, True)
+            K6_ROWS, plan, h, st.x, st.v, st.typ, st.tag, st.mask, st.box,
+            step, params, dt, "fast", 8, True)
         return f, torch.sum(vir_rows)
     return timed_ms(call, 20)
 
@@ -3109,8 +3097,8 @@ def phase_selector_kernels_l70():
         rec["pairs_in_rc"] = n_rc
         rec["bound_ms"], rec["bound_by"] = selector_bound(
             model, st, fld, got, p, n_rc)
-        lib, brick = entry_brick(name, st, fld, 1, p, cfg)
-        ms = kernel_alone_ms(name, lib, brick, st.box, 1, p, system.dt, cfg)
+        brick = entry_brick(name, st, fld, 1, p, cfg)
+        ms = kernel_alone_ms(name, brick, st.box, 1, p, system.dt, cfg)
         if name == K6_ROWS:
             # the brick kernel K6 ran on before, on the same inputs
             rec["kernel_ms"] = k6_alone_ms(st, 1, p, system.dt, cfg)
@@ -3604,10 +3592,9 @@ def dd_kernel_check(label, system, params, state, slabs, dcfg):
         ms=timed_ms(lambda: run_halo(name, False, *args), 20),
         plain_ms=timed_ms(lambda: run_halo(name, True, *args), 3))
     rec["bound_ms"], rec["bound_by"] = halo_bound(name, planes, got, p, n_rc)
-    from meso_tpu_torch.kernels import _build
     brick = halo_brick_of(name, planes, p, cfg)
-    rec["kernel_ms"] = kernel_alone_ms(name, _build.load_library(), brick,
-                                       box, 1, p, system.dt, cfg)
+    rec["kernel_ms"] = kernel_alone_ms(name, brick, box, 1, p, system.dt,
+                                       cfg)
     rec["tests_per_valid_row"] = brick_tests_per_row(brick, cfg)
     rec.update(tile_fields(cfg, brick.xr))
     del brick
@@ -4058,8 +4045,8 @@ def brick_kernel_check(label, planes, step, system, params, dcfg, box):
         plain_ms=timed_ms(lambda: run_halo(name, True, *args), 3))
     rec["bound_ms"], rec["bound_by"] = halo_bound(name, planes, got, p, n_rc)
     brick = halo_brick_of(name, planes, p, cfg, ext)
-    rec["kernel_ms"] = kernel_alone_ms(name, _build.load_library(), brick,
-                                       box, step, p, system.dt, cfg)
+    rec["kernel_ms"] = kernel_alone_ms(name, brick, box, step, p, system.dt,
+                                       cfg)
     rec["tests_per_valid_row"] = brick_tests_per_row(brick, cfg)
     rec.update(tile_fields(cfg, brick.xr))
     say(f"bricks-kernel-{label}", **rec)
@@ -4489,19 +4476,18 @@ def phase_probes(k1):
     achieved streaming rate and its cost per grid cell."""
     import numpy as np
     import torch
-    from meso_tpu_torch import probes
     from meso_tpu_torch.probes import (r5a_stage, toy_dynroll, toy_mxu_tile,
                                        toy_tea_roll)
     # the plain versions' and the library's products in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    probes.reset_launch_counts()
+    reset_launches()
     runs = {"toy_dynroll": toy_dynroll.run(DEVICE),
             "toy_mxu_tile": toy_mxu_tile.run(DEVICE),
             "toy_tea_roll": toy_tea_roll.run(DEVICE),
             "r5a_stage": r5a_stage.run(DEVICE)}
     torch.cuda.synchronize()
-    launches = dict(probes.LAUNCHES)
+    launches = {name: read_launches()[name] for name in PROBE_REPLACES}
     failed = [f"{p}/{k}" for p, res in runs.items() for k, r in res.items()
               if not r.get("ok", r.get("bitwise"))]
     failed += [f"{name} not launched" for name, n in launches.items()
@@ -5696,10 +5682,10 @@ def ab_one(out_path):
                 name, False, st, None, 1, sparams.pair, system.dt,
                 system.cells), 20)
         else:
-            lib, brick = entry_brick(name, st, None, 1, sparams.pair,
-                                     system.cells)
+            brick = entry_brick(name, st, None, 1, sparams.pair,
+                                system.cells)
             res[f"{name}_kernel_ms"] = kernel_alone_ms(
-                name, lib, brick, st.box, 1, sparams.pair, system.dt,
+                name, brick, st.box, 1, sparams.pair, system.dt,
                 system.cells)
             del brick
         del system, sparams, st

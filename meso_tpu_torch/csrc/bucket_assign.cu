@@ -440,7 +440,7 @@ extern "C" int meso_bucket_place(const void* src, const void* dst,
 // ---------------------------------------------------------------------------
 // The spill rebuild whole, one call from the host.
 //
-// The steps of neighbor/bucket_layout.py::rebuild_buckets_sort on the spill
+// The steps of neighbor/bucket_layout.py::rebuild_buckets on the spill
 // layout, each as above or as torch runs it, on one stream: the cell keys
 // (with the deferred wrap), a stable radix sort of (key, row) over the key's
 // low key_bits bits (cub::DeviceRadixSort, which keeps rows of equal keys in

@@ -29,6 +29,7 @@ row's E exclusion tags (classic, special bonds).
 
 from __future__ import annotations
 
+import collections
 import math
 from dataclasses import dataclass
 
@@ -55,25 +56,14 @@ TABLES = {"dpd": ("a", "gamma", "sigma", "rc"),
           "tdpd": ("a", "gamma", "sigma", "rc")}
 _TAG, _VALID = 0, 1
 
-# Launch counts of each entry point's kernel (K5: pair_fused_*, K6:
-# pair_banded_dpd, K7: pair_banded_edpd/tdpd, K4: pair_halo_*, K6-halo:
-# pair_halo_banded_dpd), raised by one at each launch and nowhere else; the
-# fast tier's hash counts in pair_dpd_v3.LAUNCHES.
-LAUNCHES = {f"pair_{sel}_{model}": 0 for sel in ("fused", "banded", "halo")
-            for model in ("dpd", "edpd", "tdpd")}
-LAUNCHES["pair_halo_banded_dpd"] = 0
-# Bricks built for CUDA launches, by the same entry names, raised by one in
-# ``launch`` and in ``halo_forces`` and nowhere else: K6 on one card reads
-# the bucket rows and builds none (1 - BUILDS / LAUNCHES is the share of
-# its launches that read the rows in place; chip_smoke.py's classic paths
-# read it).
-BUILDS = dict.fromkeys(LAUNCHES, 0)
-
-
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, BUILDS):
-        for name in counts:
-            counts[name] = 0
+# Each entry point's launches are counted in ``_build.LAUNCHES`` under its
+# name (K5: pair_fused_*, K6: pair_banded_dpd, K7: pair_banded_edpd/tdpd,
+# K4: pair_halo_*, K6-halo: pair_halo_banded_dpd). Bricks built for CUDA
+# launches, by the same entry names, raised by one in ``launch`` and in
+# ``halo_forces`` and nowhere else: K6 on one card reads the bucket rows
+# and builds none (1 - BUILDS / LAUNCHES is the share of its launches that
+# read the rows in place; chip_smoke.py's classic paths read it).
+BUILDS: collections.Counter = collections.Counter()
 
 # candidates per group of stencil offsets in the plain version, as in
 # pair_dpd_v3's walk
@@ -189,7 +179,7 @@ def halo_forces(model: str, name: str, channels: dict, box: Box, step: int,
         return halo_forces_plain(model, channels, box, step, params, dt, cfg,
                                  ext, rng_mode, rng_rounds, fields, n_excl)
     xr = halo_window(cfg, ext, rng_mode)
-    lib = _build.load_library()
+    _build.load_library()   # no brick is built where no kernel can run
     if tag.device.type != "cuda":
         raise ValueError(f"channel tag is on {tag.device}; the halo "
                          "kernels take CPU (plain version) or CUDA planes")
@@ -198,7 +188,7 @@ def halo_forces(model: str, name: str, channels: dict, box: Box, step: int,
                                  else None, params.n_types > 1, n_excl),
                       rng_mode)
     BUILDS[name] += 1
-    return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
+    return launch_brick(model, name, brick, box, step, params, dt, cfg,
                         rng_mode, rng_rounds)
 
 
@@ -246,19 +236,17 @@ def launch(model: str, name: str, x, v, field, typ, tag, mask, box: Box,
     (the hash and the brick, counted in ``BUILDS[name]``), then
     ``launch_brick``, counted under ``name``. Returns (f (nr, 3), the
     field's rate (dT/dt, dC/dt) or None, virial)."""
-    lib, brick = card_brick(model, x, v, field, typ, tag, mask, box, step,
-                            params, cfg, rng_mode, rng_rounds)
+    brick = card_brick(model, x, v, field, typ, tag, mask, box, step, params,
+                       cfg, rng_mode, rng_rounds)
     BUILDS[name] += 1
-    return launch_brick(lib, model, name, brick, box, step, params, dt, cfg,
+    return launch_brick(model, name, brick, box, step, params, dt, cfg,
                         rng_mode, rng_rounds)
 
 
 def card_brick(model: str, x, v, field, typ, tag, mask, box: Box, step: int,
                params, cfg: CellConfig, rng_mode: str, rng_rounds: int):
-    """(the kernel library, the brick of CUDA bucket rows): the inputs
-    checked, the per-particle hash (fast tier, one launch of
-    particle_hash) and ``build_brick``."""
-    lib = _build.load_library()
+    """The brick of CUDA bucket rows: the inputs checked, the per-particle
+    hash (fast tier, one launch of particle_hash) and ``build_brick``."""
     nr = n_rows(cfg)
     specs = {**row_specs(nr, x, v, tag, mask, box),
              **typ_spec(params, nr, typ)}
@@ -270,19 +258,19 @@ def card_brick(model: str, x, v, field, typ, tag, mask, box: Box, step: int,
         specs["excl"] = (params.excl, torch.int32, None)
     check_cuda(specs)
     h = None if rng_mode == "tea" else v3.launch_hash(
-        lib, tag, step & 0xFFFFFFFF, params.seed, rng_rounds)
+        tag, step & 0xFFFFFFFF, params.seed, rng_rounds)
     fld, typ_b, ex = _inputs(model, params, x, typ, tag, field)
-    return lib, build_brick(cfg, half_window(cfg, rng_mode), x, v, tag, mask,
-                            field=fld, h=h, typ=typ_b, ex=ex)
+    return build_brick(cfg, half_window(cfg, rng_mode), x, v, tag, mask,
+                       field=fld, h=h, typ=typ_b, ex=ex)
 
 
-def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
+def launch_brick(model: str, name: str, brick: Brick, box: Box,
                  step: int, params, dt: float, cfg: CellConfig,
                  rng_mode: str, rng_rounds: int):
     """One launch of pair_brick_kernel over a built brick on the card,
     whose target cells are ``cfg.ncell``, on the cell tiles of
     ``cell_tiles.brick_plan`` (a capacity no tile fits raises
-    ``ValueError``); adds one to ``LAUNCHES[name]``.
+    ``ValueError``), counted as ``name``.
     Returns (f (nr, 3), dT/dt, dC/dt or None, virial)."""
     specs = {"fb": (brick.fb, torch.float32, None),
              "ib": (brick.ib, torch.int32, None),
@@ -312,9 +300,9 @@ def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
     plan = cell_tiles.brick_plan(cfg.capacity, brick.xr, cfg.ncell)
     table = cell_tiles.table_on(plan, dev, cell_tiles.brick_table)
     excl_w = params.excl_w if model == "dpd" and brick.n_excl else None
-    code = lib.meso_pair_brick(
-        MODELS[model], int(rng_mode == "tea"), brick.fb.data_ptr(),
-        brick.ib.data_ptr(),
+    _build.launch(
+        name, "meso_pair_brick", MODELS[model], int(rng_mode == "tea"),
+        brick.fb.data_ptr(), brick.ib.data_ptr(),
         box.lo.data_ptr(), box.hi.data_ptr(), a.data_ptr(), gamma.data_ptr(),
         x3.data_ptr(), rc.data_ptr(), params.n_types, brick.ch_h,
         brick.ch_typ, brick.ch_ex, brick.n_excl,
@@ -330,10 +318,7 @@ def launch_brick(lib, model: str, name: str, brick: Brick, box: Box,
         params.mass if model == "edpd" else 1.0,
         params.cv if model == "edpd" else 1.0,
         params.rcc if tdpd else 0.0, params.s1 if tdpd else 1.0,
-        step & 0xFFFFFFFF, params.seed, rng_rounds,
-        _build.stream_of(dev))
-    _build.check(code, "pair_brick")
-    LAUNCHES[name] += 1
+        step & 0xFFFFFFFF, params.seed, rng_rounds, device=dev)
     return f, extra, torch.sum(vir)
 
 

@@ -9,10 +9,16 @@ compiled on their own. The library goes into ``build/meso_tpu_torch/`` at
 the repository root, named by a hash of the sources, the headers and the
 flags, at first use; a later call with the same files loads it without
 compiling. Nothing here runs at import time.
+
+Every launch of a kernel goes through ``launch``, which resolves the
+library, calls the C entry point on the device's current stream, raises on
+a launch error and counts the launch in ``LAUNCHES`` under the name its
+wrapper gives it; no other module calls the library's functions.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -28,6 +34,11 @@ BUILD_DIR = PKG_DIR.parent / "build" / "meso_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+
+# Launches of the library's kernels since the last reset, by the name each
+# wrapper gives its launch (a missing name reads 0): raised by one in
+# ``launch`` and nowhere else.
+LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -206,7 +217,22 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check(code: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a launch."""
+def reset_launch_counts() -> None:
+    """Every launch count back to 0."""
+    LAUNCHES.clear()
+
+
+def launch(name: str, fn: str, *args, device) -> None:
+    """Call the C entry point ``fn`` of the kernel library with ``args``
+    and the current stream of ``device`` (a CUDA torch.device), raise on a
+    launch error (a nonzero cudaError_t), and add one to
+    ``LAUNCHES[name]``."""
+    code = getattr(load_library(), fn)(*args, stream_of(device))
     if code != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+    LAUNCHES[name] += 1
+
+
+def query(fn: str, *args) -> int:
+    """The result of a C entry point that launches nothing (a size)."""
+    return getattr(load_library(), fn)(*args)

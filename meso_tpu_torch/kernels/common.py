@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from meso_tpu_torch.core.box import Box
+from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.neighbor.cells import CellConfig
 
 
@@ -114,8 +115,11 @@ def check_strict(cfg: CellConfig) -> None:
 
 
 def check_cuda(specs: dict) -> None:
-    """specs: name -> (tensor, dtype, shape or None). Every tensor must be
-    a contiguous CUDA tensor on the first one's device."""
+    """The kernel library, built and loaded where it is not yet (raising
+    where it cannot be: no input reaches a kernel without it), then specs:
+    name -> (tensor, dtype, shape or None). Every tensor must be a
+    contiguous CUDA tensor on the first one's device."""
+    _build.load_library()
     dev = next(iter(specs.values()))[0].device
     for name, (t, dtype, shape) in specs.items():
         if t.device != dev or t.device.type != "cuda":

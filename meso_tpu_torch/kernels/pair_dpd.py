@@ -9,7 +9,7 @@ tier, one launch), then one launch of K1's general tile kernel under the
 minimum image (``pair_dpd_v3.general_forces``: ``csrc/cell_tiles.cuh``'s
 raw-difference walk over bucket rows with K1's plan and table, the classic
 visitor of ``csrc/pair_visitor.cuh`` over the row arrays), counted in
-``_brick.LAUNCHES["pair_banded_dpd"]``. It builds no brick: the brick
+``_build.LAUNCHES["pair_banded_dpd"]``. It builds no brick: the brick
 kernel over the padded brick (``kernels/_brick.py``, ``csrc/pair_brick.cu``)
 computed the same function from the same floats, in the same walk and
 summation order. On a CPU tensor, and only there, K6 runs the plain torch
@@ -62,7 +62,7 @@ def bucket_forces_pallas(x, v, typ, tag, mask, box: Box, step: int,
         return f, virial
     return v3.general_forces(x, v, typ, tag, mask, box, step, params, dt,
                              cfg, xr, rng_mode, rng_rounds, True,
-                             _brick.LAUNCHES, "pair_banded_dpd")
+                             "pair_banded_dpd")
 
 
 def halo_forces_pallas_1d(channels: dict, box: Box, step: int,

@@ -8,10 +8,11 @@ over the +-1 (strict) or +-2 (spill) x-window; multi-type tables, s_exp and
 special-bonds exclusions (classic) and any number of species (tDPD) are
 covered. On a CUDA tensor it builds the padded brick and launches the
 hand-written Hopper kernel of ``csrc/pair_brick.cu`` (``kernels/_brick.py``,
-whose ``LAUNCHES`` counts it) or raises; on a CPU tensor, and only there,
-it runs the plain torch version ``_brick.brick_forces_plain``, which walks
-the same brick. tDPD refuses s_exp != 1 (ROADMAP Queue 3, R8), rcc > rc
-and, with more than one type, rcc above the smallest rc_ij (R9).
+counted in ``_build.LAUNCHES`` under the entry's name) or raises; on a CPU
+tensor, and only there, it runs the plain torch version
+``_brick.brick_forces_plain``, which walks the same brick. tDPD refuses
+s_exp != 1 (ROADMAP Queue 3, R8), rcc > rc and, with more than one type,
+rcc above the smallest rc_ij (R9).
 
 The halo entry points ``halo_forces_pallas_fused`` and
 ``halo_forces_pallas_model_fused`` (K4, the distributed path's kernel) run

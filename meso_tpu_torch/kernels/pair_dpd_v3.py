@@ -53,42 +53,31 @@ from meso_tpu_torch.ops import edpd as edpdmod
 from meso_tpu_torch.ops import tdpd as tdpdmod
 from meso_tpu_torch.ops.dpd import DPDParams, pair_force, special_weight
 
-# Launch counts of each kernel, raised by one at each launch and nowhere
-# else; chip_smoke.py resets and reads them around each path it drives.
-LAUNCHES = {"pair_dpd_v3": 0, "pair_dpd_v3_general": 0, "particle_hash": 0,
-            "pair_edpd_v3": 0, "pair_tdpd_v3": 0, "uniform_stream": 0}
 # the classic kernels' (T, T) coefficient tables
 CLASSIC_TABLES = ("a", "gamma", "sigma", "rc")
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _typ_ptr(params, typ):
     return None if params.n_types == 1 else typ.data_ptr()
 
 
-def launch_hash(lib, tag: torch.Tensor, step: int, seed: int,
+def launch_hash(tag: torch.Tensor, step: int, seed: int,
                 rounds: int) -> torch.Tensor:
-    """uint32 bits of the per-particle hash, in an int32 tensor."""
+    """uint32 bits of the per-particle hash, in an int32 tensor (one
+    launch, counted as ``"particle_hash"``)."""
     h = torch.empty_like(tag, dtype=torch.int32)
-    code = lib.meso_particle_hash(
-        tag.data_ptr(), h.data_ptr(), tag.numel(), step & 0xFFFFFFFF, seed,
-        rounds, _build.stream_of(tag.device))
-    _build.check(code, "particle_hash")
-    LAUNCHES["particle_hash"] += 1
+    _build.launch("particle_hash", "meso_particle_hash", tag.data_ptr(),
+                  h.data_ptr(), tag.numel(), step & 0xFFFFFFFF, seed, rounds,
+                  device=tag.device)
     return h
 
 
-def _hash_or_tag(lib, tag, step_u: int, seed: int, rng_mode: str,
-                 rounds: int):
+def _hash_or_tag(tag, step_u: int, seed: int, rng_mode: str, rounds: int):
     """The kernels' h input: the per-particle hash (fast tier, one launch)
     or the tags themselves (TEA tier, read as tags and never as h)."""
     if rng_mode == "tea":
         return tag
-    return launch_hash(lib, tag, step_u, seed, rounds)
+    return launch_hash(tag, step_u, seed, rounds)
 
 
 def particle_hash_v3(tag: torch.Tensor, step: int, seed: int,
@@ -97,13 +86,8 @@ def particle_hash_v3(tag: torch.Tensor, step: int, seed: int,
     a CUDA tensor, ``rng.particle_hash`` on a CPU tensor."""
     if tag.device.type == "cpu":
         return rngmod.particle_hash(tag, step, seed, rounds=rounds)
-    lib = _build.load_library()
-    if tag.device.type != "cuda" or tag.dtype != torch.int32 \
-            or not tag.is_contiguous():
-        raise ValueError("particle_hash_v3 takes a contiguous int32 CUDA "
-                         "tensor")
-    return launch_hash(lib, tag, step, seed, rounds).to(torch.int64) \
-        & 0xFFFFFFFF
+    check_cuda({"tag": (tag, torch.int32, None)})
+    return launch_hash(tag, step, seed, rounds).to(torch.int64) & 0xFFFFFFFF
 
 
 def uniform_stream_v3(h: torch.Tensor, salt: int) -> torch.Tensor:
@@ -113,17 +97,15 @@ def uniform_stream_v3(h: torch.Tensor, salt: int) -> torch.Tensor:
     is ``rng.uniform_stream``."""
     if h.device.type == "cpu":
         return rngmod.uniform_stream(h, salt)
-    lib = _build.load_library()
-    if h.device.type != "cuda" or h.dtype != torch.int64:
+    if h.dtype != torch.int64:
         raise ValueError("uniform_stream_v3 takes an int64 CUDA tensor")
     u = h & 0xFFFFFFFF
     bits = torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+    check_cuda({"h": (bits, torch.int32, None)})
     out = torch.empty(bits.shape, dtype=torch.float32, device=h.device)
-    code = lib.meso_uniform_stream(
-        bits.data_ptr(), out.data_ptr(), bits.numel(), salt & 0xFFFFFFFF,
-        _build.stream_of(h.device))
-    _build.check(code, "uniform_stream")
-    LAUNCHES["uniform_stream"] += 1
+    _build.launch("uniform_stream", "meso_uniform_stream", bits.data_ptr(),
+                  out.data_ptr(), bits.numel(), salt & 0xFFFFFFFF,
+                  device=h.device)
     return out
 
 
@@ -149,21 +131,21 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
     if general:
         return general_forces(x, v, typ, tag, mask, box, step, params, dt,
                               cfg, xr, rng_mode, rng_rounds,
-                              not cfg.wrap_at_rebuild, LAUNCHES,
-                              "pair_dpd_v3_general", need_virial, debug_pairs)
-    lib = _build.load_library()
+                              not cfg.wrap_at_rebuild, "pair_dpd_v3_general",
+                              need_virial, debug_pairs)
     nr = n_rows(cfg)
     check_cuda({**row_specs(nr, x, v, tag, mask, box),
                 **tables(params, CLASSIC_TABLES)})
     step_u = step & 0xFFFFFFFF
-    h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    h = _hash_or_tag(tag, step_u, params.seed, rng_mode, rng_rounds)
     plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     vir_rows = (torch.empty((nr,), dtype=torch.float32, device=x.device)
                 if need_virial else None)
     table = cell_tiles.table_on(plan, x.device)
-    code = lib.meso_pair_dpd_v3(
-        x.data_ptr(), v.data_ptr(), h.data_ptr(), mask.data_ptr(),
+    _build.launch(
+        "pair_dpd_v3", "meso_pair_dpd_v3", x.data_ptr(), v.data_ptr(),
+        h.data_ptr(), mask.data_ptr(),
         params.a.data_ptr(), params.gamma.data_ptr(),
         params.sigma.data_ptr(), params.rc.data_ptr(), box.lo.data_ptr(),
         box.hi.data_ptr(), table.data_ptr(), f.data_ptr(),
@@ -172,9 +154,7 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
         plan.threads, plan.list_cap, plan.smem_bytes,
         int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
         int(need_virial), 1.0 / math.sqrt(dt), step_u, params.seed,
-        rng_rounds, _build.stream_of(x.device))
-    _build.check(code, "pair_dpd_v3")
-    LAUNCHES["pair_dpd_v3"] += 1
+        rng_rounds, device=x.device)
     if need_virial:
         return f, torch.sum(vir_rows)
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -183,19 +163,18 @@ def bucket_forces_pallas_v3(x, v, typ, tag, mask, box: Box, step: int,
 def general_forces(x, v, typ, tag, mask, box: Box, step: int,
                    params: DPDParams, dt: float, cfg: CellConfig, xr: int,
                    rng_mode: str, rng_rounds: int, min_image: bool,
-                   counts: dict, name: str, need_virial: bool = True,
+                   name: str, need_virial: bool = True,
                    debug_pairs: bool = False):
     """K1's general variant on CUDA tensors, for K1's general case and for
     K6 on one card (``kernels/pair_dpd.py``): the rows and tables checked,
     the hash (fast tier or debug_pairs, one launch), then one
-    ``launch_general``, counted in ``counts[name]``. ``min_image`` selects
+    ``launch_general``, counted as ``name``. ``min_image`` selects
     the raw-difference walk (the minimum image where an axis wraps) over
     dr = (xi - xj) - shift. A capacity K1's plan refuses (above 237 spill,
     396 strict) raises ``ValueError`` before the library is touched.
     Returns (f (nr, 3), virial; 0 without need_virial or under
     debug_pairs)."""
     plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
-    lib = _build.load_library()
     nr = n_rows(cfg)
     specs = {**row_specs(nr, x, v, tag, mask, box),
              **tables(params, CLASSIC_TABLES), **typ_spec(params, nr, typ)}
@@ -204,24 +183,23 @@ def general_forces(x, v, typ, tag, mask, box: Box, step: int,
         specs["excl_w"] = (params.excl_w, torch.float32, ())
     check_cuda(specs)
     # debug_pairs reads the per-particle hash's keys in both RNG tiers
-    h = _hash_or_tag(lib, tag, step & 0xFFFFFFFF, params.seed,
+    h = _hash_or_tag(tag, step & 0xFFFFFFFF, params.seed,
                      "fast" if debug_pairs else rng_mode, rng_rounds)
-    f, vir_rows = launch_general(lib, plan, h, x, v, typ, tag, mask, box,
+    f, vir_rows = launch_general(name, plan, h, x, v, typ, tag, mask, box,
                                  step, params, dt, rng_mode, rng_rounds,
                                  min_image, debug_pairs)
-    counts[name] += 1
     if need_virial and not debug_pairs:
         return f, torch.sum(vir_rows)
     return f, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def launch_general(lib, plan, h, x, v, typ, tag, mask, box: Box, step: int,
-                   params: DPDParams, dt: float, rng_mode: str,
+def launch_general(name: str, plan, h, x, v, typ, tag, mask, box: Box,
+                   step: int, params: DPDParams, dt: float, rng_mode: str,
                    rng_rounds: int, min_image: bool,
                    debug_pairs: bool = False):
     """One launch of K1's general variant on ``plan`` and its table, over
-    checked CUDA rows and the kernels' h input; uncounted. Returns (f
-    (nr, 3), the per-row virial, None under debug_pairs)."""
+    checked CUDA rows and the kernels' h input, counted as ``name``.
+    Returns (f (nr, 3), the per-row virial, None under debug_pairs)."""
     nr = x.shape[0]
     excl_rows, n_excl = (0, 0) if params.excl is None else params.excl.shape
     table = cell_tiles.table_on(plan, x.device)
@@ -229,8 +207,9 @@ def launch_general(lib, plan, h, x, v, typ, tag, mask, box: Box, step: int,
     # the kernel writes every row's virial but in debug mode
     vir_rows = (None if debug_pairs else
                 torch.empty((nr,), dtype=torch.float32, device=x.device))
-    code = lib.meso_pair_dpd_v3_general(
-        x.data_ptr(), v.data_ptr(), tag.data_ptr(), _typ_ptr(params, typ),
+    _build.launch(
+        name, "meso_pair_dpd_v3_general", x.data_ptr(), v.data_ptr(),
+        tag.data_ptr(), _typ_ptr(params, typ),
         mask.data_ptr(), h.data_ptr(), params.a.data_ptr(),
         params.gamma.data_ptr(), params.sigma.data_ptr(),
         params.rc.data_ptr(), params.n_types,
@@ -242,8 +221,7 @@ def launch_general(lib, plan, h, x, v, typ, tag, mask, box: Box, step: int,
         plan.threads, plan.list_cap, plan.smem_bytes, int(min_image),
         int(rng_mode == "tea"), int(debug_pairs), 1.0 / math.sqrt(dt),
         params.s_exp, step & 0xFFFFFFFF, params.seed, rng_rounds,
-        _build.stream_of(x.device))
-    _build.check(code, "pair_dpd_v3_general")
+        device=x.device)
     return f, vir_rows
 
 
@@ -261,21 +239,21 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
         return bucket_forces_v3_edpd_plain(x, v, t, tag, mask, box, step,
                                            params, dt, cfg, rng_mode,
                                            rng_rounds, typ=typ)
-    lib = _build.load_library()
     nr = n_rows(cfg)
     check_cuda({**row_specs(nr, x, v, tag, mask, box),
                  "t": (t, torch.float32, (nr,)),
                  **typ_spec(params, nr, typ),
                  **tables(params, ("a", "gamma", "kappa", "rc"))})
     step_u = step & 0xFFFFFFFF
-    h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    h = _hash_or_tag(tag, step_u, params.seed, rng_mode, rng_rounds)
     plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
     table = cell_tiles.table_on(plan, x.device)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     dtdt = torch.empty((nr,), dtype=torch.float32, device=x.device)
     vir_rows = torch.empty((nr,), dtype=torch.float32, device=x.device)
-    code = lib.meso_pair_edpd_v3(
-        x.data_ptr(), v.data_ptr(), t.data_ptr(), tag.data_ptr(),
+    _build.launch(
+        "pair_edpd_v3", "meso_pair_edpd_v3", x.data_ptr(), v.data_ptr(),
+        t.data_ptr(), tag.data_ptr(),
         _typ_ptr(params, typ), mask.data_ptr(), h.data_ptr(),
         params.a.data_ptr(), params.gamma.data_ptr(),
         params.kappa.data_ptr(), params.rc.data_ptr(), params.n_types,
@@ -285,9 +263,7 @@ def bucket_forces_pallas_v3_edpd(x, v, t, typ, tag, mask, box: Box,
         plan.threads, plan.list_cap, plan.smem_bytes,
         int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
         1.0 / math.sqrt(dt), params.mass, params.cv, step_u, params.seed,
-        rng_rounds, _build.stream_of(x.device))
-    _build.check(code, "pair_edpd_v3")
-    LAUNCHES["pair_edpd_v3"] += 1
+        rng_rounds, device=x.device)
     return f, dtdt, torch.sum(vir_rows)
 
 
@@ -305,7 +281,6 @@ def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
         return bucket_forces_v3_tdpd_plain(x, v, c, tag, mask, box, step,
                                            params, dt, cfg, rng_mode,
                                            rng_rounds, typ=typ)
-    lib = _build.load_library()
     nr = n_rows(cfg)
     ns = params.n_species
     check_cuda({**row_specs(nr, x, v, tag, mask, box),
@@ -315,14 +290,15 @@ def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
                  "kappa_c": (params.kappa_c, torch.float32, (ns,)),
                  "eps_c": (params.eps_c, torch.float32, (ns,))})
     step_u = step & 0xFFFFFFFF
-    h = _hash_or_tag(lib, tag, step_u, params.seed, rng_mode, rng_rounds)
+    h = _hash_or_tag(tag, step_u, params.seed, rng_mode, rng_rounds)
     plan = cell_tiles.plan(cfg.capacity, xr, cfg.ncell)
     table = cell_tiles.table_on(plan, x.device)
     f = torch.empty((nr, 3), dtype=torch.float32, device=x.device)
     dcdt = torch.empty((nr, ns), dtype=torch.float32, device=x.device)
     vir_rows = torch.empty((nr,), dtype=torch.float32, device=x.device)
-    code = lib.meso_pair_tdpd_v3(
-        x.data_ptr(), v.data_ptr(), c.data_ptr(), tag.data_ptr(),
+    _build.launch(
+        "pair_tdpd_v3", "meso_pair_tdpd_v3", x.data_ptr(), v.data_ptr(),
+        c.data_ptr(), tag.data_ptr(),
         _typ_ptr(params, typ), mask.data_ptr(), h.data_ptr(),
         params.a.data_ptr(), params.gamma.data_ptr(),
         params.sigma.data_ptr(), params.rc.data_ptr(), params.n_types,
@@ -333,9 +309,7 @@ def bucket_forces_pallas_v3_tdpd(x, v, c, typ, tag, mask, box: Box,
         plan.threads, plan.list_cap, plan.smem_bytes,
         int(not cfg.wrap_at_rebuild), int(rng_mode == "tea"),
         1.0 / math.sqrt(dt), params.rcc, params.s1, step_u, params.seed,
-        rng_rounds, _build.stream_of(x.device))
-    _build.check(code, "pair_tdpd_v3")
-    LAUNCHES["pair_tdpd_v3"] += 1
+        rng_rounds, device=x.device)
     return f, dcdt, torch.sum(vir_rows)
 
 

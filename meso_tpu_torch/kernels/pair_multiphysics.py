@@ -5,7 +5,7 @@ and ``bucket_forces_pallas_tdpd``, reached with
 
 The same full-stencil eDPD and tDPD terms as the fused selector
 (``kernels/pair_dpd_fused.py``), on the same hand-written Hopper kernel
-(``csrc/pair_brick.cu``, counted in ``_brick.LAUNCHES``): multi-type
+(``csrc/pair_brick.cu``, counted in ``_build.LAUNCHES``): multi-type
 tables, any number of species, both RNG tiers, the minimum image on every
 axis. On a CPU tensor, and only there, each runs the plain torch version
 ``_brick.brick_forces_plain``. Strict buckets only, as K6

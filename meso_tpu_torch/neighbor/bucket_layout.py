@@ -10,22 +10,24 @@ so the per-particle tensors reshape without a copy to planes
 overflow (more particles than a cell and its spill room hold) is counted
 and checked, never hidden.
 
-The JAX package wrote the rebuild as XLA code, not as a Pallas kernel, so
-the port writes it as plain torch ops (one stable ``torch.sort`` of the
-cell keys, the dummy slots and the inverse permutation) but for three
-steps that are hand-written kernels on a CUDA tensor
-(``csrc/bucket_assign.cu``) and plain torch chains on a CPU tensor: the
-cell keys with the deferred wrap (``cell_keys``), the spill slot
-assignment (``spill_assign``, a ``torch.cummax`` scan in plain torch) and
-the placement of every column (``place_rows``). Kernel and chain give the
-same bits; the kernels spare the host about 60 launches a rebuild. On the
-spill layout a CUDA rebuild is one host call
-(``rebuild_spill_on_card``: the same steps, the sort a stable radix sort
-on the card).
-Placement and overflow are bitwise equal to the JAX package on the same
-input. Where JAX moves the payload through a second multi-operand sort by
-target row, the port inverts that permutation with one scatter of row
-indices and gathers every column once.
+A rebuild is one placement, for any number of input rows: the cell keys
+with the deferred wrap (``cell_keys``), one stable ``torch.sort`` of them,
+the slot assignment in sorted space (``slot_targets``: the right spill's
+``spill_assign`` or the strict rank) and the placement of every column
+through the inverse of the fitting rows' targets (``place_rows``). The
+keys, the spill assignment and the placement are hand-written kernels on a
+CUDA tensor (``csrc/bucket_assign.cu``) and plain torch chains on a CPU
+tensor, the same bits either way. On the spill layout a CUDA rebuild of
+its own rows is one host call (``rebuild_spill_on_card``: the same steps,
+the sort a stable radix sort on the card). The bricks
+(``parallel/bricks.py``) key their rows in the brick's frame and place
+them through ``slot_targets`` and ``place_rows``.
+
+Placement and overflow are bitwise equal to the JAX package's, whose
+"gather" and "sort" engines place alike, on the same input. Where JAX
+moves the payload through a second multi-operand sort by target row, the
+port inverts that permutation with one scatter of row indices and gathers
+every column once.
 """
 
 from __future__ import annotations
@@ -38,16 +40,6 @@ from meso_tpu_torch.core.state import PER_PARTICLE, State
 from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.kernels.common import check_cuda
 from meso_tpu_torch.neighbor.cells import CellConfig
-
-# Launches of the rebuild's kernels, raised by one at each launch and
-# nowhere else (parallel/launch.py::counted_launches reads them).
-LAUNCHES = {"spill_assign": 0, "bucket_keys": 0, "bucket_place": 0,
-            "bucket_rebuild": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def grid_shape(cfg: CellConfig) -> tuple[int, int, int, int]:
@@ -83,44 +75,34 @@ def spill_assign(base, cxs, valid_s, n_in: int, nx: int, k: int,
     """Right-spill slot assignment for cell-sorted rows (the function of
     ``spill_assign_plain``): on a CPU tensor its plain version, on a CUDA
     tensor the kernel ``meso_spill_assign`` of ``csrc/bucket_assign.cu``
-    (a memset of the overflow and one launch, adding one to
-    ``LAUNCHES["spill_assign"]``), on any other device a raise.
+    (a memset of the overflow and one launch, counted as
+    ``"spill_assign"``), on any other device a raise.
 
-    Takes what every caller gives (``rebuild_buckets_sort``,
-    ``_rebuild_buckets_gather``, ``parallel/bricks.py::_place_cells``):
-    int64 ``base`` and ``cxs`` and a bool ``valid_s`` of ``n_in`` rows,
-    sorted by the key ``base * nx + cxs`` with ``cxs`` in [0, nx), masked
-    rows keyed ``nx * ny * nz`` so that a row is valid exactly where
-    ``base < n_rows_yz``. The kernel writes the rows past the segments
-    (the padding tail) as not fitting without reading them; it does not
-    check this contract, which would take a host sync. Returns (target_row,
-    fits, overflow), overflow a 0-d int64 tensor on the device."""
+    Takes what ``slot_targets`` gives: int64 ``base`` and ``cxs`` and a
+    bool ``valid_s`` of ``n_in`` rows, sorted by the key ``base * nx +
+    cxs`` with ``cxs`` in [0, nx), masked rows keyed ``nx * ny * nz`` so
+    that a row is valid exactly where ``base < n_rows_yz``. The kernel
+    writes the rows past the segments (the padding tail) as not fitting
+    without reading them; it does not check this contract, which would
+    take a host sync. Returns (target_row, fits, overflow), overflow a 0-d
+    int64 tensor on the device."""
     if base.device.type == "cpu":
         return spill_assign_plain(base, cxs, valid_s, n_in, nx, k, n_rows_yz,
                                   wrap)
-    lib = _build.load_library()
-    dev = base.device
-    if dev.type != "cuda":
-        raise ValueError(f"spill_assign takes CPU or CUDA tensors, not {dev}")
-    for name, t, dtype in (("base", base, torch.int64),
-                           ("cxs", cxs, torch.int64),
-                           ("valid_s", valid_s, torch.bool)):
-        if (t.device != dev or t.dtype != dtype or t.shape != (n_in,)
-                or not t.is_contiguous()):
-            raise ValueError(f"spill_assign: {name} must be a contiguous "
-                             f"{dtype} tensor of {n_in} rows on {dev}")
+    check_cuda({"base": (base, torch.int64, (n_in,)),
+                "cxs": (cxs, torch.int64, (n_in,)),
+                "valid_s": (valid_s, torch.bool, (n_in,))})
     if n_rows_yz * k * nx + n_in >= 2 ** 31:
         raise ValueError("spill_assign: the kernel takes fewer than 2**31 "
                          "bucket rows and input rows together")
+    dev = base.device
     target = torch.empty(n_in, dtype=torch.int64, device=dev)
     fits = torch.empty(n_in, dtype=torch.bool, device=dev)
     overflow = torch.empty((), dtype=torch.int64, device=dev)
-    code = lib.meso_spill_assign(
-        base.data_ptr(), cxs.data_ptr(), valid_s.data_ptr(),
-        target.data_ptr(), fits.data_ptr(), overflow.data_ptr(), n_in, nx, k,
-        n_rows_yz, int(wrap), _build.stream_of(dev))
-    _build.check(code, "spill_assign")
-    LAUNCHES["spill_assign"] += 1
+    _build.launch("spill_assign", "meso_spill_assign", base.data_ptr(),
+                  cxs.data_ptr(), valid_s.data_ptr(), target.data_ptr(),
+                  fits.data_ptr(), overflow.data_ptr(), n_in, nx, k,
+                  n_rows_yz, int(wrap), device=dev)
     return target, fits, overflow
 
 
@@ -171,20 +153,6 @@ def spill_assign_plain(base, cxs, valid_s, n_in: int, nx: int, k: int,
     return target, fits, overflow
 
 
-def _dummy_targets(target, fits, nr: int):
-    """Key every non-fitting sorted row to a distinct unused bucket slot, so
-    that fitting targets and dummies together form a permutation of [0, nr).
-    Out-of-range targets land in a trash slot at index nr."""
-    dev = target.device
-    used = torch.zeros(nr + 1, dtype=torch.int32, device=dev)
-    used.index_fill_(0, torch.clamp(target, max=nr), 1)
-    unused_first = torch.sort(used[:nr], stable=True).indices
-    miss_rank = torch.cumsum((~fits).to(torch.int64), dim=0) - 1
-    # fitting rows before the first miss read index -1 (the last slot), as
-    # in JAX; their values are never used
-    return unused_first[torch.clamp(miss_rank, max=nr - 1)]
-
-
 def _place(state: State, src, live, n_out: int) -> State:
     """Output row r takes input row src[r] where live[r], zeros elsewhere."""
     kw = {}
@@ -220,18 +188,6 @@ def _cell_key(state: State, cfg: CellConfig) -> torch.Tensor:
     return torch.where(state.mask, key, nx * ny * nz)
 
 
-def _sort_keys(key: torch.Tensor, nx: int):
-    """(sorted keys, the stable sort's order, their (cy, cz) row, their
-    cx)."""
-    key_s, order = torch.sort(key, stable=True)
-    base = key_s // nx
-    return key_s, order, base, key_s - base * nx
-
-
-def _sorted_keys(state: State, cfg: CellConfig):
-    return _sort_keys(_cell_key(state, cfg), cfg.ncell[0])
-
-
 def cell_keys_plain(state: State, cfg: CellConfig, wrap: bool):
     """``cell_keys`` in plain torch."""
     if wrap:
@@ -246,15 +202,12 @@ def cell_keys(state: State, cfg: CellConfig, wrap: bool):
     row's cell key from its wrapped x, (cy * nz + cz) * nx + cx as int64,
     nx * ny * nz on masked rows. On a CPU tensor its plain version
     (``cell_keys_plain``); on a CUDA tensor the kernel
-    ``meso_bucket_keys`` of ``csrc/bucket_assign.cu`` (one launch, adding
-    one to ``LAUNCHES["bucket_keys"]``), bitwise the same; on any other
-    device a raise."""
+    ``meso_bucket_keys`` of ``csrc/bucket_assign.cu`` (one launch, counted
+    as ``"bucket_keys"``), bitwise the same; on any other device a
+    raise."""
     dev = state.device
     if dev.type == "cpu":
         return cell_keys_plain(state, cfg, wrap)
-    lib = _build.load_library()
-    if dev.type != "cuda":
-        raise ValueError(f"cell_keys takes CPU or CUDA tensors, not {dev}")
     n = state.n
     if n >= 2 ** 31:
         raise ValueError("cell_keys: the kernel takes fewer than 2**31 rows")
@@ -270,33 +223,73 @@ def cell_keys(state: State, cfg: CellConfig, wrap: bool):
     image_out = torch.empty_like(state.image) if wrap else None
     key = torch.empty(n, dtype=torch.int64, device=dev)
     nx, ny, nz = cfg.ncell
-    code = lib.meso_bucket_keys(
-        state.x.data_ptr(), state.image.data_ptr() if wrap else None,
-        state.mask.data_ptr(), box.lo.data_ptr(), box.hi.data_ptr(),
+    _build.launch(
+        "bucket_keys", "meso_bucket_keys", state.x.data_ptr(),
+        state.image.data_ptr() if wrap else None, state.mask.data_ptr(),
+        box.lo.data_ptr(), box.hi.data_ptr(),
         x_out.data_ptr() if wrap else None,
         image_out.data_ptr() if wrap else None, key.data_ptr(), n, nx, ny,
-        nz, int(wrap), _build.stream_of(dev))
-    _build.check(code, "bucket_keys")
-    LAUNCHES["bucket_keys"] += 1
+        nz, int(wrap), device=dev)
     if wrap:
         state = state.replace(x=x_out, image=image_out)
     return state, key
 
 
+def slot_targets(key: torch.Tensor, cfg: CellConfig, wrap: bool = True):
+    """The rebuild between its keys and its placement, for int64 cell keys
+    of any number of rows ((cy * nz + cz) * nx + cx on the grid of
+    ``cfg``, nx * ny * nz on masked rows): one stable sort of the keys,
+    then each sorted row's slot, by the right spill (``spill_assign``;
+    ``wrap`` lets the last cell's overflow take cell 0's top free slots,
+    as on one card; the bricks pass False) or, on strict buckets, by its
+    rank in its cell. Returns (the sort's order, each sorted row's target
+    row, whether it fits, the overflow, the wrap relief's (cxs, nx) where
+    the spill wraps under the deferred wrap, else None), as
+    ``place_rows`` takes them. A row that does not fit has a distinct
+    target past the bucket rows."""
+    nx, ny, nz = cfg.ncell
+    k = cfg.capacity
+    n_in = key.shape[0]
+    key_s, order = torch.sort(key, stable=True)
+    base = key_s // nx
+    cxs = key_s - base * nx
+    valid_s = key_s < nx * ny * nz
+    relief = None
+    if cfg.spill:
+        target, fits, overflow = spill_assign(base, cxs, valid_s, n_in, nx,
+                                              k, ny * nz, wrap)
+        if wrap and cfg.wrap_at_rebuild:
+            # wrap-relief rows sit in cell 0's block with x ~ lo + Lx; the
+            # no-min-image kernel reads them only if they are pre-shifted
+            # one image left (meso_tpu bucket_layout.py:392-406)
+            relief = (cxs, nx)
+    else:
+        iota = torch.arange(n_in, dtype=torch.int64, device=key.device)
+        rank = iota - _seg_starts(key_s)
+        fits = valid_s & (rank < k)
+        overflow = torch.sum(valid_s & (rank >= k))
+        target = (base * k + torch.clamp(rank, max=k - 1)) * nx + cxs
+        target = torch.where(fits, target, n_rows(cfg) + iota)
+    return order, target, fits, overflow, relief
+
+
 def place_rows_plain(state: State, order, target, fits, nr: int,
                      relief=None) -> State:
-    """``place_rows`` in plain torch: the rows that do not fit keyed to the
-    free slots (``_dummy_targets``), that permutation of [0, nr) inverted
-    with one scatter, every column gathered through it."""
-    iota = torch.arange(state.n, dtype=torch.int64, device=state.device)
-    t_full = torch.where(fits, target, _dummy_targets(target, fits, nr))
-    inv = torch.empty(nr, dtype=torch.int64, device=state.device)
-    inv[t_full] = iota
-    new = _place(state, order[inv], fits[inv], nr)
+    """``place_rows`` in plain torch, as its kernel does it: the fitting
+    rows' targets inverted into ``inv`` (-1 where no row fits), every
+    column gathered through it."""
+    inv = torch.full((nr + 1,), -1, dtype=torch.int64, device=state.device)
+    # rows that do not fit write the trash slot nr, which is dropped
+    inv[torch.where(fits, target, nr)] = torch.arange(
+        state.n, dtype=torch.int64, device=state.device)
+    inv = inv[:nr]
+    live = inv >= 0
+    src = torch.clamp(inv, min=0)
+    new = _place(state, order[src], live, nr)
     if relief is not None:
         cxs, nx = relief
         wrapped = fits & (cxs == nx - 1) & (target % nx == 0)
-        new = _preshift(new, wrapped[inv])
+        new = _preshift(new, live & wrapped[src])
     return new
 
 
@@ -306,7 +299,7 @@ _PLACE_COLUMNS = 16
 
 def place_rows(state: State, order, target, fits, nr: int,
                relief=None) -> State:
-    """The sort rebuild's bucket state from its n sorted rows (the stable
+    """The bucket state from n sorted rows, n any number (the stable
     sort's ``order``, each row's ``target`` slot and whether it ``fits``,
     the fitting targets distinct and below nr): bucket row r takes every
     per-particle column of input row order[i] for the sorted row i that
@@ -316,14 +309,11 @@ def place_rows(state: State, order, target, fits, nr: int,
     left along x (``_preshift``). order, target and cxs are int64, fits
     bool. On a CPU tensor the plain version (``place_rows_plain``); on a
     CUDA tensor ``meso_bucket_place`` of ``csrc/bucket_assign.cu`` (a
-    memset and two kernels, adding one to ``LAUNCHES["bucket_place"]``),
-    bitwise the same; on any other device a raise."""
+    memset and two kernels, counted as ``"bucket_place"``), bitwise the
+    same; on any other device a raise."""
     dev = state.device
     if dev.type == "cpu":
         return place_rows_plain(state, order, target, fits, nr, relief)
-    lib = _build.load_library()
-    if dev.type != "cuda":
-        raise ValueError(f"place_rows takes CPU or CUDA tensors, not {dev}")
     n = state.n
     if nr + n >= 2 ** 31:
         raise ValueError("place_rows: the kernel takes fewer than 2**31 "
@@ -355,16 +345,15 @@ def place_rows(state: State, order, target, fits, nr: int,
                         device=dev) for c in cols]
     inv = torch.empty(nr, dtype=torch.int64, device=dev)
     k = len(cols)
-    code = lib.meso_bucket_place(
+    _build.launch(
+        "bucket_place", "meso_bucket_place",
         (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
         (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
         (ctypes.c_int * k)(*widths), k, order.data_ptr(), target.data_ptr(),
         fits.data_ptr(), inv.data_ptr(),
         None if cxs is None else cxs.data_ptr(), x_col, image_col,
         state.box.lo.data_ptr(), state.box.hi.data_ptr(), nx, n, nr,
-        _build.stream_of(dev))
-    _build.check(code, "bucket_place")
-    LAUNCHES["bucket_place"] += 1
+        device=dev)
     return state.replace(**dict(zip(names, outs)))
 
 
@@ -373,117 +362,30 @@ def rebuild_buckets(state: State, cfg: CellConfig) -> tuple[State,
     """Redistribute rows into bucket order. The input may have any row
     count; the output has exactly n_rows(cfg) rows. With
     System.wrap_mode="rebuild" the rows are wrapped into the box first (the
-    deferred global wrap). Returns (bucket_state, overflow)."""
-    if cfg.rebuild == "sort" and state.n == n_rows(cfg):
-        return rebuild_buckets_sort(state, cfg)
-    if cfg.wrap_at_rebuild:
-        x_w, image_w = state.box.wrap(state.x, state.image)
-        state = state.replace(x=x_w, image=image_w)
-    return _rebuild_buckets_gather(state, cfg)
-
-
-def _rebuild_buckets_gather(state: State, cfg: CellConfig):
-    """Index-map placement: scatter the source row index of every fitting
-    row to its target slot, then gather every column once."""
-    nx, ny, nz = cfg.ncell
-    k = cfg.capacity
-    nr = n_rows(cfg)
-    n_in = state.n
-    dev = state.device
-    iota = torch.arange(n_in, dtype=torch.int64, device=dev)
-
-    key_s, order, base, cxs = _sorted_keys(state, cfg)
-    valid_s = state.mask[order]
-    wrapped_s = None
-    if cfg.spill:
-        target, fits, overflow = spill_assign(
-            base, cxs, valid_s, n_in, nx, k, ny * nz, wrap=True)
-        if cfg.wrap_at_rebuild:
-            wrapped_s = fits & (cxs == nx - 1) & (target % nx == 0)
-    else:
-        n_cells = nx * ny * nz
-        starts = torch.searchsorted(
-            key_s, torch.arange(n_cells + 1, dtype=key_s.dtype, device=dev),
-            side="left")
-        rank = iota - starts[torch.clamp(key_s, max=n_cells)]
-        fits = valid_s & (rank < k)
-        overflow = torch.sum(valid_s & (rank >= k))
-        target = (base * k + torch.clamp(rank, max=k - 1)) * nx + cxs
-        target = torch.where(fits, target, nr + iota)
-
-    # out-of-range targets write the trash slot nr, which is dropped
-    tgt = torch.clamp(target, max=nr)
-    idx_map = torch.full((nr + 1,), -1, dtype=torch.int64, device=dev)
-    idx_map[tgt] = iota
-    idx_map = idx_map[:nr]
-    live = idx_map >= 0
-    new = _place(state, order[torch.clamp(idx_map, min=0)], live, nr)
-    if wrapped_s is not None:
-        wslot = torch.zeros(nr + 1, dtype=torch.bool, device=dev)
-        wslot[tgt] = wrapped_s
-        new = _preshift(new, wslot[:nr])
-    return new, overflow
-
-
-def rebuild_buckets_sort(state: State, cfg: CellConfig):
-    """Sort-engine rebuild for a steady-state nr-row input: the deferred
-    wrap where the configuration asks for it, one stable sort by cell key,
-    the slot assignment in sorted space, and the placement through the
-    inverse of the fitting rows' targets (``sorted_targets``, then
-    ``place_rows``). The spill layout on a CUDA tensor runs the same steps
-    as one call of ``rebuild_spill_on_card``."""
-    if cfg.spill and state.device.type == "cuda":
+    deferred global wrap). ``cfg.rebuild`` selects nothing: the JAX
+    package's two engines place alike, and the port has one placement.
+    Where the placement is the spill layout's own rows on a CUDA tensor it
+    is the one call of ``rebuild_spill_on_card``; otherwise ``cell_keys``,
+    ``slot_targets`` and ``place_rows``. Returns (bucket_state,
+    overflow)."""
+    if (cfg.spill and state.device.type == "cuda"
+            and state.n == n_rows(cfg)):
         return rebuild_spill_on_card(state, cfg)
-    state, order, target, fits, overflow, relief = sorted_targets(state, cfg)
+    state, key = cell_keys(state, cfg, wrap=cfg.wrap_at_rebuild)
+    order, target, fits, overflow, relief = slot_targets(key, cfg)
     return place_rows(state, order, target, fits, n_rows(cfg),
                       relief), overflow
 
 
-def sorted_targets(state: State, cfg: CellConfig):
-    """The sort rebuild up to its placement: (the state wrapped where the
-    configuration defers the wrap to the rebuild, the stable sort's order,
-    each sorted row's target slot, whether it fits, the overflow, the wrap
-    relief's (cxs, nx) or None), as ``place_rows`` takes them."""
-    nx, ny, nz = cfg.ncell
-    k = cfg.capacity
-    nr = n_rows(cfg)
-    n_in = state.n
-
-    state, key = cell_keys(state, cfg, wrap=cfg.wrap_at_rebuild)
-    key_s, order, base, cxs = _sort_keys(key, nx)
-    valid_s = key_s < nx * ny * nz
-    relief = None
-    if cfg.spill:
-        target, fits, overflow = spill_assign(
-            base, cxs, valid_s, n_in, nx, k, ny * nz, wrap=True)
-        if cfg.wrap_at_rebuild:
-            # wrap-relief rows sit in cell 0's block with x ~ lo + Lx; the
-            # no-min-image kernel reads them only if they are pre-shifted
-            # one image left (meso_tpu bucket_layout.py:392-406)
-            relief = (cxs, nx)
-    else:
-        iota = torch.arange(n_in, dtype=torch.int64, device=state.device)
-        rank = iota - _seg_starts(key_s)
-        fits = valid_s & (rank < k)
-        overflow = torch.sum(valid_s & (rank >= k))
-        target = (base * k + torch.clamp(rank, max=k - 1)) * nx + cxs
-        target = torch.where(fits, target, nr + iota)
-    return state, order, target, fits, overflow, relief
-
-
 def rebuild_spill_on_card(state: State, cfg: CellConfig):
-    """``rebuild_buckets_sort`` on the spill layout for CUDA tensors in one
-    host call, ``meso_bucket_rebuild`` of ``csrc/bucket_assign.cu`` (the
-    cell keys, a stable radix sort, the slot assignment and the placement:
-    bitwise ``sorted_targets`` and ``place_rows``), adding one to
-    ``LAUNCHES["bucket_rebuild"]``. Returns (bucket_state, overflow)."""
+    """``rebuild_buckets`` of the spill layout's own n_rows(cfg) rows on
+    CUDA tensors in one host call, ``meso_bucket_rebuild`` of
+    ``csrc/bucket_assign.cu`` (the cell keys, a stable radix sort, the slot
+    assignment and the placement: bitwise ``cell_keys``, ``slot_targets``
+    and ``place_rows``), counted as ``"bucket_rebuild"``. Returns
+    (bucket_state, overflow)."""
     if not cfg.spill:
         raise ValueError("rebuild_spill_on_card takes the spill layout")
-    lib = _build.load_library()
-    dev = state.device
-    if dev.type != "cuda":
-        raise ValueError(f"rebuild_spill_on_card takes CUDA tensors, not "
-                         f"{dev}")
     n = state.n
     nx, ny, nz = cfg.ncell
     if n != n_rows(cfg) or 2 * n >= 2 ** 31:
@@ -508,23 +410,24 @@ def rebuild_spill_on_card(state: State, cfg: CellConfig):
                          f"columns of a multiple of 4 bytes a row or fewer "
                          f"than 4, not {widths}")
     key_bits = max(1, (nx * ny * nz).bit_length())
-    work_bytes = lib.meso_bucket_rebuild_bytes(n, key_bits, int(wrap))
+    work_bytes = _build.query("meso_bucket_rebuild_bytes", n, key_bits,
+                              int(wrap))
     if work_bytes < 0:
         raise ValueError(f"rebuild_spill_on_card: no workspace for {n} rows")
+    dev = state.device
     work = torch.empty(work_bytes, dtype=torch.uint8, device=dev)
     overflow = torch.empty((), dtype=torch.int64, device=dev)
     outs = [torch.empty_like(c) for c in cols]
     k = len(cols)
-    code = lib.meso_bucket_rebuild(
-        state.x.data_ptr(), state.image.data_ptr(), state.mask.data_ptr(),
-        box.lo.data_ptr(), box.hi.data_ptr(),
+    _build.launch(
+        "bucket_rebuild", "meso_bucket_rebuild", state.x.data_ptr(),
+        state.image.data_ptr(), state.mask.data_ptr(), box.lo.data_ptr(),
+        box.hi.data_ptr(),
         (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
         (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
         (ctypes.c_int * k)(*widths), k, names.index("x"),
         names.index("image"), work.data_ptr(), overflow.data_ptr(), n, nx,
-        ny, nz, cfg.capacity, key_bits, int(wrap), _build.stream_of(dev))
-    _build.check(code, "bucket_rebuild")
-    LAUNCHES["bucket_rebuild"] += 1
+        ny, nz, cfg.capacity, key_bits, int(wrap), device=dev)
     return state.replace(**dict(zip(names, outs))), overflow
 
 

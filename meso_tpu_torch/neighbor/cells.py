@@ -35,7 +35,9 @@ class CellConfig:
     # right-spill packing: a cell's overflow takes the next x-cell's free
     # slots (slot-cell = true cell or true cell + 1); K ~ 1.6x mean occupancy
     spill: bool = False
-    # rebuild engine: "gather" or "sort"; both give identical placement
+    # the JAX package's rebuild engine, "gather" or "sort": accepted and
+    # ignored (both engines give the same placement, and the port has one,
+    # neighbor/bucket_layout.py::rebuild_buckets)
     rebuild: str = "gather"
     # System.wrap_mode="rebuild": positions are box-wrapped at rebuild time
     # only, and the pair kernel skips the per-candidate minimum image
@@ -83,14 +85,14 @@ def max_displacement_sq(x: torch.Tensor, x_ref: torch.Tensor,
     """Max squared displacement since rebuild (skin-trigger diagnostic), a
     0-d float32 tensor. On a CUDA tensor the kernel
     ``meso_max_displacement`` of ``csrc/bucket_assign.cu`` (a memset and
-    one launch), bitwise the plain chain's; on any other device the plain
-    chain (``max_displacement_sq_plain``)."""
+    one launch, counted as ``"max_displacement"``), bitwise the plain
+    chain's; on any other device the plain chain
+    (``max_displacement_sq_plain``)."""
     if x.device.type != "cuda":
         return max_displacement_sq_plain(x, x_ref, mask, box)
     # imported here: kernels.common imports this module
     from meso_tpu_torch.kernels import _build
     from meso_tpu_torch.kernels.common import check_cuda
-    lib = _build.load_library()
     x, x_ref, mask = x.contiguous(), x_ref.contiguous(), mask.contiguous()
     n = x.shape[0]
     check_cuda({"x": (x, torch.float32, (n, 3)),
@@ -102,11 +104,9 @@ def max_displacement_sq(x: torch.Tensor, x_ref: torch.Tensor,
         raise ValueError("max_displacement_sq: the kernel takes fewer than "
                          "2**31 rows")
     out = torch.empty((), dtype=torch.float32, device=x.device)
-    code = lib.meso_max_displacement(
-        x.data_ptr(), x_ref.data_ptr(), mask.data_ptr(),
-        box.lo.data_ptr(), box.hi.data_ptr(),
-        out.data_ptr(), n, _build.stream_of(x.device))
-    _build.check(code, "max_displacement")
+    _build.launch("max_displacement", "meso_max_displacement", x.data_ptr(),
+                  x_ref.data_ptr(), mask.data_ptr(), box.lo.data_ptr(),
+                  box.hi.data_ptr(), out.data_ptr(), n, device=x.device)
     return out
 
 

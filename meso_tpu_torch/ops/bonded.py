@@ -29,17 +29,8 @@ import torch
 
 from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.kernels import _build
+from meso_tpu_torch.kernels.common import check_cuda
 from meso_tpu_torch.ops.dpd import sqrt32
-
-# Calls of the pair-bond kernels (the tag -> row scatter and the row
-# kernel, two launches a call), raised by one at each call and nowhere
-# else (parallel/launch.py::counted_launches reads them).
-LAUNCHES = {"pair_bonds": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 @dataclass(frozen=True)
@@ -375,28 +366,11 @@ def partner_table(params: BondedParams, n_tags: int):
     return _topology(params, n_tags)[:2]
 
 
-def _check_rows(n: int, dev, x, tag, mask, add_to, owner_mask) -> None:
-    """Raise unless each given tensor is contiguous, on ``dev``, of the
-    kernel's dtype and of n rows."""
-    for name, t, dtype, width in (
-            ("x", x, torch.float32, 3), ("tag", tag, torch.int32, 0),
-            ("mask", mask, torch.bool, 0), ("add_to", add_to, torch.float32,
-                                            3),
-            ("owner_mask", owner_mask, torch.bool, 0)):
-        if t is None:
-            continue
-        shape = (n, width) if width else (n,)
-        if (t.dtype != dtype or t.shape != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"pair_bonds: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {shape} on {dev}")
-
-
 def pair_bonds(x, tag, mask, box: Box, params: BondedParams, style: str,
                n_tags: int, owner_mask=None, count_missing: bool = False,
                add_to=None):
     """The pair bonds' force on CUDA tensors through ``meso_pair_bonds``
-    (two launches, adding one to ``LAUNCHES["pair_bonds"]``): on the rows
+    (two launches, counted once as ``"pair_bonds"``): on the rows
     this rank owns (the valid rows, and of them those in ``owner_mask``
     where given), the sum of the row's bonds in the order of the bond
     list; 0 on every other row. With ``add_to`` (float32 (N, 3)) the sum
@@ -406,13 +380,15 @@ def pair_bonds(x, tag, mask, box: Box, params: BondedParams, style: str,
     plain chain's count where tags are unique). Returns (f, missing)."""
     if style not in _STYLES:
         raise ValueError(f"unknown bond style {style!r}")
-    lib = _build.load_library()
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"pair_bonds takes CUDA tensors (the CPU's are the "
-                         f"plain chain's), not {dev}")
     n = x.shape[0]
-    _check_rows(n, dev, x, tag, mask, add_to, owner_mask)
+    specs = {"x": (x, torch.float32, (n, 3)), "tag": (tag, torch.int32, (n,)),
+             "mask": (mask, torch.bool, (n,))}
+    if add_to is not None:
+        specs["add_to"] = (add_to, torch.float32, (n, 3))
+    if owner_mask is not None:
+        specs["owner_mask"] = (owner_mask, torch.bool, (n,))
+    check_cuda(specs)
     table, width, coeffs = _topology(params, n_tags)
     if table.device != dev:
         raise ValueError(f"pair_bonds: the bonds are on {table.device}, the "
@@ -423,16 +399,14 @@ def pair_bonds(x, tag, mask, box: Box, params: BondedParams, style: str,
                if count_missing else None)
     lo = box.lo.to(device=dev, dtype=torch.float32).contiguous()
     hi = box.hi.to(device=dev, dtype=torch.float32).contiguous()
-    code = lib.meso_pair_bonds(
-        x.data_ptr(), tag.data_ptr(), mask.data_ptr(),
+    _build.launch(
+        "pair_bonds", "meso_pair_bonds", x.data_ptr(), tag.data_ptr(),
+        mask.data_ptr(),
         None if owner_mask is None else owner_mask.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), table.data_ptr(), width,
         coeffs.data_ptr(), inv.data_ptr(), f.data_ptr(),
         None if missing is None else missing.data_ptr(), n, n_tags,
-        _STYLES[style], int(add_to is None),
-        _build.stream_of(dev))
-    _build.check(code, "pair_bonds")
-    LAUNCHES["pair_bonds"] += 1
+        _STYLES[style], int(add_to is None), device=dev)
     return f, missing
 
 

@@ -44,7 +44,8 @@ import torch
 
 from meso_tpu_torch.core.state import State, zeros_state
 from meso_tpu_torch.core.system import _FIT_EXTRA_SLOTS, System, SystemParams
-from meso_tpu_torch.neighbor.bucket_layout import _place, n_rows, spill_assign
+from meso_tpu_torch.neighbor.bucket_layout import (n_rows, place_rows,
+                                                    slot_targets)
 from meso_tpu_torch.neighbor.cells import CellConfig, max_displacement_sq
 from meso_tpu_torch.ops.bucket_dpd import exclusion_channels, fast_hash
 from meso_tpu_torch.parallel.comm import Mesh
@@ -100,12 +101,14 @@ def rebuild_brick(state: State, cfg: CellConfig, origins: dict,
                   sides: dict):
     """rebuild_buckets with the cells of each decomposed axis (the keys of
     ``origins``) indexed from the brick's origin, the other axes from the
-    box's; spill buckets spill right within the brick only
-    (``wrap=False``): its first and last columns sit in different
-    x-windows, and the halo ships only the boundary columns. Returns
-    (state of n_rows(cfg) rows, overflow)."""
+    box's: the keys in that frame, then ``slot_targets`` and
+    ``place_rows``, for any number of input rows. Spill buckets spill right
+    within the brick only (``wrap=False``): its first and last columns sit
+    in different x-windows, and the halo ships only the boundary columns.
+    Returns (state of n_rows(cfg) rows, overflow)."""
     x = state.x
     lens = state.box.lengths
+    nx, ny, nz = cfg.ncell
     cells = []
     for a, n in zip(AXES, cfg.ncell):
         d = COORD[a]
@@ -115,43 +118,10 @@ def rebuild_brick(state: State, cfg: CellConfig, origins: dict,
             c = x[:, d] / lens[d] * n
         cells.append(torch.clamp(c.to(torch.int32), 0, n - 1)
                      .to(torch.int64))
-    return _place_cells(state, cfg, *cells)
-
-
-def _place_cells(state: State, cfg: CellConfig, cx, cy, cz):
-    """The bucket placement of rows whose cells (cx, cy, cz) the caller
-    computed in its own frame (a slab's, a brick's): strict slots, or the
-    right spill within the grid (``spill_assign(..., wrap=False)``).
-    Returns (state of n_rows(cfg) rows, overflow)."""
-    nx, ny, nz = cfg.ncell
-    k = cfg.capacity
-    nr = ny * nz * k * nx
-    n_in = state.n
-    dev = state.device
+    cx, cy, cz = cells
     key = torch.where(state.mask, (cy * nz + cz) * nx + cx, nx * ny * nz)
-    key_s, order = torch.sort(key, stable=True)
-    valid_s = state.mask[order]
-    base = key_s // nx
-    cxs = key_s - base * nx
-    iota = torch.arange(n_in, dtype=torch.int64, device=dev)
-    if cfg.spill:
-        target, _, overflow = spill_assign(base, cxs, valid_s, n_in, nx, k,
-                                           ny * nz, wrap=False)
-    else:
-        starts = torch.searchsorted(
-            key_s, torch.arange(nx * ny * nz + 1, dtype=key_s.dtype,
-                                device=dev), side="left")
-        rank = iota - starts[torch.clamp(key_s, max=nx * ny * nz)]
-        fits = valid_s & (rank < k)
-        overflow = torch.sum(valid_s & (rank >= k))
-        target = (base * k + torch.clamp(rank, max=k - 1)) * nx + cxs
-        target = torch.where(fits, target, nr + iota)
-    # out-of-range targets write the trash slot nr, which is dropped
-    idx_map = torch.full((nr + 1,), -1, dtype=torch.int64, device=dev)
-    idx_map[torch.clamp(target, max=nr)] = iota
-    idx_map = idx_map[:nr]
-    return _place(state, order[torch.clamp(idx_map, min=0)], idx_map >= 0,
-                  nr), overflow
+    order, target, fits, overflow, _ = slot_targets(key, cfg, wrap=False)
+    return place_rows(state, order, target, fits, n_rows(cfg)), overflow
 
 
 # ---------------------------------------------------------------------------

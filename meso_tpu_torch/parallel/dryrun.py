@@ -109,6 +109,7 @@ def dryrun_rank(ring, device: str, legs: dict, nchunks: int) -> dict:
     leg's final state on the CPU, its diag and the launch counts."""
     import torch.distributed as dist
 
+    from meso_tpu_torch.kernels import _build
     from meso_tpu_torch.parallel import launch
     from meso_tpu_torch.parallel.comm import Ring
     from meso_tpu_torch.parallel.domain import run_distributed
@@ -126,13 +127,13 @@ def dryrun_rank(ring, device: str, legs: dict, nchunks: int) -> dict:
         run, where = runs[name]
         if name == "membrane" and ring.rank >= 2:
             continue
-        launch.reset_launches()
+        _build.reset_launch_counts()
         state, diag = run(system, launch.params_on(params, device),
                           launch.on_device(states[where.rank], device),
                           nchunks, where, dcfg)
         out[name] = {"state": launch.on_device(state, "cpu"),
                      "diag": {k: float(v) for k, v in diag.items()},
-                     "launches": launch.counted_launches()}
+                     "launches": _build.LAUNCHES.copy()}
     return out
 
 

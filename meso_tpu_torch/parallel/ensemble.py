@@ -67,11 +67,12 @@ def ensemble_rank(ring: Ring, device: str, system: System,
     counters set to 0, the run timed on the host clock around synchronised
     work. Returns the final state on the CPU, the mean kinetic energy, the
     diag, the seconds and the launch counts."""
+    from meso_tpu_torch.kernels import _build
     from meso_tpu_torch.parallel import launch
     cuda = torch.device(device).type == "cuda"
     state = launch.on_device(states[ring.rank], device)
     params = launch.params_on(params, device)
-    launch.reset_launches()
+    _build.reset_launch_counts()
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -81,7 +82,7 @@ def ensemble_rank(ring: Ring, device: str, system: System,
     return {"seconds": time.perf_counter() - t0, "ke_mean": float(ke),
             "diag": {k: float(v) for k, v in diag.items()},
             "state": launch.on_device(state, "cpu"),
-            "launches": launch.counted_launches()}
+            "launches": _build.LAUNCHES.copy()}
 
 
 # ---------------------------------------------------------------------------
@@ -127,13 +128,14 @@ def ensemble_spatial_rank(ring: Ring, device: str, system: System,
     ``coords["x"]`` of replica ``coords["dp"]`` on ``device``. Returns
     the final slab on the CPU, the diag, the seconds and the launch
     counts."""
+    from meso_tpu_torch.kernels import _build
     from meso_tpu_torch.parallel import launch
     mesh = make_ensemble_spatial_mesh(len(states), len(states[0]))
     cuda = torch.device(device).type == "cuda"
     state = launch.on_device(states[mesh.coords["dp"]][mesh.coords["x"]],
                              device)
     params = launch.params_on(params, device)
-    launch.reset_launches()
+    _build.reset_launch_counts()
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -144,7 +146,7 @@ def ensemble_spatial_rank(ring: Ring, device: str, system: System,
     return {"seconds": time.perf_counter() - t0,
             "diag": {k: float(v) for k, v in diag.items()},
             "state": launch.on_device(state, "cpu"),
-            "launches": launch.counted_launches()}
+            "launches": _build.LAUNCHES.copy()}
 
 
 def collect_ensemble_spatial(states: list[list[State]]) -> list[State]:

@@ -30,6 +30,7 @@ from pathlib import Path
 import torch
 import torch.multiprocessing as mp
 
+from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.parallel.comm import Mesh, make_ring
 
 
@@ -114,29 +115,6 @@ def params_on(params, device):
                           inv_mass=params.inv_mass.to(device))
 
 
-def counted_launches() -> dict:
-    """Every kernel launch counter of the port, by name."""
-    from meso_tpu_torch.core import integrate
-    from meso_tpu_torch.kernels import _brick, pair_dpd_v3
-    from meso_tpu_torch.neighbor import bucket_layout
-    from meso_tpu_torch.ops import bonded
-    return {**pair_dpd_v3.LAUNCHES, **_brick.LAUNCHES,
-            **bucket_layout.LAUNCHES, **bonded.LAUNCHES,
-            **integrate.LAUNCHES}
-
-
-def reset_launches() -> None:
-    from meso_tpu_torch.core import integrate
-    from meso_tpu_torch.kernels import _brick, pair_dpd_v3
-    from meso_tpu_torch.neighbor import bucket_layout
-    from meso_tpu_torch.ops import bonded
-    pair_dpd_v3.reset_launch_counts()
-    _brick.reset_launch_counts()
-    bucket_layout.reset_launch_counts()
-    bonded.reset_launch_counts()
-    integrate.reset_launch_counts()
-
-
 def slab_run(ring, device: str, system, params, states, dcfg,
              nchunks: int = 1, warmup: int = 0, then=None,
              then_args: tuple = ()) -> dict:
@@ -156,7 +134,7 @@ def slab_run(ring, device: str, system, params, states, dcfg,
     cuda = torch.device(device).type == "cuda"
     state = on_device(states[ring.rank], device)
     params = params_on(params, device)
-    reset_launches()
+    _build.reset_launch_counts()
     out = {"warmup_diag": None}
     if warmup:
         state, diag = run_distributed(system, params, state, warmup, ring,
@@ -174,7 +152,7 @@ def slab_run(ring, device: str, system, params, states, dcfg,
         state, more = then(ring, system, params, state, dcfg, *then_args)
         out.update(more)
     return {**out, "state": on_device(state, "cpu"),
-            "launches": counted_launches()}
+            "launches": _build.LAUNCHES.copy()}
 
 
 def domain_runner(dcfg):

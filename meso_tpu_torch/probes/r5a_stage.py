@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from meso_tpu_torch import probes
+from meso_tpu_torch.kernels import _build
 
 N_OUT = 4
 # K1's rows at 1,029,000 particles: 50^3 cells of K = 16 (L = 70, spill)
@@ -50,7 +51,7 @@ def null_stage(view: torch.Tensor) -> torch.Tensor:
                          "multiple of 4 (16-byte loads)")
     out = torch.empty((N_OUT, 2, ny2 - 2, zc, kp, l_lane),
                       dtype=torch.float32, device=view.device)
-    probes.launch("probe_null_stage", "meso_probe_null_stage",
+    _build.launch("probe_null_stage", "meso_probe_null_stage",
                   view.data_ptr(), out.data_ptr(), ny2 - 2, zc, kp * l_lane,
                   device=view.device)
     return out

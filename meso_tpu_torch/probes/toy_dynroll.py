@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from meso_tpu_torch import probes
+from meso_tpu_torch.kernels import _build
 
 L = 256
 OFFS = (1, -2, 5, 0)
@@ -56,7 +57,7 @@ def dynroll(x: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
                                                            torch.int32)})
     out = torch.empty_like(x)
     rows, n = x.shape
-    probes.launch("probe_dynroll", "meso_probe_dynroll", x.data_ptr(),
+    _build.launch("probe_dynroll", "meso_probe_dynroll", x.data_ptr(),
                   offs.data_ptr(), offs.numel(), out.data_ptr(), rows, n,
                   device=x.device)
     return out
@@ -80,7 +81,7 @@ def cond(x: torch.Tensor, jm: torch.Tensor) -> torch.Tensor:
         return cond_plain(x, jm)
     probes.check_inputs({"x": (x, torch.float32), "jm": (jm, torch.int32)})
     out = torch.empty_like(x)
-    probes.launch("probe_cond", "meso_probe_cond", x.data_ptr(),
+    _build.launch("probe_cond", "meso_probe_cond", x.data_ptr(),
                   jm.data_ptr(), out.data_ptr(), x.numel(), device=x.device)
     return out
 

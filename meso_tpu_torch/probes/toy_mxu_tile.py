@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from meso_tpu_torch import probes
+from meso_tpu_torch.kernels import _build
 
 TOL = 1e-5
 # the tile's error against float64 may be this many times the float32
@@ -64,7 +65,7 @@ def _gemm(name, a, b, transpose_a: bool):
                          " need M % 16 == 0 (M <= 512), N % 8 == 0 (N % 32 "
                          "== 0 above 32), K % 8 == 0 and matching K")
     c = torch.empty((nb, m, n), dtype=torch.float32, device=a.device)
-    probes.launch(name, "meso_probe_gemm", a.data_ptr(), b.data_ptr(),
+    _build.launch(name, "meso_probe_gemm", a.data_ptr(), b.data_ptr(),
                   c.data_ptr(), nb, m, n, k, int(transpose_a),
                   device=a.device)
     return c[0] if one else c
@@ -126,7 +127,7 @@ def tile(ai: torch.Tensor, bj: torch.Tensor) -> torch.Tensor:
         raise ValueError("tile takes ai (B, 128, 8) and bj (B, 8, 128)")
     out = torch.empty((ai.shape[0], 128, 3), dtype=torch.float32,
                       device=ai.device)
-    probes.launch("probe_tile", "meso_probe_tile", ai.data_ptr(),
+    _build.launch("probe_tile", "meso_probe_tile", ai.data_ptr(),
                   bj.data_ptr(), out.data_ptr(), ai.shape[0],
                   device=ai.device)
     return out[0] if one else out

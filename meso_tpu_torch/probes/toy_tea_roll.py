@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from meso_tpu_torch import probes
+from meso_tpu_torch.kernels import _build
 from meso_tpu_torch.core import rng as rngmod
 
 K, W, NZ = 16, 10, 6
@@ -114,7 +115,7 @@ def tea_roll(stack: torch.Tensor, iscal: torch.Tensor,
     mixer, rounds, ordering, all_rows = CASES[variant]
     offs = _offsets(stack.device)
     out = torch.empty((1, 1, k, n), dtype=torch.float32, device=stack.device)
-    probes.launch("probe_tea_roll", "meso_probe_tea_roll", stack.data_ptr(),
+    _build.launch("probe_tea_roll", "meso_probe_tea_roll", stack.data_ptr(),
                   iscal.data_ptr(), offs.data_ptr(), len(OFFS),
                   out.data_ptr(), k, n, mixer, rounds, ordering, all_rows,
                   device=stack.device)

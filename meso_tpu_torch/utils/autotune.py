@@ -4,8 +4,9 @@ machinery's knobs (skin, rebuild cadence, spill, rebuild engine, bucket
 capacity, deferred wrap), measured on ``run_bucket_fixed``.
 
 Candidates that differ only in knobs the port ignores (``z_chunks``;
-``pair_kernel`` "v3_dynroll", which runs as "v3") build the same System,
-which is measured once. Unlike the JAX package, a sweep in which no
+``pair_kernel`` "v3_dynroll", which runs as "v3"; the rebuild engine,
+``cells.rebuild``, which places alike) build the same System, which is
+measured once. Unlike the JAX package, a sweep in which no
 candidate could be built raises instead of calling ``min`` on nothing.
 """
 
@@ -53,7 +54,8 @@ def _same_run(system):
     kernel = system.pair_kernel
     return system.replace(z_chunks=0,
                           pair_kernel="v3" if kernel.startswith("v3")
-                          else kernel)
+                          else kernel,
+                          cells=system.cells.replace(rebuild="gather"))
 
 
 def _sync(device) -> None:

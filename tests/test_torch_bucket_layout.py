@@ -1,8 +1,10 @@
 """The port's bucket layout and rebuild (meso_tpu_torch/neighbor/) against
-the JAX package's: slot assignment, dummy targets, both rebuild engines,
-the deferred wrap with its wrap-relief pre-shift, and the overflow check
-give bitwise-equal placement on the same input state. The cases mirror
-tests/unit/test_spill_assign.py, test_bucket.py and test_wrap_mode.py.
+the JAX package's: slot assignment, the port's one placement against both
+of JAX's rebuild engines, for fewer and for more input rows than bucket
+rows, the deferred wrap with its wrap-relief pre-shift, and the overflow
+check give bitwise-equal placement on the same input state. The cases
+mirror tests/unit/test_spill_assign.py, test_bucket.py and
+test_wrap_mode.py.
 Also a numpy copy of the slot-assignment kernel's blocks
 (csrc/bucket_assign.cu), which runs only on the card, against the plain
 version it replaces there."""
@@ -35,7 +37,6 @@ FIELDS = ("x", "v", "f", "tag", "typ", "mol", "image", "mask")
 # the JAX side runs jitted, as its own tests run it: eager dispatch of
 # these graphs costs seconds per case
 j_spill_assign = jax.jit(jbl.spill_assign, static_argnums=(3, 4, 5, 6, 7))
-j_dummy_targets = jax.jit(jbl._dummy_targets, static_argnums=(2,))
 j_rebuild = jax.jit(jbl.rebuild_buckets, static_argnames="cfg")
 
 
@@ -63,8 +64,8 @@ def _jax_state(l, n, seed, skin=0.3, spill=True, wrap=False, cap=None,
 
 
 def _make_case(seed, nx, n_rows_yz, k, mean_occ, n_pad):
-    """Sorted-key inputs as both rebuild engines produce them (the same
-    generator as tests/unit/test_spill_assign.py)."""
+    """Sorted-key inputs as the rebuild produces them (the same generator
+    as tests/unit/test_spill_assign.py)."""
     rng = np.random.default_rng(seed)
     n_cells = n_rows_yz * nx
     occ = rng.poisson(mean_occ, size=n_cells)
@@ -83,8 +84,7 @@ SPILL_CASES = [(5, 4, 4, 1.0), (8, 16, 8, 3.0), (16, 36, 16, 9.2),
 
 @pytest.mark.parametrize("wrap", [True, False])
 @pytest.mark.parametrize("nx,n_rows_yz,k,mean_occ", SPILL_CASES)
-def test_spill_assign_and_dummy_targets_bitwise(nx, n_rows_yz, k, mean_occ,
-                                                wrap):
+def test_spill_assign_bitwise(nx, n_rows_yz, k, mean_occ, wrap):
     nr = n_rows_yz * nx * k
     for seed in range(2):
         base, cxs, valid = _make_case(1000 * seed + nx + k, nx, n_rows_yz, k,
@@ -100,15 +100,12 @@ def test_spill_assign_and_dummy_targets_bitwise(nx, n_rows_yz, k, mean_occ,
         for g, w, name in zip(got, want, ("target", "fits", "overflow")):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w),
                                           err_msg=name)
-        target, fits = got[0], got[1]
-        np.testing.assert_array_equal(
-            tbl._dummy_targets(target, fits, nr).numpy(),
-            np.asarray(j_dummy_targets(want[0], want[1], nr)))
 
 
 @pytest.mark.parametrize("spill", [False, True])
 def test_first_conversion_gather_engine_bitwise(spill):
-    """N-row state -> bucket rows (n != nr): the gather engine."""
+    """N-row state -> bucket rows (n != nr): JAX's gather engine (its sort
+    engine takes only nr rows) against the port's one placement."""
     st, cfg = _jax_state(8.0, 1536, 3, spill=spill, rebuild="sort")
     want = jbl.to_bucket_state(st, cfg)
     tcfg = bridge.cell_config_from(cfg)
@@ -120,7 +117,8 @@ def test_first_conversion_gather_engine_bitwise(spill):
 @pytest.mark.parametrize("engine", ["gather", "sort"])
 @pytest.mark.parametrize("spill", [False, True])
 def test_steady_state_rebuild_bitwise(spill, engine):
-    """Drifted nr-row state: both engines, step-wrapped positions."""
+    """Drifted nr-row state, step-wrapped positions: each of JAX's engines
+    against the port's one placement."""
     st, cfg = _jax_state(8.0, 1536, 4, spill=spill, rebuild=engine)
     bst = jbl.to_bucket_state(st, cfg)
     bst = bst.replace(x=bst.box.wrap(bst.x + 0.05 * bst.v)[0],
@@ -182,8 +180,8 @@ def test_wrap_relief_preshift_bitwise(engine):
 
 @pytest.mark.parametrize("spill", [False, True])
 def test_overflow_count_and_error(spill):
-    """A capacity far too small: both engines count the same overflow, and
-    to_bucket_state raises in both packages."""
+    """A capacity far too small: both packages count the same overflow, and
+    to_bucket_state raises in both."""
     st, cfg = _jax_state(8.0, 1536, 5, spill=spill, cap=4)
     _, of_w = j_rebuild(st, cfg)
     tst, tcfg = bridge.state_from(st), bridge.cell_config_from(cfg)
@@ -193,6 +191,42 @@ def test_overflow_count_and_error(spill):
         jbl.to_bucket_state(st, cfg)
     with pytest.raises(ValueError, match="overflowed"):
         tbl.to_bucket_state(tst, tcfg)
+
+
+def _merged_with_migrants(bst, n_mig):
+    """A slab's rows after its migration: the bucket rows with their first
+    ``n_mig`` valid rows gone (masked) and those rows appended, moved 0.2
+    along x (some out of the box), as the rows that came in."""
+    rows = np.flatnonzero(np.asarray(bst.mask))[:n_mig]
+    mig = {f: getattr(bst, f)[rows] for f in FIELDS}
+    mig["x"] = mig["x"].at[:, 0].add(0.2)
+    out = bst.replace(mask=bst.mask.at[rows].set(False))
+    return out.replace(**{f: jnp.concatenate([getattr(out, f), mig[f]])
+                          for f in FIELDS})
+
+
+@pytest.mark.parametrize("rows", ["fewer", "more"])
+@pytest.mark.parametrize("spill", [False, True])
+def test_place_rows_takes_any_row_count_bitwise(spill, rows):
+    """place_rows on the keys and slot targets of fewer input rows than
+    bucket rows (an N-row start) and of more (a slab merged with its
+    migrants, as ``run_distributed`` rebuilds it) gives JAX's gather
+    engine's placement and overflow, bitwise; on spill buckets with the
+    deferred wrap and its relief."""
+    st, cfg = _jax_state(8.0, 1536, 6, spill=spill, wrap=spill,
+                         rebuild="gather")
+    nr = jbl.n_rows(cfg)
+    if rows == "more":
+        st = _merged_with_migrants(jbl.to_bucket_state(st, cfg), 300)
+    assert (st.n > nr) == (rows == "more")
+    want, of_w = j_rebuild(st, cfg)
+    tcfg = bridge.cell_config_from(cfg)
+    tst, key = tbl.cell_keys(bridge.state_from(st), tcfg,
+                             tcfg.wrap_at_rebuild)
+    order, target, fits, overflow, relief = tbl.slot_targets(key, tcfg)
+    got = tbl.place_rows(tst, order, target, fits, nr, relief)
+    assert int(overflow) == int(of_w)
+    _assert_state_bitwise(want, got)
 
 
 @pytest.mark.parametrize("l,rc,density,skin,spill", [
@@ -336,18 +370,18 @@ def _assign_emulated(base, cxs, valid, nx, k, n_rows_yz, wrap):
 
 def _keys_case(kind, k):
     """(base, cxs, valid, nx, n_rows_yz) as the callers of spill_assign
-    build them: the sort engine's nr rows of a drifted bucket state, the
-    gather engine's N-row start, a brick's rows with those outside it
-    masked, and generated keys: long rows (K 216, rho 200), sparse rows with
-    empty (cy, cz) segments, and a pile in a row's last cell that spills
-    past the row and wraps into cell 0."""
-    if kind in ("sort", "gather", "brick"):
+    build them: the nr rows of a drifted bucket state, an N-row start, a
+    brick's rows with those outside it masked, and generated keys: long
+    rows (K 216, rho 200), sparse rows with empty (cy, cz) segments, and
+    a pile in a row's last cell that spills past the row and wraps into
+    cell 0."""
+    if kind in ("sort", "start", "brick"):
         l, n = 12.0, int(round((6.0 if k > 24 else 3.0) * 12.0 ** 3))
         box = Box.cubic(l)
         st = create_random(torch.Generator().manual_seed(k), n, box)
         cfg = CellConfig.for_box([l] * 3, 1.0, n / l ** 3, skin=0.4,
                                  spill=True, capacity=k)
-        if kind != "gather":
+        if kind != "start":
             # bucket rows (a random start's few overflowing rows dropped)
             st = tbl.rebuild_buckets(st, cfg)[0]
             st = st.replace(x=st.box.wrap(st.x + 0.05 * st.v)[0])
@@ -372,7 +406,7 @@ def _keys_case(kind, k):
     return keys // nx, keys % nx, keys < nx * n_rows_yz, nx, n_rows_yz
 
 
-ASSIGN_CASES = [("sort", 16), ("sort", 28), ("gather", 16), ("gather", 28),
+ASSIGN_CASES = [("sort", 16), ("sort", 28), ("start", 16), ("start", 28),
                 ("brick", 16), ("long", 216), ("sparse", 16), ("sparse", 28),
                 ("pile", 16), ("pile", 28)]
 
@@ -403,7 +437,7 @@ def test_assign_kernel_emulation_matches_plain_bitwise(kind, k, wrap):
     if kind == "pile" and wrap:
         t = want[0].numpy()
         assert (want[1].numpy() & (cxs == nx - 1) & (t % nx == 0)).any()
-    if kind in ("gather", "brick"):
+    if kind in ("start", "brick"):
         assert n_in != n_rows_yz * k * nx
     if kind == "sort":
         assert n_in == n_rows_yz * k * nx

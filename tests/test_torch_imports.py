@@ -3,7 +3,9 @@ package's tools, its kernels are never replaced by their plain versions
 off the CPU, and paths the JAX package refuses raise instead of running
 something else."""
 
+import collections
 import inspect
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -16,10 +18,11 @@ from meso_tpu_torch import bridge
 from meso_tpu_torch.core.box import Box
 from meso_tpu_torch.core.state import create_random
 from meso_tpu_torch.core.system import System, SystemParams, make_step, setup
-from meso_tpu_torch.kernels import (_brick, _build, pair_dpd,
-                                    pair_dpd_fused, pair_multiphysics)
+from meso_tpu_torch.kernels import (_build, pair_dpd, pair_dpd_fused,
+                                    pair_multiphysics)
+from meso_tpu_torch.kernels._build import LAUNCHES
 from meso_tpu_torch.kernels.pair_dpd_v3 import (
-    LAUNCHES, bucket_forces_pallas_v3, bucket_forces_pallas_v3_edpd,
+    bucket_forces_pallas_v3, bucket_forces_pallas_v3_edpd,
     bucket_forces_pallas_v3_tdpd, particle_hash_v3, uniform_stream_v3)
 from meso_tpu_torch.models.classic import classic_fluid
 from meso_tpu_torch.models.polymer import membrane_suspension, polymer_melt
@@ -110,6 +113,44 @@ def test_no_jax_in_sources():
                     f"{path}: {line}"
 
 
+def test_launches_only_through_build():
+    """No module of the port but ``kernels/_build.py`` calls a function of
+    the kernel library or keeps a launch counter: every launch goes
+    through ``_build.launch`` and is counted in ``_build.LAUNCHES``."""
+    build = REPO / "meso_tpu_torch" / "kernels" / "_build.py"
+    for path in (REPO / "meso_tpu_torch").rglob("*.py"):
+        if path == build:
+            continue
+        text = path.read_text()
+        assert "lib.meso_" not in text, path
+        assert not re.search(r"^\s*LAUNCHES\s*[:=]", text, re.M), path
+
+
+def test_launch_counts_under_its_name(monkeypatch):
+    """``_build.launch`` calls the library's entry point with the device's
+    stream last, counts one launch under the name it is given, and counts
+    nothing where the call reports an error."""
+    calls, codes = [], [0, 2]
+
+    class Library:
+        def meso_stub(self, *args):
+            calls.append(args)
+            return codes.pop(0)
+
+    monkeypatch.setattr(_build, "load_library", Library)
+    monkeypatch.setattr(_build, "stream_of", lambda device: f"{device}:s")
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+    _build.launch("stub", "meso_stub", 1, 2, device="card")
+    assert calls == [(1, 2, "card:s")]
+    assert _build.LAUNCHES == {"stub": 1}
+    with pytest.raises(RuntimeError, match="stub: CUDA launch failed "
+                                           "with cudaError 2"):
+        _build.launch("stub", "meso_stub", device="card")
+    assert _build.LAUNCHES == {"stub": 1}
+    _build.reset_launch_counts()
+    assert _build.LAUNCHES["stub"] == 0
+
+
 def _meta_case():
     """A small bucket state moved to the meta device: not the CPU, so the
     wrappers must take their kernel path."""
@@ -136,10 +177,10 @@ def test_non_cpu_input_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         particle_hash_v3(st.tag, 1, pair.seed)
     rows = st.tag.to(torch.int64)
-    assigned = dict(bucket_layout.LAUNCHES)
+    assigned = dict(LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         bucket_layout.spill_assign(rows, rows, st.mask, st.n, 5, 16, 25)
-    assert bucket_layout.LAUNCHES == assigned
+    assert LAUNCHES == assigned
     with pytest.raises(RuntimeError, match="nvcc not found"):
         uniform_stream_v3(st.tag.to(torch.int64), 0)
     n = st.n
@@ -178,14 +219,14 @@ def test_bonds_on_a_non_cpu_tensor_without_nvcc_raise(monkeypatch):
     mb = bonded.BondedParams(bond_tags=b.bond_tags.to("meta"),
                              bond_type=b.bond_type.to("meta"),
                              bond_coeffs=b.bond_coeffs.to("meta"))
-    before = dict(bonded.LAUNCHES)
+    before = dict(LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         bonded.bonded_forces(meta.x, meta.tag, meta.mask, meta.box, mb,
                              "fene", system.n_tags)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         bonded.bonded_forces_ext(meta.x, meta.tag, meta.mask, meta.box, mb,
                                  "fene", system.n_tags)
-    assert bonded.LAUNCHES == before
+    assert LAUNCHES == before
 
 
 @pytest.mark.parametrize("builder", [classic_fluid, edpd_slab,
@@ -313,7 +354,7 @@ def test_selectors_reach_their_entry_points(monkeypatch, selector):
     monkeypatch.setattr(module, entry, spy)
     state = setup(system, params, state)
     state = make_step(system)(params, state)
-    assert calls == [entry, entry] and _brick.LAUNCHES[name] == 0
+    assert calls == [entry, entry] and LAUNCHES[name] == 0
     assert bool(torch.isfinite(state.f).all())
 
 
@@ -344,11 +385,11 @@ def test_selector_wrappers_without_nvcc_raise(monkeypatch, selector):
                                 seed=1).to("meta")
         pair.__dict__["rc_max"] = 1.0   # a meta table cannot be read
         field = (torch.ones((n, 1), device="meta"),)
-    before = dict(_brick.LAUNCHES)
+    before = dict(LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         getattr(module, entry)(st.x, st.v, *field, st.typ, st.tag, st.mask,
                                st.box, 1, pair, 0.01, cells)
-    assert _brick.LAUNCHES == before
+    assert LAUNCHES == before
 
 
 def test_wrap_mode_rebuild_needs_bucket_path():
@@ -471,7 +512,7 @@ def test_halo_wrappers_without_nvcc_raise(monkeypatch):
                            seed=1).to("meta")
     edpd = EDPDParams.build(a=25.0, gamma=4.5, rc=1.0, kappa=1.0, cv=10.0,
                             seed=1).to("meta")
-    before = dict(_brick.LAUNCHES)
+    before = dict(LAUNCHES)
     calls = [
         lambda: pair_dpd_fused.halo_forces_pallas_fused(planes, box, 1, pair,
                                                         0.01, cfg),
@@ -482,7 +523,7 @@ def test_halo_wrappers_without_nvcc_raise(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert _brick.LAUNCHES == before
+    assert LAUNCHES == before
 
 
 def test_distributed_entry_points_default_to_the_card():

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from meso_tpu_torch.core.box import Box
-from meso_tpu_torch.kernels import _brick, cell_tiles
+from meso_tpu_torch.kernels import _brick, _build, cell_tiles
 from meso_tpu_torch.kernels.pair_dpd import bucket_forces_pallas
 from meso_tpu_torch.neighbor.cells import CellConfig
 from meso_tpu_torch.ops.dpd import DPDParams
@@ -156,14 +156,14 @@ def test_k6_refuses_spill_before_the_card():
     x = torch.zeros((nr, 3), device="meta")
     pair = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
                            seed=1).to("meta")
-    before = dict(_brick.LAUNCHES), dict(_brick.BUILDS)
+    before = dict(_build.LAUNCHES), dict(_brick.BUILDS)
     with pytest.raises(ValueError, match="R7"):
         bucket_forces_pallas(
             x, x, torch.zeros(nr, dtype=torch.int32, device="meta"),
             torch.zeros(nr, dtype=torch.int32, device="meta"),
             torch.zeros(nr, dtype=torch.bool, device="meta"),
             Box.cubic(6.0, device="meta"), 1, pair, 0.01, cfg)
-    assert (dict(_brick.LAUNCHES), dict(_brick.BUILDS)) == before
+    assert (dict(_build.LAUNCHES), dict(_brick.BUILDS)) == before
 
 
 @pytest.mark.parametrize("capacity", [397, 495])
@@ -182,11 +182,11 @@ def test_k6_takes_k1s_capacity_limit(capacity):
     rows = torch.zeros(nr, dtype=torch.int32, device="meta")
     pair = DPDParams.build(a=25.0, gamma=4.5, rc=1.0, kt=1.0,
                            seed=1).to("meta")
-    before = dict(_brick.LAUNCHES), dict(_brick.BUILDS)
+    before = dict(_build.LAUNCHES), dict(_brick.BUILDS)
     with pytest.raises(ValueError, match=f"K1's cell tiles: capacity "
                                          f"{capacity} "):
         bucket_forces_pallas(
             x, x, rows, rows, torch.zeros(nr, dtype=torch.bool,
                                           device="meta"),
             Box.cubic(6.0, device="meta"), 1, pair, 0.01, cfg)
-    assert (dict(_brick.LAUNCHES), dict(_brick.BUILDS)) == before
+    assert (dict(_build.LAUNCHES), dict(_brick.BUILDS)) == before

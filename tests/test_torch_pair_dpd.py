@@ -149,7 +149,7 @@ def test_unported_kernel_cases_raise(case, monkeypatch):
     import torch.utils.cpp_extension
 
     from meso_tpu_torch.kernels import _build
-    from meso_tpu_torch.kernels.pair_dpd_v3 import LAUNCHES
+    from meso_tpu_torch.kernels._build import LAUNCHES
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("CUDA_PATH", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")

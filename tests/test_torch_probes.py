@@ -114,7 +114,6 @@ def test_probe_wrappers_without_nvcc_raise(monkeypatch):
     probe wrapper raises; none falls back to its plain version."""
     import torch.utils.cpp_extension
 
-    from meso_tpu_torch import probes
     from meso_tpu_torch.kernels import _build
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("CUDA_PATH", "/nonexistent")
@@ -136,8 +135,8 @@ def test_probe_wrappers_without_nvcc_raise(monkeypatch):
         lambda: toy_tea_roll.tea_roll(meta(3, 1, 16, 60),
                                       meta(1, 2, dtype=torch.int32), "base"),
         lambda: r5a_stage.null_stage(meta(8, 5, 1, 8, 16))]
-    before = dict(probes.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert probes.LAUNCHES == before
+    assert _build.LAUNCHES == before
